@@ -7,20 +7,31 @@ Phases (each raises on failure; the script then exits non-zero):
 
 0. Environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions.
-1. Build: compile the CUDA kernels from csrc/ with nvcc.
-2. Kernels: capture each kernel's inputs from one 1920x1080 default
-   frame of the asset-free scene, then hold every CUDA kernel against its
-   plain PyTorch version on those same card tensors, and time both: the
-   median over 20 calls of the device time between two CUDA events, with
-   each call queued behind a sleep kernel so the host's issue time is not
-   in the measurement.
-3. Frame at 256x128: the default frame on the card against the port's
-   CPU frame of the same scene, within the golden bar of
-   tests/test_golden.py (mean |diff| < 2/255, < 0.5% of channels > 16/255).
-4. Frame at 1920x1080 through the port's App.run along the reference
-   benchmark's small camera orbit: finite, not black, sky and geometry
-   both present, no bin overflow, and every kernel's launch counter
-   advanced during the run.  Prints the steady-state ms/frame.
+1. Build: compile the CUDA kernels from csrc/ with nvcc (one process per
+   source, all at once).
+2. Kernels: capture each kernel's inputs from one 1920x1080 frame of the
+   asset-free scene on each of the port's three paths (default, reference
+   sampling, megakernel), then hold every CUDA kernel against its plain
+   PyTorch version on those same card tensors, and time both: the median
+   over 20 calls of the device time between two CUDA events, with each
+   call queued behind a sleep kernel so the host's issue time is not in
+   the measurement.  Each kernel's bound is the larger of the bytes it
+   must move over 3.35 TB/s and its FP32 operations over 67 TFLOP/s
+   (the H100 SXM data sheet), both counted from this run's inputs.
+3. Frames at 256x128: the default frame, the reference-path frame
+   (fast_sampling=False), the UV1 scene under default flags and the
+   megakernel frame (raster_interp_attrs=True, ssao_res_divisor=1), each
+   on the card against the port's CPU frame of the same scene, within the
+   golden bar of tests/test_golden.py (mean |diff| < 2/255, < 0.5% of
+   channels > 16/255).
+4. Frames at 1920x1080 through the port's App.run along the reference
+   benchmark's small camera orbit, on each path: finite, not black, sky
+   and geometry both present, no bin overflow, and every kernel of the
+   path launched during its run (the counts are set to 0 just before each
+   path and read just after; the reference path re-rasterizes the shadow
+   map every frame).  Prints each path's steady-state ms/frame, then its
+   kernel launches and device kernel time per frame from torch.profiler
+   over two more frames.
 
 The last two lines are a JSON summary of the kernels and the contract
 line {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -29,6 +40,7 @@ checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -50,7 +62,33 @@ KERNELS = {
              "mo_renderer_tpu/passes/ssao.py:171"),
     "interleave": ("mo_renderer_tpu_torch/csrc/interleave.cu",
                    "mo_renderer_tpu/kernels/decimate.py:98"),
+    "raster_full": ("mo_renderer_tpu_torch/csrc/raster.cu",
+                    "mo_renderer_tpu/kernels/rasterizer.py:549"),
+    "raster_attrs": ("mo_renderer_tpu_torch/csrc/raster_attrs.cu",
+                     "mo_renderer_tpu/kernels/rasterizer.py:288"),
 }
+
+# the port's three paths: EngineConfig overrides and the kernels each runs
+PATHS = {
+    "default": ({}, ("raster_slim", "raster_depth", "attr_planes", "ssao",
+                     "interleave")),
+    "reference": ({"fast_sampling": False},
+                  ("raster_full", "raster_depth", "ssao")),
+    "megakernel": ({"raster_interp_attrs": True},
+                   ("raster_attrs", "raster_depth", "ssao")),
+}
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_FLOPS_PER_S = 67e12  # outside the tensor cores
+
+# FP32 operations per unit of work, counted from the kernels' arithmetic
+# (multiplies, adds and square roots; an FMA counts two; compares,
+# selects and integer work not counted)
+RASTER_FLOPS_PER_CANDIDATE = 16  # 3 edges x 4 + the fused depth plane
+FULL_FLOPS_PER_PIXEL = 8  # two fused edges and two products, per pixel
+ATTRS_FLOPS_PER_PIXEL = 95  # q, qs, 1/qs, 14 channels x 5
+ATTR_PLANES_FLOPS_PER_PIXEL = 50
+SSAO_FLOPS_PER_TAP = 10
 
 
 def card_line() -> str:
@@ -83,19 +121,25 @@ def median_ms(fn, runs=20, sleep_cycles=50_000_000):
     return statistics.median(times)
 
 
+def bound(n_bytes, n_flops):
+    """(bound_ms, bound_by): the least time for the bytes and the FP32
+    operations at the card's published peaks."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def capture_inputs(cfg, device):
-    """Run one default frame and record what each kernel wrapper got."""
+    """Run one frame on each path and record what each kernel wrapper got
+    (the first call per kernel)."""
     import mo_renderer_tpu_torch.passes.frame_graph as FG
     import mo_renderer_tpu_torch.passes.gbuffer as GB
     from mo_renderer_tpu_torch import Renderer, scenes
 
-    world = scenes.tiny_world()
-    world.insert_resource(scenes.camera(cfg))
-    renderer = Renderer(cfg, device)
-    renderer.prepare(world)
     seen = {}
     originals = {
         (FG, "rasterize"): FG.rasterize,
+        (FG, "rasterize_attrs"): FG.rasterize_attrs,
         (GB, "attr_planes"): GB.attr_planes,
         (FG, "ssao_pass_tiles"): FG.ssao_pass_tiles,
         (FG, "reconstruct_full"): FG.reconstruct_full,
@@ -105,25 +149,34 @@ def capture_inputs(cfg, device):
         def wrapped(*args, **kw):
             name = key
             if key == "raster":
-                name = "raster_depth" if kw.get("depth_only") else "raster_slim"
+                name = ("raster_depth" if kw.get("depth_only") else
+                        "raster_slim" if kw.get("slim") else "raster_full")
             seen.setdefault(name, (args, kw))
             return fn(*args, **kw)
         return wrapped
 
     FG.rasterize = recorder("raster", originals[(FG, "rasterize")])
+    FG.rasterize_attrs = recorder(
+        "raster_attrs", originals[(FG, "rasterize_attrs")])
     GB.attr_planes = recorder("attr_planes", originals[(GB, "attr_planes")])
     FG.ssao_pass_tiles = recorder(
         "ssao", originals[(FG, "ssao_pass_tiles")])
     FG.reconstruct_full = recorder(
         "interleave", originals[(FG, "reconstruct_full")])
     try:
-        renderer.render(world)
+        for overrides, _ in PATHS.values():
+            pcfg = dataclasses.replace(cfg, **overrides)
+            world = scenes.tiny_world()
+            world.insert_resource(scenes.camera(pcfg))
+            renderer = Renderer(pcfg, device)
+            renderer.prepare(world)
+            renderer.render(world)
     finally:
         for (mod, attr), fn in originals.items():
             setattr(mod, attr, fn)
     missing = set(KERNELS) - set(seen)
     if missing:
-        raise RuntimeError(f"the 1080p frame never called {sorted(missing)}")
+        raise RuntimeError(f"the frames never called {sorted(missing)}")
     return seen
 
 
@@ -142,26 +195,82 @@ def check_kernels(cfg, device):
     def bytes_of(x):
         return x.contiguous().view(torch.uint8).to(torch.int32)
 
-    # (kernel, plain, comparison -> (max_abs_err, ok, note))
-    def raster(depth):
-        (binned,), kw = seen["raster_depth" if depth else "raster_slim"]
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def exact(a, b):
+        return (a.double() - b.double()).abs().max().item()
+
+    def raster_inputs(binned):
+        return nbytes(binned.tri_data, binned.pair_tri, binned.tile_start,
+                      binned.tile_count)
+
+    def candidates(binned):
+        return binned.pair_tri.shape[0] * binned.tile_h * binned.tile_w
+
+    # each case: (kernel, plain, comparison -> (max_abs_err, ok, bar),
+    # shape, bytes moved, FP32 operations)
+    def raster(mode):
+        (binned,), kw = seen[f"raster_{mode}"]
         w, h = kw["width"], kw["height"]
         shape = f"{h}x{w}, {binned.pair_tri.shape[0]} pairs"
+        n_out = {"depth": 1, "slim": 2, "full": 4}[mode]
+        flops = candidates(binned) * RASTER_FLOPS_PER_CANDIDATE
+        if mode == "full":
+            flops += FULL_FLOPS_PER_PIXEL * w * h
 
         def cmp(k, p):
-            err = (k[1] - p[1]).abs().max().item()
-            if not depth:
-                err = max(err, (k[0] - p[0]).abs().max().item())
-            return err, err == 0.0, "ids and depth exact"
+            err = exact(k[1], p[1])
+            ok = err == 0.0
+            if mode != "depth":
+                ok = ok and bool(torch.equal(k[0], p[0]))
+            if mode == "full":
+                err = max(err, exact(k[2], p[2]), exact(k[3], p[3]))
+                ok = ok and err <= 1e-6
+            bar = {"depth": "depth exact", "slim": "ids and depth exact",
+                   "full": "ids and depth exact, b0/b1 atol 1e-6"}[mode]
+            return err, ok, bar
         return (
-            lambda: R._raster_cuda(binned, w, h, depth),
-            lambda: R._raster_plain(binned, w, h, depth),
-            cmp, shape,
+            lambda: R._raster_cuda(binned, w, h, mode),
+            lambda: R._raster_plain(binned, w, h, mode),
+            cmp, shape, raster_inputs(binned) + n_out * 4 * w * h, flops,
+        )
+
+    def raster_attrs():
+        (binned,), kw = seen["raster_attrs"]
+        w, h = kw["width"], kw["height"]
+
+        def cmp(k, p):
+            ids = torch.equal(k[0], p[0])
+            flat = torch.equal(k[2][R.N_INTERP:], p[2][R.N_INTERP:])
+            z_err = exact(k[1], p[1])
+            err = max(z_err, exact(k[2][:R.N_INTERP], p[2][:R.N_INTERP]))
+            close = bool(torch.allclose(k[2], p[2], rtol=2e-3, atol=1e-4))
+            return err, ids and flat and z_err <= 1e-6 and close, (
+                "ids, mat, handedness exact; z atol 1e-6; "
+                "planes rtol 2e-3 / atol 1e-4")
+        covered = None
+
+        def plain():
+            nonlocal covered
+            out = R._raster_attrs_plain(binned, w, h)
+            covered = int((out[0] >= 0).sum())
+            return out
+        out = plain()
+        flops = (candidates(binned) * RASTER_FLOPS_PER_CANDIDATE
+                 + ATTRS_FLOPS_PER_PIXEL * covered)
+        return (
+            lambda: R._raster_attrs_cuda(binned, w, h), plain, cmp,
+            f"{h}x{w}, {binned.pair_tri.shape[0]} pairs, "
+            f"{binned.tri_data.shape[1]}-float rows -> {out[2].shape[0]} "
+            "planes",
+            raster_inputs(binned) + (2 + out[2].shape[0]) * 4 * w * h, flops,
         )
 
     def attr():
         (tri, attrs, pv), kw = seen["attr_planes"]
         args = (tri, attrs, pv, kw["n_mat"], kw["full_wh"], kw["cb"], 0)
+        n_out = AP.n_planes(kw["n_mat"])
 
         def cmp(k, p):
             err = (k - p).abs().max().item()
@@ -171,12 +280,16 @@ def check_kernels(cfg, device):
         return (
             lambda: AP._attr_planes_cuda(*args),
             lambda: AP._attr_planes_plain(*args),
-            cmp, f"{tuple(tri.shape)} -> {AP.n_planes(kw['n_mat'])} planes",
+            cmp, f"{tuple(tri.shape)} -> {n_out} planes",
+            nbytes(tri, attrs, pv) + n_out * 4 * tri.numel(),
+            ATTR_PLANES_FLOPS_PER_PIXEL * tri.numel(),
         )
 
     def ssao():
         (depth,), kw = seen["ssao"]
         args = (depth, S.NUM_LEVELS, 0, kw["near"], kw["far"])
+        n_taps = max(len(t) for t in S._ssao_tap_table(
+            depth.shape[1], S.NUM_LEVELS)[1])
 
         def cmp(k, p):
             err = (k - p).abs().max().item()
@@ -185,7 +298,8 @@ def check_kernels(cfg, device):
                 f"<= 1.01/255 on < 0.2% of pixels ({frac:.5%} differ)")
         return (
             lambda: S._ssao_cuda(*args), lambda: S._ssao_plain(*args),
-            cmp, f"{tuple(depth.shape)}",
+            cmp, f"{tuple(depth.shape)}", 2 * nbytes(depth),
+            SSAO_FLOPS_PER_TAP * n_taps * depth.numel(),
         )
 
     def interleave():
@@ -198,68 +312,105 @@ def check_kernels(cfg, device):
             lambda: CB._reconstruct_cuda(cb, tri),
             lambda: CB._reconstruct_plain(cb, tri),
             cmp, f"{tuple(cb.shape)} -> {tuple(tri.shape)}",
+            nbytes(cb, tri, tri), 0,
         )
 
     cases = {
-        "raster_slim": raster(False), "raster_depth": raster(True),
+        "raster_slim": raster("slim"), "raster_depth": raster("depth"),
         "attr_planes": attr(), "ssao": ssao(), "interleave": interleave(),
+        "raster_full": raster("full"), "raster_attrs": raster_attrs(),
     }
-    for name, (kern, plain, cmp, shape) in cases.items():
+    for name, (kern, plain, cmp, shape, n_bytes, n_flops) in cases.items():
         k_out, p_out = kern(), plain()
         torch.cuda.synchronize()
         err, ok, bar = cmp(k_out, p_out)
         ms = median_ms(kern)
         plain_ms = median_ms(plain)
+        bound_ms, bound_by = bound(n_bytes, n_flops)
         print(f"[2] {name:13s} {shape}: max |err| {err:.3g} ({bar}) "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.2f} MB, "
+              f"{n_flops / 1e6:.1f} MFLOP)", flush=True)
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
                                  f"version (max |err| {err}, bar: {bar})")
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        results[name] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # no single PyTorch call computes any of these functions
+            "library_ms": None,
+        }
     return results
 
 
-def check_small_frame(device):
-    """Phase 3: the 256x128 default frame on the card vs on the CPU."""
+def check_small_frames(device):
+    """Phase 3: the 256x128 frames on the card vs on the CPU."""
     import numpy as np
 
     from mo_renderer_tpu_torch import Renderer, scenes
 
-    frames = []
-    for dev in (device, "cpu"):
-        cfg = scenes.tiny_config()
-        world = scenes.tiny_world()
-        world.insert_resource(scenes.camera(cfg))
-        r = Renderer(cfg, dev)
-        r.prepare(world)
-        frames.append(r.render(world).astype(np.int32))
-    gpu, cpu = frames
-    if gpu.shape != (128, 256, 4):
-        raise AssertionError(f"256x128 frame has shape {gpu.shape}")
-    diff = np.abs(gpu - cpu)[..., :3]
-    mean, big = diff.mean(), (diff > 16).mean()
-    print(f"[3] 256x128 frame, card vs CPU: max |diff| {diff.max()} LSB, "
-          f"mean {mean:.4f} LSB, {big:.4%} of channels > 16 "
-          "(bar: mean < 2, < 0.5%)", flush=True)
-    if not (mean < 2.0 and big < 0.005):
-        raise AssertionError("256x128 card frame misses the golden bar")
+    cases = {
+        "default": ({}, False),
+        "reference path": ({"fast_sampling": False}, False),
+        "UV1 scene": ({}, True),
+        "megakernel": ({"raster_interp_attrs": True,
+                        "ssao_res_divisor": 1}, False),
+    }
+    for what, (overrides, uv1) in cases.items():
+        frames = []
+        for dev in (device, "cpu"):
+            cfg = scenes.tiny_config(**overrides)
+            world = scenes.tiny_world(uv1=uv1)
+            world.insert_resource(scenes.camera(cfg))
+            r = Renderer(cfg, dev)
+            r.prepare(world)
+            frames.append(r.render(world).astype(np.int32))
+        gpu, cpu = frames
+        if gpu.shape != (128, 256, 4):
+            raise AssertionError(f"256x128 frame has shape {gpu.shape}")
+        diff = np.abs(gpu - cpu)[..., :3]
+        mean, big = diff.mean(), (diff > 16).mean()
+        print(f"[3] 256x128 {what} frame, card vs CPU: max |diff| "
+              f"{diff.max()} LSB, mean {mean:.4f} LSB, {big:.4%} of "
+              "channels > 16 (bar: mean < 2, < 0.5%)", flush=True)
+        if not (mean < 2.0 and big < 0.005):
+            raise AssertionError(f"256x128 {what} card frame misses the "
+                                 "golden bar")
 
 
-def run_full_frame(device, line, n_frames=24, warmup=4):
-    """Phase 4: the 1080p default frame through App.run."""
+def profile_frames(app, n_frames=2):
+    """torch.profiler over ``n_frames`` frames of ``app``: (kernel
+    launches per frame, device kernel ms per frame)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        app.run(num_frames=n_frames)
+        torch.cuda.synchronize()
+    launches, device_us = 0, 0.0
+    for row in prof.key_averages():
+        if row.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                       "cuLaunchKernel", "cuLaunchKernelEx"):
+            launches += row.count
+        # only the device's own rows (kernels, copies): an op's row and
+        # its runtime launch's row repeat the same kernel time
+        if row.device_type == torch.autograd.DeviceType.CUDA:
+            device_us += row.self_device_time_total
+    return launches / n_frames, device_us / 1e3 / n_frames
+
+
+def run_full_frame(device, line, path, n_frames, warmup=3):
+    """Phase 4: one path's 1080p frame through App.run."""
     import numpy as np
     import torch
 
-    from mo_renderer_tpu.config import EngineConfig
     from mo_renderer_tpu_torch import App, scenes
+    from mo_renderer_tpu_torch.config import EngineConfig
     from mo_renderer_tpu_torch.kernels import _build
-    from mo_renderer_tpu_torch.kernels.raster_setup import (
-        triangle_setup_from_attrs,
-    )
-    from mo_renderer_tpu_torch.kernels.rasterizer import rasterize
-    from mo_renderer_tpu_torch.passes.frame_graph import _bin
 
-    cfg = EngineConfig(width=1920, height=1080)
+    overrides, kernels = PATHS[path]
+    cfg = EngineConfig(width=1920, height=1080, **overrides)
     app = App.new(config=cfg, device=device)
     app.world = scenes.tiny_world()
     app.insert_resource(scenes.camera(cfg))
@@ -275,23 +426,20 @@ def run_full_frame(device, line, n_frames=24, warmup=4):
     ms = (time.perf_counter() - t0) * 1e3 / n_frames
     counts = dict(_build.LAUNCHES)
     app.renderer.check_overflow()
-
-    r = app.renderer
-    params, _ = r.frame_params(app.world)
-    setup = triangle_setup_from_attrs(
-        r.scene.tri_attrs, r.scene.tri_valid, params["proj_view"],
-        r.pad_w, r.pad_h,
-    )
-    tri, _, _, _ = rasterize(_bin(setup, r.pad_w, r.pad_h, None),
-                             width=r.pad_w, height=r.pad_h)
-    covered = (tri[: cfg.height, : cfg.width] >= 0).float().mean().item()
+    launches, device_ms = profile_frames(app)
 
     rgb = frame[..., :3]
-    print(f"[4] 1920x1080 frame: shape {frame.shape}, max {rgb.max()}, "
-          f"mean {rgb.mean():.2f}, covered fraction {covered:.4f}, "
-          f"launches over {warmup + n_frames} frames {counts}", flush=True)
-    print(f"[4] steady state: {ms:.3f} ms/frame over {n_frames} frames "
-          f"(App.run, host fetch each frame) on {line}", flush=True)
+    covered = _covered_fraction(app.renderer, app.world, cfg)
+    print(f"[4] {path} 1920x1080 frame: shape {frame.shape}, max "
+          f"{rgb.max()}, mean {rgb.mean():.2f}, covered fraction "
+          f"{covered:.4f}, launches over {warmup + n_frames} frames "
+          f"{counts}", flush=True)
+    print(f"[4] {path} steady state: {ms:.3f} ms/frame over {n_frames} "
+          f"frames (App.run, host fetch each frame) on {line}", flush=True)
+    print(f"[4] {path} profile (2 frames, torch.profiler): {launches:.0f} "
+          f"kernel launches/frame, {device_ms:.3f} ms/frame of device "
+          f"kernel time ({device_ms / ms:.1%} of the unprofiled frame)",
+          flush=True)
     if frame.shape != (1080, 1920, 4) or frame.dtype != np.uint8:
         raise AssertionError(f"frame {frame.shape} {frame.dtype}")
     if rgb.max() == 0:
@@ -299,10 +447,37 @@ def run_full_frame(device, line, n_frames=24, warmup=4):
     if not 0.0 < covered < 1.0:
         raise AssertionError(f"covered fraction {covered}: need sky and "
                              "geometry")
-    idle = [k for k, v in counts.items() if v == 0]
+    idle = [k for k in kernels if counts[k] == 0]
     if idle:
-        raise AssertionError(f"kernels never launched by the frame: {idle}")
+        raise AssertionError(f"{path}: kernels never launched: {idle}")
+    stray = [k for k, v in counts.items() if v and k not in kernels]
+    if stray:
+        raise AssertionError(f"{path}: launched kernels of other paths: "
+                             f"{stray}")
+    if path == "reference" and counts["raster_depth"] != warmup + n_frames:
+        raise AssertionError("the reference path must re-raster the shadow "
+                             "map every frame")
     return counts, ms
+
+
+def _covered_fraction(renderer, world, cfg):
+    """Share of the frame's pixels covered by geometry (depth < 1)."""
+    from mo_renderer_tpu_torch.kernels.raster_setup import (
+        triangle_setup_from_attrs,
+    )
+    from mo_renderer_tpu_torch.kernels.rasterizer import rasterize
+    from mo_renderer_tpu_torch.passes.frame_graph import _bin
+
+    params, _ = renderer.frame_params(world)
+    setup = triangle_setup_from_attrs(
+        renderer.scene.tri_attrs, renderer.scene.tri_valid,
+        params["proj_view"], renderer.pad_w, renderer.pad_h,
+    )
+    tri, _, _, _ = rasterize(_bin(setup, renderer.pad_w, renderer.pad_h,
+                                  None),
+                             width=renderer.pad_w, height=renderer.pad_h,
+                             slim=True)
+    return (tri[: cfg.height, : cfg.width] >= 0).float().mean().item()
 
 
 def main() -> int:
@@ -324,6 +499,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}, "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
+    from mo_renderer_tpu_torch.config import EngineConfig
     from mo_renderer_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -332,16 +508,20 @@ def main() -> int:
           f"{_build.build_seconds:.1f} s (load {time.perf_counter() - t0:.1f}"
           f" s total)", flush=True)
 
-    from mo_renderer_tpu.config import EngineConfig
-
     kernels = check_kernels(EngineConfig(width=1920, height=1080), device)
-    check_small_frame(device)
-    counts, _ = run_full_frame(device, line)
+    check_small_frames(device)
+    launches = {name: {} for name in KERNELS}
+    for path, n_frames in (("default", 16), ("reference", 8),
+                           ("megakernel", 8)):
+        counts, _ = run_full_frame(device, line, path, n_frames)
+        for name in PATHS[path][1]:
+            launches[name][path] = counts[name]
 
     summary = {"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": counts[name], **kernels[name],
+            "launches": sum(launches[name].values()),
+            "launches_by_path": launches[name], **kernels[name],
         }
         for name, (src, rep) in KERNELS.items()
     ]}

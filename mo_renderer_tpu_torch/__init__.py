@@ -3,16 +3,23 @@ PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The JAX package ``mo_renderer_tpu`` stays the reference; this package
 mirrors its layout (``kernels/``, ``passes/``, ``device/``, ``scene/``,
-``assets/``, ``app/``) and keeps its public names and array layouts, so
-the same inputs can be fed to both.  It shares the reference's jax-free
-scene API (``config``, ``math``, ``scene.{world,components,camera,...}``,
-``assets.{procedural,model,materials,...}``, ``app.{application,...}``)
-and never imports ``jax``.
+``assets/``, ``app/``, ``math/``, ``config``) and keeps its public names
+and array layouts, so the same inputs can be fed to both.  It imports
+nothing of the JAX package and never imports ``jax``: the scene API
+(``config``, ``math``, ``scene.{world,components,camera,input,timer}``,
+``assets.{procedural,model,gltf,materials,...}``, ``app``) is its own copy.
 
-Four kernels carry the default frame, each written in CUDA C++ under
-``csrc/`` and built with ``nvcc`` at first use (``kernels/_build.py``):
+The entry points (``App.new``, ``Renderer``) run on the card
+(``device="cuda"``) unless the caller passes ``device="cpu"``.  Three
+frame paths: the default (fast sampling, checkerboard), the reference
+sampling path (``fast_sampling=False`` or a UV1 material) and the raster
+megakernel (``raster_interp_attrs=True``).
 
-- the tile rasterizer (visibility and depth-only modes),
+Their kernels, each written in CUDA C++ under ``csrc/`` and built with
+``nvcc`` at first use (``kernels/_build.py``):
+
+- the tile rasterizer in its visibility, full (barycentrics) and
+  depth-only modes, and the megakernel that interpolates attributes,
 - ``attr_planes`` (per-pixel attribute interpolation),
 - the SSAO tile kernel,
 - the checkerboard reconstruct-and-interleave kernel.

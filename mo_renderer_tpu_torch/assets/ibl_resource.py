@@ -58,7 +58,7 @@ class IBLResource:
         brdf_lut_size: int | None = None,
         device=None,
     ):
-        from mo_renderer_tpu.config import DEFAULT_CONFIG
+        from ..config import DEFAULT_CONFIG
 
         cfg = DEFAULT_CONFIG
         self.name = name
@@ -103,7 +103,7 @@ class IBLResource:
         if self._equirect is not None:
             equirect = self._equirect
         else:
-            from mo_renderer_tpu.assets import image_io
+            from . import image_io
 
             equirect = image_io.load_hdr(self.hdr_path)
         equirect = torch.as_tensor(

@@ -1,6 +1,6 @@
-"""Texture sampling for the fast path (port of the parts of
-``mo_renderer_tpu/device/sampling.py`` the default frame and the IBL
-precompute use).
+"""Texture sampling (port of ``mo_renderer_tpu/device/sampling.py``): the
+reference samplers of the reference sampling path, and the packed layouts
+of the fast path and the IBL precompute.
 
 Conventions follow GLSL ``texture()``: texel centres at (i + 0.5) / N,
 cube faces ordered +X,-X,+Y,-Y,+Z,-Z with the GL coordinate rules, mip
@@ -31,6 +31,62 @@ def wrap_index(i, n: int, mode: int):
     if mode == REPEAT:
         return torch.remainder(i, n)
     return torch.clamp(i, 0, n - 1)
+
+
+def _gather2d(tex, iy, ix):
+    """tex (H, W, C); iy/ix int (...,) -> (..., C)."""
+    h, w, c = tex.shape
+    return take_rows(tex.reshape(h * w, c), iy * w + ix)
+
+
+def _bilerp(t00, t10, t01, t11, fx, fy):
+    top = t00 * (1 - fx) + t10 * fx
+    bot = t01 * (1 - fx) + t11 * fx
+    return top * (1 - fy) + bot * fy
+
+
+def _floor_fract(uv, h: int, w: int):
+    """Texel-centre coordinates of uv: (x0, y0) int32 and (fx, fy) (..., 1)."""
+    x = uv[..., 0] * w - 0.5
+    y = uv[..., 1] * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    return (x0.to(torch.int32), y0.to(torch.int32),
+            (x - x0)[..., None], (y - y0)[..., None])
+
+
+def sample_bilinear(tex, uv, mode: int = CLAMP_TO_EDGE):
+    """GLSL-style bilinear sample; tex (H, W, C), uv (..., 2) -> (..., C)."""
+    h, w, _ = tex.shape
+    x0i, y0i, fx, fy = _floor_fract(uv, h, w)
+    x0w, x1w = wrap_index(x0i, w, mode), wrap_index(x0i + 1, w, mode)
+    y0w, y1w = wrap_index(y0i, h, mode), wrap_index(y0i + 1, h, mode)
+    return _bilerp(
+        _gather2d(tex, y0w, x0w), _gather2d(tex, y0w, x1w),
+        _gather2d(tex, y1w, x0w), _gather2d(tex, y1w, x1w), fx, fy,
+    )
+
+
+def sample_array_bilinear(tex_array, layer, uv, mode: int = CLAMP_TO_EDGE):
+    """Bilinear sample from a texture array (the bindless analog).
+
+    tex_array (L, S, S, C), uint8 (unorm, scaled by 1/255) or float;
+    layer int (...,); uv (..., 2) -> (..., C) f32."""
+    n_layers, h, w, c = tex_array.shape
+    x0i, y0i, fx, fy = _floor_fract(uv, h, w)
+    x0w, x1w = wrap_index(x0i, w, mode), wrap_index(x0i + 1, w, mode)
+    y0w, y1w = wrap_index(y0i, h, mode), wrap_index(y0i + 1, h, mode)
+    flat = tex_array.reshape(n_layers * h * w, c)
+    base = layer.to(torch.int32) * (h * w)
+
+    def tap(iy, ix):
+        v = take_rows(flat, base + iy * w + ix)
+        if tex_array.dtype == torch.uint8:
+            v = v.to(torch.float32) * (1.0 / 255.0)
+        return v
+
+    return _bilerp(tap(y0w, x0w), tap(y0w, x1w), tap(y1w, x0w),
+                   tap(y1w, x1w), fx, fy)
 
 
 # --- PCF window table -------------------------------------------------------
@@ -95,6 +151,24 @@ def cube_face_uv(dirs):
     u = 0.5 * (sc / ma + 1.0)
     v = 0.5 * (tc / ma + 1.0)
     return face, u, v
+
+
+def sample_cubemap(faces, dirs):
+    """Bilinear cubemap sample (clamped at face edges, no seam blending).
+    faces (6, S, S, C); dirs (..., 3) -> (..., C)."""
+    _, s, _, c = faces.shape
+    face, u, v = cube_face_uv(dirs)
+    x0, y0, fx, fy = _floor_fract(torch.stack([u, v], dim=-1), s, s)
+    x0i, x1i = torch.clamp(x0, 0, s - 1), torch.clamp(x0 + 1, 0, s - 1)
+    y0i, y1i = torch.clamp(y0, 0, s - 1), torch.clamp(y0 + 1, 0, s - 1)
+    flat = faces.reshape(6 * s * s, c)
+    base = face * (s * s)
+
+    def tap(iy, ix):
+        return take_rows(flat, base + iy * s + ix)
+
+    return _bilerp(tap(y0i, x0i), tap(y0i, x1i), tap(y1i, x0i),
+                   tap(y1i, x1i), fx, fy)
 
 
 def bilinear_weights(uv, h: int, w: int, mode: int = CLAMP_TO_EDGE):
@@ -258,6 +332,47 @@ class MipCubeQuadMerged:
     @property
     def num_levels(self) -> int:
         return len(self.sizes)
+
+
+def _sample_mipcube_level(data, sizes, offsets, level, face, u, v):
+    """Bilinear sample at per-pixel integer mip ``level``; sizes/offsets
+    are device int tensors."""
+    lv = level.to(torch.int64)
+    s = sizes[lv]
+    off = offsets[lv]
+    sf = s.to(torch.float32)
+    x = u * sf - 0.5
+    y = v * sf - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    x0i = torch.minimum(torch.clamp(x0.to(torch.int32), min=0), s - 1)
+    x1i = torch.minimum(torch.clamp(x0.to(torch.int32) + 1, min=0), s - 1)
+    y0i = torch.minimum(torch.clamp(y0.to(torch.int32), min=0), s - 1)
+    y1i = torch.minimum(torch.clamp(y0.to(torch.int32) + 1, min=0), s - 1)
+    base = off + face * s * s
+
+    def tap(iy, ix):
+        return take_rows(data, base + iy * s + ix)
+
+    return _bilerp(tap(y0i, x0i), tap(y0i, x1i), tap(y1i, x0i),
+                   tap(y1i, x1i), fx, fy)
+
+
+def sample_mipcube_lod(mipcube: "MipCube", dirs, lod):
+    """GLSL textureLod on a cubemap: trilinear between mip levels.
+    dirs (..., 3); lod (...,) -> (..., C)."""
+    sizes, offsets = _level_tables(mipcube, dirs.device)
+    nl = mipcube.num_levels
+    face, u, v = cube_face_uv(dirs)
+    lod = torch.clamp(lod, 0.0, nl - 1)
+    l0 = torch.floor(lod).to(torch.int32)
+    l1 = torch.clamp(l0 + 1, max=nl - 1)
+    f = (lod - l0.to(lod.dtype))[..., None]
+    c0 = _sample_mipcube_level(mipcube.data, sizes, offsets, l0, face, u, v)
+    c1 = _sample_mipcube_level(mipcube.data, sizes, offsets, l1, face, u, v)
+    return c0 * (1 - f) + c1 * f
 
 
 def mipcube_quad_index_anchor(sizes, offsets, level, face, u, v):

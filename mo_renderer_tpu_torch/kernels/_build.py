@@ -1,7 +1,8 @@
 """Build, load and call the CUDA kernels in ``csrc/``.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into ONE shared library with
-a plain C interface, loaded with ``ctypes``.  The build runs at first use
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` process, all of
+them started together, and the objects link into ONE shared library with a
+plain C interface, loaded with ``ctypes``.  The build runs at first use
 (never at import: the CPU tests import every module) into ``_build/``
 beside this package, keyed by a hash of the sources and flags, so an
 edited source rebuilds and an unchanged one loads at once.
@@ -36,7 +37,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 P = ctypes.c_void_p
@@ -49,6 +50,8 @@ LAUNCHES: dict[str, int] = {
     "attr_planes": 0,
     "ssao": 0,
     "interleave": 0,
+    "raster_full": 0,
+    "raster_attrs": 0,
 }
 
 _lock = threading.Lock()
@@ -95,6 +98,25 @@ def _library_path() -> str:
     return os.path.join(BUILD_DIR, f"libmo_kernels-{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds) -> None:
+    """Run the commands concurrently; raise with the output of the first
+    that fails."""
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True))
+        for cmd in cmds
+    ]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(" ".join(cmd) + "\n" + out)
+    if failed:
+        raise RuntimeError(
+            "nvcc failed building the CUDA kernels:\n" + "\n".join(failed)
+        )
+
+
 def build() -> str:
     """Compile csrc/*.cu into the shared library (if not built yet) and
     return its path.  Raises with nvcc's output when the build fails."""
@@ -105,16 +127,25 @@ def build() -> str:
             build_seconds = 0.0
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in sources() if s.endswith(".cu")]]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    units = [s for s in sources() if s.endswith(".cu")]
+    objs = [
+        os.path.join(BUILD_DIR, f"{os.path.basename(u)}.{tag}.o")
+        for u in units
+    ]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            "nvcc failed building the CUDA kernels:\n"
-            + " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-        )
+    try:
+        _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", o, u]
+            for u, o in zip(units, objs)
+        ])
+        tmp = f"{so}.{tag}"
+        _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, so)
     build_seconds = time.perf_counter() - t0
     return so

@@ -2,7 +2,8 @@
 
 Port of ``mo_renderer_tpu/kernels/raster_setup.py``:
 
-- ``setup_from_corners`` / ``triangle_setup_from_attrs`` build the same
+- ``setup_from_corners`` / ``triangle_setup`` /
+  ``triangle_setup_from_attrs`` build the same
   16-column triangle rows (edge equations, affine depth plane, tie bits,
   validity) and inclusive pixel bboxes, with the same Vulkan conventions:
   pixel centres at +0.5, top-left fill rule, front face = negative signed
@@ -63,18 +64,45 @@ class BinnedTriangles:
     overflow: int  # pairs dropped by binned_cap (0 = none)
 
 
+def project(points, m):
+    """``points @ m.T`` for (N, 4) points and a (4, 4) matrix, summed in
+    the order XLA's CPU dot uses at a packed scene's row counts
+    (multiples of 1024): (x0*m0 + x1*m1) + (x2*m2 + x3*m3), one rounding
+    per operation.  A BLAS matmul sums differently, which moves
+    exact-on-edge pixels of the rasterizer."""
+    return (points[:, 0:1] * m[:, 0] + points[:, 1:2] * m[:, 1]) + (
+        points[:, 2:3] * m[:, 2] + points[:, 3:4] * m[:, 3]
+    )
+
+
+def triangle_setup(
+    clip, indices, tri_valid, width, height, cull_backface=True,
+    depth_bias_const=0.0, depth_bias_slope=0.0, w_eps=1e-6,
+) -> TriangleSetup:
+    """Setup from per-VERTEX clip positions (V, 4) and indices (T, 3)
+    (raster_setup.py:122); triangles with any w <= w_eps are culled."""
+    idx = indices.to(torch.int64)
+    return setup_from_corners(
+        clip[idx[:, 0]], clip[idx[:, 1]], clip[idx[:, 2]], tri_valid,
+        width, height,
+        cull_backface=cull_backface,
+        depth_bias_const=depth_bias_const,
+        depth_bias_slope=depth_bias_slope,
+        w_eps=w_eps,
+    )
+
+
 def triangle_setup_from_attrs(
     tri_attrs, tri_valid, proj_view, width, height, cull_backface=True,
     depth_bias_const=0.0, depth_bias_slope=0.0, w_eps=1e-6,
 ) -> TriangleSetup:
     """Setup straight from the packed per-triangle world corners
     (columns 0..8 of ``tri_attrs``): clip = [wp, 1] @ PV^T per corner."""
-    pv_t = proj_view.t()
-
     def clip_of(k):
         wp = tri_attrs[:, 3 * k : 3 * k + 3]
-        wp1 = torch.cat([wp, torch.ones_like(wp[:, :1])], dim=-1)
-        return wp1 @ pv_t
+        return project(
+            torch.cat([wp, torch.ones_like(wp[:, :1])], dim=-1), proj_view
+        )
 
     return setup_from_corners(
         clip_of(0), clip_of(1), clip_of(2), tri_valid, width, height,

@@ -1,13 +1,15 @@
-"""Tile rasterizer: the visibility buffer (triangle id + depth) and the
-depth-only shadow map.
+"""Tile rasterizer: the visibility buffer (triangle id + depth), its full
+mode with barycentrics, the depth-only shadow map, and the megakernel that
+also interpolates the winner's attributes.
 
-Port of ``mo_renderer_tpu/kernels/rasterizer.py``: ``rasterize(slim=True)``
-(K1) and ``rasterize(depth_only=True)`` (K2) become one CUDA kernel with a
-compile-time mode, ``csrc/raster.cu``.  The CUDA kernel bins at
-``BIN_H`` x ``BIN_W`` pixel tiles (one thread block per tile), so the
-frame bins at that size; the output does not depend on the tiling.
+Port of ``mo_renderer_tpu/kernels/rasterizer.py``: ``rasterize`` with
+``slim=True`` (K1), in full mode (K6) and with ``depth_only=True`` (K2)
+becomes one CUDA kernel with a compile-time mode, ``csrc/raster.cu``;
+``rasterize_attrs`` (K8) is ``csrc/raster_attrs.cu``.  The CUDA kernels
+bin at ``BIN_H`` x ``BIN_W`` pixel tiles (one thread block per tile), so
+the frame bins at that size; the output does not depend on the tiling.
 
-Semantics, identical in the kernel and in the plain version below:
+Semantics, identical in the kernels and in the plain versions below:
 
 - a pixel centre (x+0.5, y+0.5) is covered when each edge value
   w = (a*px + b*py) + c, rounded once per operation, is > 0, or == 0 on
@@ -16,11 +18,17 @@ Semantics, identical in the kernel and in the plain version below:
   fused because the reference fuses it where its CPU evaluation is the
   comparison: XLA contracts ``zx*px + zy*py`` into one FMA, and steep
   depth planes (|zx*px| >> |z|) amplify one rounding into ~1e-5 of
-  depth.  The edges keep one rounding per operation: their sign decides
-  coverage, and the tests hold the ids to the reference exactly;
+  depth.  The coverage edges keep one rounding per operation: their sign
+  decides coverage, and the tests hold the ids to the reference exactly;
 - LessOrEqual depth test walked in draw order from far = 1.0, so the
   later triangle wins ties; the id is -1 where z >= 1 (visibility mode);
-- depth-only mode keeps min(1.0, z) over covering triangles.
+- depth-only mode keeps min(1.0, z) over covering triangles;
+- the full mode's barycentrics are the winner's b_i = w_i * inv_area
+  (column 12) with w_i in the fused form fma(a, px, b*py) + c, as the
+  reference computes them (0 where nothing covers);
+- the megakernel interpolates the winner's 14 channels perspective-
+  correctly from the 47 extra row columns (``pack_raster_attr_columns``)
+  and passes its material id and has_tangent flag through.
 """
 
 from __future__ import annotations
@@ -29,47 +37,73 @@ import torch
 
 from . import _build
 from .raster_setup import (
+    COL_INV_AREA,
     COL_TIE,
+    TRI_STRIDE,
     BinnedTriangles,
 )
 
 FAR_DEPTH = 1.0
 BIN_H = 32  # the CUDA kernel's tile: one thread block per 32 x 128 pixels
 BIN_W = 128
+N_INTERP = 14  # RA_N_INTERP of passes/vertex_stage.py
+ATTR_ROW = TRI_STRIDE + 3 + 3 * N_INTERP + 2  # 63 columns per megakernel row
 
 
 def rasterize(binned: BinnedTriangles, *, width: int, height: int,
-              depth_only: bool = False):
+              depth_only: bool = False, slim: bool = False):
     """Rasterize binned triangles.
 
-    Returns (tri int32 (H, W) with -1 for background, z f32 (H, W), None,
-    None) — or (None, z, None, None) when ``depth_only`` — the reference's
-    4-tuple with the barycentric planes of its full mode absent.
+    Returns (tri int32 (H, W) with -1 for background, z f32 (H, W), b0,
+    b1) as the reference does: b0/b1 are the winner's screen-space
+    barycentrics in full mode and None when ``slim``; ``depth_only``
+    returns (None, z, None, None).
     """
+    mode = "depth" if depth_only else ("slim" if slim else "full")
     if binned.tri_data.is_cuda:
-        tri, z = _raster_cuda(binned, width, height, depth_only)
+        return _raster_cuda(binned, width, height, mode)
+    return _raster_plain(binned, width, height, mode)
+
+
+def rasterize_attrs(binned: BinnedTriangles, *, width: int, height: int):
+    """Rasterize and interpolate attributes (the megakernel).
+
+    ``binned.tri_data`` rows are (T, 63): the 16 raster columns, then
+    ``vertex_stage.pack_raster_attr_columns``.  Returns (tri int32 (H, W)
+    with -1 for background, z (H, W), tuple of 14 (H, W) f32 planes
+    ordered wp.xyz, n.xyz, t.xyz, bt.xyz, uv0.uv, material id (H, W) f32,
+    has_tangent (H, W) f32).
+    """
+    if binned.tri_data.shape[1] != ATTR_ROW:
+        raise ValueError(
+            f"rasterize_attrs takes {ATTR_ROW}-column rows, got "
+            f"{binned.tri_data.shape[1]}"
+        )
+    if binned.tri_data.is_cuda:
+        tri, z, planes = _raster_attrs_cuda(binned, width, height)
     else:
-        tri, z = _raster_plain(binned, width, height, depth_only)
-    return tri, z, None, None
+        tri, z, planes = _raster_attrs_plain(binned, width, height)
+    return tri, z, tuple(planes[:N_INTERP]), planes[N_INTERP], planes[-1]
 
 
 def _edge(a, b, c, px, py):
     return (a * px + b * py) + c
 
 
-def _depth(zx, zy, zc, px, py):
-    """fma(zx, px, zy*py) + zc, the fused multiply-add computed in float64
-    (zx*px is exact there, and so is the sum but for exponent gaps of
-    more than ~16 bits, where a double rounding has ~2^-29 odds)."""
-    fused = (zx.double() * px.double() + (zy * py).double()).float()
-    return fused + zc
+def _fused(a, b, c, px, py):
+    """fma(a, px, b*py) + c, the fused multiply-add computed in float64
+    (a*px is exact there, and so is the sum but for exponent gaps of more
+    than ~16 bits, where a double rounding has ~2^-29 odds)."""
+    fused = (a.double() * px.double() + (b * py).double()).float()
+    return fused + c
 
 
-def _raster_plain(binned, width, height, depth_only, chunk=4096):
-    """The same coverage and depth rule over all pairs at once: per pixel,
-    m = min(1, z of covering pairs) and the winner is the LAST pair in
-    draw order with z == m (what the sequential ``zin <= acc`` walk
-    keeps)."""
+def _winners(binned, with_winner=True, chunk=4096):
+    """Per pixel of the bin canvas: z = min(1, z of covering pairs), and
+    the winner id = the LAST pair in draw order with that z (what the
+    sequential ``zin <= acc`` walk keeps; -1 where nothing covers).
+    Returns (z (n_pix,), win (n_pix,) int64 or None without
+    ``with_winner``, canvas width)."""
     dev = binned.tri_data.device
     th, tw = binned.tile_h, binned.tile_w
     ntx, nty = binned.n_tiles_x, binned.n_tiles_y
@@ -84,7 +118,7 @@ def _raster_plain(binned, width, height, depth_only, chunk=4096):
     ix = torch.arange(tw, device=dev)
 
     def pair_planes(lo, hi):
-        rows = binned.tri_data[ids[lo:hi]]
+        rows = binned.tri_data[ids[lo:hi], :TRI_STRIDE]
         ty = torch.div(tiles[lo:hi], ntx, rounding_mode="floor")
         tx = tiles[lo:hi] - ty * ntx
         gy = (ty * th)[:, None, None] + iy[None, :, None]  # (p, th, 1)
@@ -105,7 +139,7 @@ def _raster_plain(binned, width, height, depth_only, chunk=4096):
             & accept(_edge(col(1), col(4), col(7), px, py), 2)
             & accept(_edge(col(2), col(5), col(8), px, py), 4)
         )
-        z = _depth(col(9), col(10), col(11), px, py)
+        z = _fused(col(9), col(10), col(11), px, py)
         zin = torch.where(cover & (z >= 0.0), z, torch.inf)
         flat = (gy * canvas_w + gx).expand(zin.shape)
         return zin.reshape(-1), flat.reshape(-1)
@@ -115,9 +149,8 @@ def _raster_plain(binned, width, height, depth_only, chunk=4096):
     for lo in range(0, n_pairs, chunk):
         zin, flat = pair_planes(lo, min(lo + chunk, n_pairs))
         zbuf.scatter_reduce_(0, flat, zin, reduce="amin", include_self=True)
-    z = zbuf.reshape(nty * th, canvas_w)[:height, :width].contiguous()
-    if depth_only:
-        return None, z
+    if not with_winner:
+        return zbuf, None, canvas_w
 
     win = torch.full((n_pix,), -1, dtype=torch.int64, device=dev)
     for lo in range(0, n_pairs, chunk):
@@ -129,39 +162,139 @@ def _raster_plain(binned, width, height, depth_only, chunk=4096):
             0, flat, torch.where(hit, pid, -1), reduce="amax",
             include_self=True,
         )
-    tri = win.reshape(nty * th, canvas_w)[:height, :width].to(torch.int32)
-    return torch.where(z < FAR_DEPTH, tri, -1), z
+    return zbuf, win, canvas_w
 
 
-def _raster_cuda(binned, width, height, depth_only):
+def _canvas(a, binned, canvas_w, width, height):
+    rows = binned.n_tiles_y * binned.tile_h
+    return a.reshape(rows, canvas_w)[:height, :width].contiguous()
+
+
+def _winner_rows(binned, win, canvas_w):
+    """The winner's row and the pixel centre, per canvas pixel."""
+    dev = win.device
+    n_pix = win.shape[0]
+    flat = torch.arange(n_pix, device=dev)
+    py = torch.div(flat, canvas_w, rounding_mode="floor")
+    px = (flat - py * canvas_w).to(torch.float32) + 0.5
+    return binned.tri_data[win.clamp(min=0)], px, py.to(torch.float32) + 0.5
+
+
+def _raster_plain(binned, width, height, mode):
+    """The same coverage and depth rule over all pairs at once."""
+    zbuf, win, canvas_w = _winners(binned, with_winner=mode != "depth")
+    z = _canvas(zbuf, binned, canvas_w, width, height)
+    if mode == "depth":
+        return None, z, None, None
+    tri = _canvas(win, binned, canvas_w, width, height).to(torch.int32)
+    tri = torch.where(z < FAR_DEPTH, tri, -1)
+    if mode == "slim":
+        return tri, z, None, None
+    rows, px, py = _winner_rows(binned, win, canvas_w)
+    has = win >= 0
+    b = []
+    for i in range(2):
+        bi = _fused(rows[:, i], rows[:, 3 + i], rows[:, 6 + i], px, py)
+        bi = torch.where(has, bi * rows[:, COL_INV_AREA], 0.0)
+        b.append(_canvas(bi, binned, canvas_w, width, height))
+    return tri, z, b[0], b[1]
+
+
+def _raster_attrs_plain(binned, width, height):
+    """Winner per pixel as in ``_raster_plain``, then one interpolation of
+    the winner's row (the kernel's arithmetic, see csrc/raster_attrs.cu)."""
+    zbuf, win, canvas_w = _winners(binned)
+    z = _canvas(zbuf, binned, canvas_w, width, height)
+    tri = _canvas(win, binned, canvas_w, width, height).to(torch.int32)
+    tri = torch.where(z < FAR_DEPTH, tri, -1)
+    rows, px, py = _winner_rows(binned, win, canvas_w)
+    q = []
+    for i in range(3):
+        w = _fused(rows[:, i], rows[:, 3 + i], rows[:, 6 + i], px, py)
+        q.append(w * rows[:, COL_INV_AREA] * rows[:, TRI_STRIDE + i])
+    qs = (q[0] + q[1]) + q[2]
+    rs = 1.0 / torch.where(qs.abs() > 1e-20, qs, 1.0)
+    ob = [qi * rs for qi in q]
+    base = TRI_STRIDE + 3
+    planes = []
+    for c in range(N_INTERP):
+        a = rows[:, base + 3 * c : base + 3 * c + 3]
+        planes.append((ob[0] * a[:, 0] + ob[1] * a[:, 1]) + ob[2] * a[:, 2])
+    planes += [rows[:, base + 3 * N_INTERP], rows[:, base + 3 * N_INTERP + 1]]
+    has = win >= 0
+    planes = torch.stack(
+        [_canvas(torch.where(has, p, 0.0), binned, canvas_w, width, height)
+         for p in planes]
+    )
+    return tri, z, planes
+
+
+def _check_bins(name, binned, width, height):
     if (binned.tile_h, binned.tile_w) != (BIN_H, BIN_W):
         raise ValueError(
             f"the CUDA rasterizer takes {BIN_H}x{BIN_W} bins, got "
             f"{binned.tile_h}x{binned.tile_w}"
         )
-    ntx, nty = binned.n_tiles_x, binned.n_tiles_y
-    if ntx * BIN_W < width or nty * BIN_H < height:
+    if (binned.n_tiles_x * BIN_W < width
+            or binned.n_tiles_y * BIN_H < height):
         raise ValueError("the bins do not cover the raster target")
     _build.require_cuda(
-        "rasterize", binned.tri_data, binned.pair_tri, binned.tile_start,
+        name, binned.tri_data, binned.pair_tri, binned.tile_start,
         binned.tile_count,
         dtypes=(torch.float32, torch.int32, torch.int32, torch.int32),
     )
+
+
+_MODES = {"depth": 0, "slim": 1, "full": 2}
+
+
+def _raster_cuda(binned, width, height, mode):
+    _check_bins("rasterize", binned, width, height)
     dev = binned.tri_data.device
-    z = torch.empty((height, width), dtype=torch.float32, device=dev)
-    tri = None if depth_only else torch.empty(
-        (height, width), dtype=torch.int32, device=dev
-    )
+
+    def plane(dtype=torch.float32):
+        return torch.empty((height, width), dtype=dtype, device=dev)
+
+    z = plane()
+    tri = None if mode == "depth" else plane(torch.int32)
+    b0, b1 = (plane(), plane()) if mode == "full" else (None, None)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
     fn = _build.function(
         "mo_raster",
-        [_build.P] * 6 + [_build.I] * 5 + [_build.P],
+        [_build.P] * 8 + [_build.I] * 5 + [_build.P],
     )
     err = fn(
         binned.tri_data.data_ptr(), binned.pair_tri.data_ptr(),
         binned.tile_start.data_ptr(), binned.tile_count.data_ptr(),
-        z.data_ptr(), 0 if tri is None else tri.data_ptr(),
-        width, height, ntx, nty, int(depth_only), _build.stream_of(z),
+        z.data_ptr(), ptr(tri), ptr(b0), ptr(b1),
+        width, height, binned.n_tiles_x, binned.n_tiles_y, _MODES[mode],
+        _build.stream_of(z),
     )
     _build.check("rasterize", err)
-    _build.count("raster_depth" if depth_only else "raster_slim")
-    return tri, z
+    _build.count(f"raster_{mode}")
+    return tri, z, b0, b1
+
+
+def _raster_attrs_cuda(binned, width, height):
+    _check_bins("rasterize_attrs", binned, width, height)
+    dev = binned.tri_data.device
+    z = torch.empty((height, width), dtype=torch.float32, device=dev)
+    tri = torch.empty((height, width), dtype=torch.int32, device=dev)
+    planes = torch.empty((N_INTERP + 2, height, width), dtype=torch.float32,
+                         device=dev)
+    fn = _build.function(
+        "mo_raster_attrs", [_build.P] * 7 + [_build.I] * 4 + [_build.P],
+    )
+    err = fn(
+        binned.tri_data.data_ptr(), binned.pair_tri.data_ptr(),
+        binned.tile_start.data_ptr(), binned.tile_count.data_ptr(),
+        z.data_ptr(), tri.data_ptr(), planes.data_ptr(),
+        width, height, binned.n_tiles_x, binned.n_tiles_y,
+        _build.stream_of(z),
+    )
+    _build.check("rasterize_attrs", err)
+    _build.count("raster_attrs")
+    return tri, z, planes

@@ -1,14 +1,25 @@
-"""Renderer — the default deferred frame (port of the fast, checkerboard
-branch of ``mo_renderer_tpu/passes/frame_graph.py``).
+"""Renderer — the deferred frame (port of
+``mo_renderer_tpu/passes/frame_graph.py``) on its three paths.
 
-One frame: shadow raster (memoized while the light and the scene stay
-the same) -> visibility raster -> checkerboard decimation -> G-buffer
-(attr_planes) -> half-rate SSAO -> shading + skybox -> present ->
-checkerboard reconstruction -> crop.  PyTorch runs it eagerly on the
-Renderer's device; the four kernels launch on the current CUDA stream.
+- Default (fast sampling, checkerboard): shadow raster (memoized while the
+  light and the scene stay the same) -> visibility raster from the packed
+  per-triangle corners -> checkerboard decimation -> G-buffer
+  (attr_planes) -> half-rate SSAO -> fast shading + skybox -> present ->
+  checkerboard reconstruction -> crop.
+- Reference sampling path (``fast_sampling=False``, or any material that
+  samples UV set 1): the per-vertex stage, the shadow map re-rasterized
+  from its light clip positions every frame, the full-mode raster with
+  barycentrics, ``gbuffer_pass`` and ``shading_pass`` sampling the maps
+  directly, at full rate (no checkerboard).
+- Megakernel (``raster_interp_attrs=True``): the per-vertex stage, the
+  raster that interpolates the attributes (``rasterize_attrs``), then the
+  fast path's texturing, shading and memoized shadow, without the
+  checkerboard.
 
-Config flags whose code is not ported raise ``NotImplementedError`` (see
-``_check_config``); nothing falls back to another path.
+PyTorch runs the frame eagerly on the Renderer's device; the kernels
+launch on the current CUDA stream.  Config flags whose code is not ported
+raise ``NotImplementedError`` (see ``_check_config``); nothing falls back
+to another path.
 """
 
 from __future__ import annotations
@@ -18,26 +29,30 @@ import logging
 import numpy as np
 import torch
 
-from mo_renderer_tpu.config import EngineConfig
-from mo_renderer_tpu.scene.camera import Camera
-
 from ..assets.ibl_resource import IBLResource
+from ..config import EngineConfig
 from ..device import resolve_device
 from ..device.sampling import build_pcf_window_u16_half
 from ..kernels.decimate import decimate_cols
-from ..kernels.raster_setup import bin_triangles, triangle_setup_from_attrs
-from ..kernels.rasterizer import BIN_H, BIN_W, rasterize
+from ..kernels.raster_setup import (
+    bin_triangles,
+    triangle_setup,
+    triangle_setup_from_attrs,
+)
+from ..kernels.rasterizer import BIN_H, BIN_W, rasterize, rasterize_attrs
+from ..scene.camera import Camera
 from ..scene.scene_buffers import (
     find_shadow_light,
     pack_scene,
     refresh_transforms,
 )
 from .checkerboard import reconstruct_full
-from .gbuffer import gbuffer_pass_fast
+from .gbuffer import gbuffer_pass, gbuffer_pass_fast, gbuffer_pass_from_planes
 from .present import present_pass, unpack_rgba8
 from .shading import _even_grid, _upsample_pow2, _upsample_to_cb
-from .shading import shading_pass_fast
+from .shading import shading_pass, shading_pass_fast
 from .ssao import ssao_pass_tiles
+from .vertex_stage import pack_raster_attr_columns, run_vertex_stage
 
 logger = logging.getLogger("mo_renderer_tpu_torch")
 
@@ -49,10 +64,6 @@ def _round_up(x, m):
 def _check_config(cfg: EngineConfig, extra_passes=()) -> None:
     """Raise for every option whose code this package does not port."""
     unported = [
-        (not cfg.fast_sampling, "fast_sampling=False",
-         "ROADMAP Queue 1 item 12 (reference sampling path)"),
-        (cfg.raster_interp_attrs, "raster_interp_attrs=True",
-         "ROADMAP Queue 2 K8 (rasterize_attrs)"),
         (cfg.stack_plane_kernel, "stack_plane_kernel=True",
          "ROADMAP Queue 2 K7 (stack_planes)"),
         (not cfg.ssao_pallas, "ssao_pallas=False",
@@ -137,21 +148,41 @@ def _bin(setup, width, height, binned_cap):
     )
 
 
-def shadow_program(scene, light_proj_view, *, cfg, binned_cap):
+def shadow_map_from_clip(scene, *, cfg, binned_cap, shadow_clip=None,
+                         light_pv=None):
     """Depth-only raster from the light (no culling, depth bias 2/2,
-    shadow_pass.rs:132-140) -> u16 half-anchor PCF window table.
-    Returns (table, dropped pair count)."""
+    shadow_pass.rs:132-140): from per-vertex light clip positions, or,
+    when ``shadow_clip`` is None, from the packed per-triangle corners
+    projected by ``light_pv``.  Returns (shadow map (S, S), dropped pair
+    count)."""
     smap = cfg.shadow_map_size
-    setup = triangle_setup_from_attrs(
-        scene.tri_attrs, scene.tri_valid, light_proj_view, smap, smap,
+    bias = dict(
         cull_backface=False,
         depth_bias_const=cfg.shadow_depth_bias_const,
         depth_bias_slope=cfg.shadow_depth_bias_slope,
     )
+    if shadow_clip is None:
+        setup = triangle_setup_from_attrs(
+            scene.tri_attrs, scene.tri_valid, light_pv, smap, smap, **bias
+        )
+    else:
+        setup = triangle_setup(
+            shadow_clip, scene.indices, scene.tri_valid, smap, smap, **bias
+        )
     binned = _bin(setup, smap, smap, binned_cap)
     _, shadow_map, _, _ = rasterize(binned, width=smap, height=smap,
                                     depth_only=True)
-    return build_pcf_window_u16_half(shadow_map), binned.overflow
+    return shadow_map, binned.overflow
+
+
+def shadow_program(scene, light_proj_view, *, cfg, binned_cap):
+    """The fast path's memoizable shadow: the map from the packed corners
+    -> u16 half-anchor PCF window table.  Returns (table, dropped pair
+    count)."""
+    shadow_map, overflow = shadow_map_from_clip(
+        scene, cfg=cfg, binned_cap=binned_cap, light_pv=light_proj_view
+    )
+    return build_pcf_window_u16_half(shadow_map), overflow
 
 
 def _pad_edge(a, ph, pw):
@@ -163,36 +194,66 @@ def _pad_edge(a, ph, pw):
 
 
 def frame_program(scene, ibl, params, *, cfg, pad_w, pad_h, binned_cap,
-                  has_shadow_light, slot_map, n_lights, shadow_quads=None):
-    """One deferred frame.  Returns (rgba (H, W) int32 packed rgba8 bits,
+                  has_shadow_light, slot_map, n_lights, fast=True,
+                  shadow_quads=None):
+    """One deferred frame on the path ``fast`` and the config choose (see
+    the module docstring).  Returns (rgba (H, W) int32 packed rgba8 bits,
     (G-buffer, shadow) dropped-pair counts)."""
     use_shadow = cfg.shadow_enabled and has_shadow_light
-    use_cb = cfg.checkerboard
-    shadow_overflow = 0
-    if use_shadow and shadow_quads is None:
-        shadow_quads, shadow_overflow = shadow_program(
-            scene, params["light_proj_view"], cfg=cfg, binned_cap=binned_cap
+    megakernel = fast and cfg.raster_interp_attrs
+    attrs_setup = fast and not megakernel
+    use_cb = attrs_setup and cfg.checkerboard
+    vs = None if attrs_setup else run_vertex_stage(
+        scene, params["proj_view"], params["prev_proj_view"],
+        params["light_proj_view"],
+    )
+
+    shadow_map, shadow_overflow = None, 0
+    if use_shadow and not (fast and shadow_quads is not None):
+        shadow_map, shadow_overflow = shadow_map_from_clip(
+            scene, cfg=cfg, binned_cap=binned_cap,
+            shadow_clip=None if attrs_setup else vs.shadow_clip,
+            light_pv=params["light_proj_view"],
         )
 
-    setup = triangle_setup_from_attrs(
-        scene.tri_attrs, scene.tri_valid, params["proj_view"], pad_w, pad_h,
-        cull_backface=True,  # gbuffer_pass.rs:350
-    )
+    if attrs_setup:
+        setup = triangle_setup_from_attrs(
+            scene.tri_attrs, scene.tri_valid, params["proj_view"], pad_w,
+            pad_h, cull_backface=True,  # gbuffer_pass.rs:350
+        )
+    else:
+        setup = triangle_setup(
+            vs.clip, scene.indices, scene.tri_valid, pad_w, pad_h,
+            cull_backface=True,
+        )
+    if megakernel:
+        extra = pack_raster_attr_columns(scene.tri_attrs, params["proj_view"])
+        setup.tri_data = torch.cat([setup.tri_data, extra], dim=1)
     binned = _bin(setup, pad_w, pad_h, binned_cap)
-    tri, z, _, _ = rasterize(binned, width=pad_w, height=pad_h)
-    tri_full, z_full = tri, z
-    if use_cb:
-        tri = decimate_cols(tri, "cb")
-        z = decimate_cols(z, "cb")
-    gbuf = gbuffer_pass_fast(tri, z, scene, scene.tri_attrs, params,
-                             slot_map, cb=use_cb, full_wh=(pad_w, pad_h))
+    if megakernel:
+        tri, z, attrs, mat_plane, ht_plane = rasterize_attrs(
+            binned, width=pad_w, height=pad_h
+        )
+        gbuf = gbuffer_pass_from_planes(tri, z, attrs, mat_plane, ht_plane,
+                                        scene, params, slot_map)
+    elif not fast:
+        tri, z, b0, b1 = rasterize(binned, width=pad_w, height=pad_h)
+        gbuf = gbuffer_pass(tri, z, b0, b1, scene, vs)
+    else:
+        tri, z, _, _ = rasterize(binned, width=pad_w, height=pad_h,
+                                 slim=True)
+        tri_g, z_g = tri, z
+        if use_cb:
+            tri_g, z_g = decimate_cols(tri, "cb"), decimate_cols(z, "cb")
+        gbuf = gbuffer_pass_fast(tri_g, z_g, scene, scene.tri_attrs, params,
+                                 slot_map, cb=use_cb, full_wh=(pad_w, pad_h))
 
     # SSAO on the full-resolution depth; ssao_res_divisor > 1 evaluates it
     # on the even grid, edge-padded to tile multiples exactly as the
     # reference does (the padded width enters the radius formula)
     half_ssao = cfg.ssao_enabled and cfg.ssao_res_divisor > 1
     if cfg.ssao_enabled:
-        d_in = _even_grid(z_full) if half_ssao else z_full
+        d_in = _even_grid(z) if half_ssao else z
         d_pad = _pad_edge(
             d_in,
             _round_up(d_in.shape[0], cfg.tile_h) - d_in.shape[0],
@@ -209,24 +270,31 @@ def frame_program(scene, ibl, params, *, cfg, pad_w, pad_h, binned_cap,
     else:
         ssao = torch.ones_like(gbuf.depth)
 
-    color = shading_pass_fast(
-        gbuf, ssao, shadow_quads if use_shadow else None,
-        cfg.shadow_map_size, scene.lights, n_lights, params, ibl=ibl,
-        shadow_res_divisor=cfg.pcf_res_divisor, cb=use_cb,
-    )
+    if fast:
+        if use_shadow and shadow_quads is None:
+            shadow_quads = build_pcf_window_u16_half(shadow_map)
+        color = shading_pass_fast(
+            gbuf, ssao, shadow_quads if use_shadow else None,
+            cfg.shadow_map_size, scene.lights, n_lights, params, ibl=ibl,
+            shadow_res_divisor=cfg.pcf_res_divisor, cb=use_cb,
+        )
+    else:
+        color = shading_pass(gbuf, ssao, shadow_map, scene.lights, n_lights,
+                             params, ibl=ibl)
     rgba = present_pass(color)
     if use_cb:
-        rgba = reconstruct_full(rgba, tri_full)
+        rgba = reconstruct_full(rgba, tri)
     return rgba[: cfg.height, : cfg.width], (binned.overflow, shadow_overflow)
 
 
 class Renderer(torch.nn.Module):
-    """Owns the packed scene and the IBL maps on ``device`` and renders
-    the default deferred frame.  ``forward(world)`` is ``render_device``."""
+    """Owns the packed scene and the IBL maps on ``device`` (the card
+    unless the caller passes another) and renders the deferred frame.
+    ``forward(world)`` is ``render_device``."""
 
     _OVERFLOW_LAG = 64
 
-    def __init__(self, config: EngineConfig, device, extra_passes=()):
+    def __init__(self, config: EngineConfig, device="cuda", extra_passes=()):
         super().__init__()
         _check_config(config, extra_passes)
         # the shading path has small float32 products (the velocity and
@@ -255,11 +323,13 @@ class Renderer(torch.nn.Module):
         self._binned_cap = (
             None if cfg.binned_cap is None else _round_up(cfg.binned_cap, 8)
         )
-        if bool(self.scene.materials[:, 5:10].any()):
-            raise NotImplementedError(
-                "the scene samples UV set 1, which only the reference "
-                "sampling path handles: ROADMAP Queue 1 item 12"
-            )
+        # the texture-stack fast path samples every slot with UV set 0;
+        # a scene whose materials sample UV set 1 takes the reference
+        # sampling path (frame_graph.py:512-524)
+        uses_uv1 = bool(self.scene.materials[:, 5:10].any())
+        self._fast = cfg.fast_sampling and not uses_uv1
+        if cfg.fast_sampling and uses_uv1:
+            logger.info("scene uses UV set 1: reference sampling path")
         self._n_lights = int(self.scene.num_lights)
         self._slot_map = tuple(int(x) for x in self.scene.stack_slots.tolist())
         self._shadow_key = None
@@ -302,7 +372,8 @@ class Renderer(torch.nn.Module):
         the scene half is an identity check against a STRONG reference,
         so a recycled address can never match a stale table."""
         cfg = self.config
-        if not (has_light and cfg.shadow_enabled and cfg.shadow_cache):
+        if not (self._fast and has_light and cfg.shadow_enabled
+                and cfg.shadow_cache):
             return None
         key = np.asarray(key_pv, np.float32).tobytes()
         if key != self._shadow_key or self._shadow_scene is not self.scene:
@@ -357,7 +428,7 @@ class Renderer(torch.nn.Module):
             self.scene, ibl_maps, params, cfg=self.config, pad_w=self.pad_w,
             pad_h=self.pad_h, binned_cap=self._binned_cap,
             has_shadow_light=has_light, slot_map=self._slot_map,
-            n_lights=self._n_lights, shadow_quads=quads,
+            n_lights=self._n_lights, fast=self._fast, shadow_quads=quads,
         )
         self._note_overflow(overflow)
         return rgba

@@ -1,12 +1,20 @@
-"""G-buffer pass, fast path (port of the plane-kernel branch of
-``mo_renderer_tpu/passes/gbuffer.py``: ``gbuffer_pass_fast`` and
-``_texture_and_assemble``).
+"""G-buffer pass (port of ``mo_renderer_tpu/passes/gbuffer.py``): the
+reference sampling path's ``gbuffer_pass``, the fast path's
+``gbuffer_pass_fast`` with ``_texture_and_assemble``, and the megakernel's
+``gbuffer_pass_from_planes``.
 
-The visibility buffer's triangle ids go through the ``attr_planes``
-kernel (row gather + perspective-correct interpolation), then the
-material columns that ride the attribute rows drive one texture-stack
-row gather per sampled slot group, bilinear filtering of the packed
-RGBA8 quads, factor application and TBN normal mapping.
+- ``gbuffer_pass`` interpolates the per-vertex stage outputs with the
+  rasterizer's screen-space barycentrics (perspective-corrected by 1/w)
+  and samples every material slot from the texture array with the slot's
+  own UV set (0 or 1).
+- ``gbuffer_pass_fast``: the visibility buffer's triangle ids go through
+  the ``attr_planes`` kernel (row gather + perspective-correct
+  interpolation), then the material columns that ride the attribute rows
+  drive one texture-stack row gather per sampled slot group, bilinear
+  filtering of the packed RGBA8 quads, factor application and TBN normal
+  mapping.
+- ``gbuffer_pass_from_planes`` takes the planes the raster megakernel
+  already interpolated and runs the same texturing tail.
 """
 
 from __future__ import annotations
@@ -15,8 +23,7 @@ import dataclasses
 
 import torch
 
-from mo_renderer_tpu.assets import materials as M
-
+from ..assets import materials as M
 from ..device import sampling
 from ..kernels.attr_planes import attr_planes
 from ..kernels.tonemap import srgb_to_linear
@@ -43,6 +50,83 @@ def _ndc01(c):
     wc = torch.where(c[..., 3].abs() > 1e-20, c[..., 3], 1.0)
     a = (c[..., :2] / wc[..., None] + 1.0) * 0.5
     return torch.stack([a[..., 0], 1.0 - a[..., 1]], dim=-1)
+
+
+def _interp(attr, i0, i1, i2, bb0, bb1, bb2):
+    """Perspective-correct interpolation of a (V, C) attribute."""
+    return (
+        attr[i0] * bb0[..., None] + attr[i1] * bb1[..., None]
+        + attr[i2] * bb2[..., None]
+    )
+
+
+def gbuffer_pass(tri, z, b0, b1, scene, vs) -> GBuffer:
+    """tri/z/b0/b1: the full-mode visibility buffer (H, W); vs: the
+    per-vertex stage's VertexOutputs (gbuffer.py:71)."""
+    covered = tri >= 0
+    t = torch.clamp(tri, min=0).to(torch.int64)
+    idx = scene.indices.to(torch.int64)[t]  # (H, W, 3)
+    i0, i1, i2 = idx[..., 0], idx[..., 1], idx[..., 2]
+
+    # perspective correction: q_i = b_i / w_i; B_i = q_i / sum(q)
+    b2 = 1.0 - b0 - b1
+    q0 = b0 * vs.inv_w[i0]
+    q1 = b1 * vs.inv_w[i1]
+    q2 = b2 * vs.inv_w[i2]
+    qs = q0 + q1 + q2
+    qs = torch.where(qs.abs() > 1e-20, qs, 1.0)
+    bb = (q0 / qs, q1 / qs, q2 / qs)
+
+    def interp(attr):
+        return _interp(attr, i0, i1, i2, *bb)
+
+    world_pos = interp(vs.world_pos)
+    uv0 = interp(scene.uv0)
+    uv1 = interp(scene.uv1)
+    n_in = interp(vs.world_normal)
+    t_in = interp(vs.world_tangent)
+    bt_in = interp(vs.world_bitangent)
+    clip = interp(vs.clip)
+    prev_clip = interp(vs.prev_clip)
+    has_tangent = vs.has_tangent[i0]  # uniform per mesh
+
+    mesh_id = scene.tri_mesh.to(torch.int64)[t]
+    mat_id = scene.mesh_material.to(torch.int64)[mesh_id]
+    mat = scene.materials[mat_id]  # (H, W, MATERIAL_STRIDE)
+
+    def sample_slot(map_col, uv_col):
+        uv = torch.where((mat[..., uv_col] == 0.0)[..., None], uv0, uv1)
+        return sampling.sample_array_bilinear(
+            scene.textures, mat[..., map_col].to(torch.int32), uv,
+            sampling.REPEAT,
+        )
+
+    base_rgba = sample_slot(M.MAT_BASE_COLOR_MAP, M.MAT_BASE_COLOR_UV)
+    normal_map = sample_slot(M.MAT_NORMAL_MAP, M.MAT_NORMAL_UV)
+    mr = sample_slot(M.MAT_MR_MAP, M.MAT_MR_UV)
+    occ = sample_slot(M.MAT_OCCLUSION_MAP, M.MAT_OCCLUSION_UV)
+    emis = sample_slot(M.MAT_EMISSIVE_MAP, M.MAT_EMISSIVE_UV)
+
+    base_factor = mat[..., M.MAT_BASE_COLOR_FACTOR : M.MAT_BASE_COLOR_FACTOR + 4]
+    base_color = srgb_to_linear(base_rgba[..., :3] * base_factor[..., :3])
+    metallic = mr[..., 2] * mat[..., M.MAT_METALLIC_FACTOR]
+    roughness = mr[..., 1] * mat[..., M.MAT_ROUGHNESS_FACTOR]
+    occlusion = occ[..., 0]
+    emissive = emis[..., :3] * mat[
+        ..., M.MAT_EMISSIVE_FACTOR : M.MAT_EMISSIVE_FACTOR + 3
+    ]
+
+    # normal mapping (gbuffer.frag:55-60): TBN only when tangents exist
+    n_geo = _normalize(n_in)
+    n_tex = _normalize(normal_map[..., :3] * 2.0 - 1.0)
+    n_mapped = _normalize(
+        t_in * n_tex[..., 0:1] + bt_in * n_tex[..., 1:2]
+        + n_geo * n_tex[..., 2:3]
+    )
+    normal = torch.where(has_tangent[..., None], n_mapped, n_geo)
+    velocity = _ndc01(clip) - _ndc01(prev_clip)
+    return _assemble(covered, z, base_color, world_pos, normal, emissive,
+                     occlusion, roughness, metallic, velocity)
 
 
 def gbuffer_pass_fast(tri, z, scene, tri_attrs, params, slot_map: tuple,
@@ -144,6 +228,13 @@ def _texture_and_assemble(covered, z, world_pos, n_in, t_in, bt_in, uv0,
     )
     normal = torch.where(has_tangent[..., None], n_mapped, n_geo)
 
+    return _assemble(covered, z, base_color, world_pos, normal, emissive,
+                     occlusion, roughness, metallic, velocity)
+
+
+def _assemble(covered, z, base_color, world_pos, normal, emissive,
+              occlusion, roughness, metallic, velocity) -> GBuffer:
+    """Clear values (gbuffer_pass.rs:482-499): zeros where uncovered."""
     m3 = covered[..., None]
     return GBuffer(
         base_color=torch.where(m3, base_color, 0.0),
@@ -156,4 +247,28 @@ def _texture_and_assemble(covered, z, world_pos, n_in, t_in, bt_in, uv0,
         velocity=torch.where(m3, velocity, 0.0),
         depth=z,
         mask=covered,
+    )
+
+
+def gbuffer_pass_from_planes(tri, z, attrs, mat_plane, ht_plane, scene,
+                             params, slot_map: tuple) -> GBuffer:
+    """G-buffer from the megakernel's planes (gbuffer.py:518): the row
+    gather and the interpolation happened inside the raster kernel; the
+    material columns are fetched by the material-id plane, then the fast
+    path's texturing tail runs.  ``attrs``: 14 (H, W) planes ordered
+    wp.xyz, n.xyz, t.xyz, bt.xyz, uv0.uv."""
+    def vec(a, b):
+        return torch.stack(attrs[a:b], dim=-1)
+
+    world_pos = vec(0, 3)
+    pv = params["proj_view"]
+    prev_pv = params["prev_proj_view"]
+    wp1 = torch.cat([world_pos, torch.ones_like(world_pos[..., :1])], -1)
+    velocity = _ndc01(wp1 @ pv.t()) - _ndc01(wp1 @ prev_pv.t())
+    mat_id = torch.round(mat_plane).to(torch.int64)
+    used_cols = list(M.fast_used_cols(slot_map))
+    return _texture_and_assemble(
+        tri >= 0, z, world_pos, vec(3, 6), vec(6, 9), vec(9, 12),
+        vec(12, 14), ht_plane > 0.5, velocity, scene, slot_map,
+        mat_cols=scene.materials[:, used_cols][mat_id],
     )

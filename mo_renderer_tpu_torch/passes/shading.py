@@ -1,18 +1,21 @@
-"""Deferred shading + skybox, fast path (port of ``shading_pass_fast`` of
-``mo_renderer_tpu/passes/shading.py`` and the helpers it calls).
+"""Deferred shading + skybox (port of ``mo_renderer_tpu/passes/shading.py``):
+the reference sampling path's ``shading_pass`` and the fast path's
+``shading_pass_fast`` with the helpers each calls.
 
-Per pixel: Cook-Torrance over the live lights, split-sum IBL ambient
-(SH9 irradiance, RGBE quad specular, polynomial BRDF), the 9-tap Poisson
-PCF shadow from the u16 half-anchor window table evaluated on a strided
-grid and upsampled, ``color = (ambient + Lo*shadow) * ssao + emissive``,
-Unreal tonemap, and the skybox where depth == 1.  Half-resolution terms
-sample the full frame's even grid; with ``cb`` the G-buffer lives on the
-(H, W/2) checkerboard domain and only the upsample targets change.
+Per pixel: Cook-Torrance over the live lights, split-sum IBL ambient,
+the 9-tap Poisson PCF shadow, ``color = (ambient + Lo*shadow) * ssao +
+emissive``, Unreal tonemap, and the skybox where depth == 1.
 
-The port takes the default specular path: mirror tap and parent mip on
-the even grid, both from ONE merged child+parent row
-(``spec_parent_mip_half_res``, ``spec_mirror_half_res`` and
-``spec_merged_trilinear`` all on).
+- The reference path samples the maps directly: 9 bilinear taps on the
+  raw shadow map, the irradiance cube, the trilinear specular mip chain,
+  the BRDF LUT and the environment cube, all at full rate.
+- The fast path takes the default layouts: SH9 irradiance, the RGBE
+  child+parent merged specular row sampled on the even grid (mirror tap
+  and parent mip, ``spec_parent_mip_half_res``, ``spec_mirror_half_res``
+  and ``spec_merged_trilinear`` all on), the polynomial BRDF, and the u16
+  half-anchor PCF window table evaluated on a strided grid and upsampled.
+  With ``cb`` the G-buffer lives on the (H, W/2) checkerboard domain and
+  only the upsample targets change.
 """
 
 from __future__ import annotations
@@ -38,6 +41,88 @@ POISSON = [
 SHADOW_BIAS = 0.000005  # shading_pass.frag:67
 SHADOW_INTENSITY = 0.25  # shading_pass.frag:82
 MAX_REFLECTION_LOD = 7.0  # pbr.glsl:262
+
+
+def calculate_shadow(world_pos, light_proj_view, shadow_map):
+    """CalculateShadow (shading_pass.frag:56-84): 9 Poisson bilinear taps
+    on the raw (S, S) shadow map.  Returns the (H, W) factor."""
+    p = torch.cat([world_pos, torch.ones_like(world_pos[..., :1])], -1)
+    lp = p @ light_proj_view.t()
+    wc = torch.where(lp[..., 3].abs() > 1e-20, lp[..., 3], 1.0)
+    proj = lp[..., :3] / wc[..., None]
+    uv = proj[..., :2] * 0.5 + 0.5
+    beyond_far = proj[..., 2] > 1.0
+    current = proj[..., 2] - SHADOW_BIAS
+    s = shadow_map.shape[0]
+    texel = 1.0 / s
+    sm = shadow_map[..., None]
+    shadow = torch.zeros_like(current)
+    for dx, dy in POISSON:
+        tap_uv = torch.stack(
+            [uv[..., 0] + dx * texel, uv[..., 1] + dy * texel], dim=-1
+        )
+        closest = sampling.sample_bilinear(
+            sm, tap_uv, sampling.CLAMP_TO_EDGE
+        )[..., 0]
+        shadow = shadow + (current > closest).to(torch.float32)
+    shadow = shadow / len(POISSON)
+    result = (1.0 - shadow) * (1.0 - SHADOW_INTENSITY) + SHADOW_INTENSITY
+    return torch.where(beyond_far, 1.0, result)
+
+
+def ibl_ambient(gbuf, eye_pos, ibl):
+    """imageBasedLighting (pbr.glsl:245-271) from the base maps: the
+    irradiance cube, the trilinear specular chain and the BRDF LUT."""
+    irradiance = sampling.sample_cubemap(
+        ibl.irradiance_faces, gbuf.normal
+    )[..., :3]
+    r = brdf.ibl_reflection_dir(gbuf.position, gbuf.normal, eye_pos)
+    lod = gbuf.orm[..., 1] * MAX_REFLECTION_LOD
+    prefiltered = sampling.sample_mipcube_lod(
+        ibl.specular_mips, r, lod
+    )[..., :3]
+    v = brdf.normalize(eye_pos - gbuf.position, eps=1e-20)
+    ndotv = torch.clamp(brdf.dot3(gbuf.normal, v), min=0.0)
+    lut_uv = torch.stack([ndotv, 1.0 - gbuf.orm[..., 1]], dim=-1)
+    lut = sampling.sample_bilinear(
+        ibl.brdf_lut, lut_uv, sampling.CLAMP_TO_EDGE
+    )[..., :2]
+    return brdf.image_based_lighting(
+        gbuf.position, gbuf.base_color, gbuf.normal,
+        gbuf.orm[..., 2], gbuf.orm[..., 1], gbuf.orm[..., 0],
+        eye_pos, irradiance, prefiltered, lut,
+    )
+
+
+def skybox_color(height, width, camera_basis, env_faces):
+    """Skybox ray reconstruction (skybox_fs, shading_pass.rs:367-399),
+    sampled from the environment cube; (H, W, 3)."""
+    return sampling.sample_cubemap(
+        env_faces, _sky_dirs(height, width, camera_basis)
+    )[..., :3]
+
+
+def shading_pass(gbuf, ssao, shadow_map, lights, num_lights: int, params,
+                 ibl=None):
+    """The reference path's shading to tonemapped colour (H, W, 3) in
+    [0, 1] (shading.py:149); ``ibl`` None: no ambient and no sky."""
+    eye = params["eye_pos"]
+    lo = shade_lights(gbuf, lights, num_lights, eye)
+    ambient = (ibl_ambient(gbuf, eye, ibl) if ibl is not None
+               else torch.zeros_like(lo))
+    if shadow_map is not None:
+        shadow = calculate_shadow(
+            gbuf.position, params["light_proj_view"], shadow_map
+        )
+    else:
+        shadow = torch.ones_like(ssao)
+    color = (ambient + lo * shadow[..., None]) * ssao[..., None]
+    color = tonemap_unreal(color + gbuf.emissive)
+    if ibl is not None:
+        # subpass 1: skybox only where depth == 1, not tonemapped
+        sky = skybox_color(*gbuf.depth.shape, params, ibl.environment_faces)
+        color = torch.where((gbuf.depth >= 1.0)[..., None], sky, color)
+    return torch.clamp(color, 0.0, 1.0)
 
 
 def shade_lights(gbuf, lights, num_lights: int, eye_pos):

@@ -19,24 +19,16 @@ import hashlib
 import numpy as np
 import torch
 
-from mo_renderer_tpu.assets import materials as pack_M
-from mo_renderer_tpu.assets.default_textures import DefaultTextures
-from mo_renderer_tpu.assets.image_io import resize_rgba
-from mo_renderer_tpu.assets.materials import (
-    DEFAULT_TEXTURE_MAP,
-    pack_material_gpu,
-)
-from mo_renderer_tpu.assets.model import Model
-from mo_renderer_tpu.config import EngineConfig
-from mo_renderer_tpu.math.projections import normal_matrix
-from mo_renderer_tpu.math.transform import Transform
-from mo_renderer_tpu.scene.components import (
-    DirectionalLight,
-    PointLight,
-    SpotLight,
-)
-
+from ..assets import materials as pack_M
+from ..assets.default_textures import DefaultTextures
+from ..assets.image_io import resize_rgba
+from ..assets.materials import DEFAULT_TEXTURE_MAP, pack_material_gpu
+from ..assets.model import Model
+from ..config import EngineConfig
+from ..math.projections import normal_matrix
+from ..math.transform import Transform
 from ..passes.vertex_stage import pack_triangle_attributes, world_vertex_stage
+from .components import DirectionalLight, PointLight, SpotLight
 
 GPU_LIGHT_STRIDE = 20
 

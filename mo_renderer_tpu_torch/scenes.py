@@ -1,8 +1,10 @@
 """The asset-free scene the reference benchmarks and its goldens use
 (``__graft_entry__._tiny_world`` / ``_tiny_config`` / ``_camera``),
-rebuilt with the port's IBLResource: a textured cube, a metallic sphere,
+rebuilt with the port's own classes: a textured cube, a metallic sphere,
 a ground plane, one shadow-casting directional light and a synthetic
-gradient sky, with the same entities and parameters.
+gradient sky, with the same entities and parameters.  Its UV1 variant
+samples the cube's base colour with UV set 1, which sends the frame down
+the reference sampling path.
 """
 
 from __future__ import annotations
@@ -12,12 +14,17 @@ import math
 import numpy as np
 
 from .assets.ibl_resource import IBLResource
+from .assets.procedural import procedural_model
+from .config import EngineConfig
+from .math import quat
+from .math.transform import Transform
+from .scene.camera import Camera
+from .scene.components import DirectionalLight
+from .scene.world import World
 
 
 def tiny_config(**overrides):
     """The reference's 256x128 golden configuration."""
-    from mo_renderer_tpu.config import EngineConfig
-
     kw = dict(width=256, height=128, shadow_map_size=256,
               texture_array_size=64, tile_h=16, tile_w=128, max_lights=16)
     kw.update(overrides)
@@ -40,17 +47,20 @@ def tiny_ibl(device=None) -> IBLResource:
     )
 
 
-def tiny_world(device=None):
-    from mo_renderer_tpu.assets.procedural import procedural_model
-    from mo_renderer_tpu.math.transform import Transform
-    from mo_renderer_tpu.scene.components import DirectionalLight
-    from mo_renderer_tpu.scene.world import World
+def use_uv1(model) -> None:
+    """Make ``model``'s first mesh sample its base colour with UV set 1,
+    set to twice UV set 0 (the checker tiles twice as often)."""
+    mesh = model.meshes[0]
+    mesh.material.base_color_uv = 1
+    mesh.primitive.uv1 = (mesh.primitive.uv0 * 2.0).astype(np.float32)
 
+
+def tiny_world(device=None, uv1=False):
     world = World()
-    world.spawn((
-        Transform.from_xyz(0.0, 0.5, 0.0),
-        procedural_model("cube", textured=True, roughness=0.4),
-    ))
+    cube = procedural_model("cube", textured=True, roughness=0.4)
+    if uv1:
+        use_uv1(cube)
+    world.spawn((Transform.from_xyz(0.0, 0.5, 0.0), cube))
     world.spawn((
         Transform.from_xyz(1.2, 0.5, 0.0),
         procedural_model("sphere", base_color=(0.8, 0.2, 0.2, 1.0),
@@ -71,9 +81,6 @@ def tiny_world(device=None):
 def camera(cfg, angle: float = 0.0):
     """Orbit camera 3 units from the origin, 1 unit up (the reference's
     ``__graft_entry__._camera``)."""
-    from mo_renderer_tpu.math import quat
-    from mo_renderer_tpu.scene.camera import Camera
-
     yaw = np.pi * 0.75 + angle
     d = np.array([np.sin(yaw), 0.0, np.cos(yaw)])
     pos = tuple(-3.0 * d + np.array([0.0, 1.0, 0.0]))
@@ -86,8 +93,6 @@ def orbit_system(n_frames: int):
     """A runtime system that moves the world's camera along the
     reference benchmark's gentle orbit (``bench.py`` ``_path_params``):
     frame i sits at base + 0.05 * (sin a, 0, cos a - 1), a = 2 pi i / n."""
-    from mo_renderer_tpu.scene.camera import Camera
-
     state = {"i": 0, "base": None}
 
     def system(world):

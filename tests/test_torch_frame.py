@@ -1,7 +1,8 @@
-"""The port's whole default frame (mo_renderer_tpu_torch.Renderer / App)
-against the reference's goldens and the JAX frame of the same scene, and
-the guards that keep the port runnable where there is no ``jax``, no
-``triton`` and no ``nvcc``.
+"""The port's whole frame (mo_renderer_tpu_torch.Renderer / App) on its
+three paths (default, reference sampling, megakernel) against the
+reference's goldens and the JAX frame of the same scene, and the guards
+that keep the port runnable where there is no ``jax``, no ``triton`` and
+no ``nvcc``.  Each side builds the scene with its own package's builders.
 
 Bar: the golden bar of tests/test_golden.py:99-107 (mean |diff| < 2/255,
 fewer than 0.5% of channels above 16/255), against the PNG and against
@@ -20,8 +21,10 @@ sys.path.insert(0, REPO)
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
+import torch  # noqa: E402
 
 import __graft_entry__ as graft  # noqa: E402
+from mo_renderer_tpu.assets.model import Model as JModel  # noqa: E402
 from mo_renderer_tpu.passes.frame_graph import Renderer as JRenderer  # noqa: E402
 from mo_renderer_tpu.passes.present import unpack_rgba8 as j_unpack  # noqa: E402
 from mo_renderer_tpu_torch import App, Renderer, interop, scenes  # noqa: E402
@@ -49,22 +52,27 @@ def _check(frame, ref, what):
     assert (diff > 16).mean() < 0.005
 
 
-def _port_frame(**overrides):
+def _port_frame(uv1=False, with_renderer=False, **overrides):
     cfg = scenes.tiny_config(**overrides)
-    world = scenes.tiny_world()
+    world = scenes.tiny_world(uv1=uv1)
     world.insert_resource(scenes.camera(cfg))
     r = Renderer(cfg, "cpu")
     r.prepare(world)
-    return r.render(world)
+    frame = r.render(world)
+    return (frame, r) if with_renderer else frame
 
 
-def _jax_frame(**overrides):
+def _jax_frame(uv1=False, with_renderer=False, **overrides):
     cfg = dataclasses.replace(graft._tiny_config(), **overrides)
     world = graft._tiny_world()
+    if uv1:
+        # the same change scenes.tiny_world(uv1=True) makes
+        scenes.use_uv1(next(iter(world.query(JModel))))
     world.insert_resource(graft._camera(cfg))
     r = JRenderer(cfg)
     r.prepare(world)
-    return r.render(world)
+    frame = r.render(world)
+    return (frame, r) if with_renderer else frame
 
 
 def test_default_frame_matches_golden_and_reference():
@@ -91,6 +99,35 @@ def test_passes_off_frame_matches_golden_and_reference():
 ])
 def test_option_frames_match_goldens(overrides, golden):
     _check(_port_frame(**overrides), _golden(golden), f"{overrides}")
+
+
+def test_reference_path_frame_matches_reference():
+    """fast_sampling=False: the per-vertex stage, the full-mode raster
+    (K6), gbuffer_pass and shading_pass, against the JAX frame."""
+    frame, r = _port_frame(with_renderer=True, fast_sampling=False)
+    assert r._fast is False
+    _check(frame, _jax_frame(fast_sampling=False),
+           "reference path vs JAX frame")
+
+
+def test_uv1_scene_takes_the_reference_path_in_both():
+    """A material sampling UV set 1 sends both renderers, under default
+    flags, down the reference sampling path (frame_graph.py:512-524)."""
+    frame, r = _port_frame(uv1=True, with_renderer=True)
+    ref, jr = _jax_frame(uv1=True, with_renderer=True)
+    assert r._fast is False and jr._fast is False
+    _check(frame, ref, "UV1 scene vs JAX frame")
+    assert np.abs(frame.astype(int) - _port_frame().astype(int)).max() > 16
+
+
+def test_megakernel_frame_matches_golden_and_reference():
+    """raster_interp_attrs=True: the raster megakernel (K8) and
+    gbuffer_pass_from_planes, against its golden and the JAX frame."""
+    kw = dict(raster_interp_attrs=True, ssao_res_divisor=1)
+    frame = _port_frame(**kw)
+    _check(frame, _golden("entry_procedural_256x128.png"),
+           "megakernel vs golden")
+    _check(frame, _jax_frame(**kw), "megakernel vs JAX frame")
 
 
 def test_frame_from_reference_state_matches_own_state():
@@ -153,12 +190,16 @@ def test_app_runs_the_port_and_memoizes_the_shadow():
     assert quads is not None
     app.run(num_frames=1)
     assert app.renderer._shadow_quads is quads  # light and scene unchanged
-    with pytest.raises(ValueError):
-        App.new(config=cfg)
+    # the entry points target the card by default: without one they
+    # raise, and only device="cpu" runs on the CPU
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            App.new(config=cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Renderer(cfg)
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(fast_sampling=False), dict(raster_interp_attrs=True),
     dict(stack_plane_kernel=True), dict(ssao_pallas=False),
     dict(pcf_half_anchor=False), dict(spec_merged_trilinear=False),
 ])
@@ -168,16 +209,16 @@ def test_unported_options_raise(overrides):
 
 
 def test_extra_passes_and_uv1_raise():
+    """Extra render passes still raise; a UV1 scene no longer does: it
+    takes the reference sampling path (rendered and held to the JAX
+    frame by test_uv1_scene_takes_the_reference_path_in_both)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Renderer(scenes.tiny_config(), "cpu", extra_passes=[object()])
-    world = scenes.tiny_world()
+    world = scenes.tiny_world(uv1=True)
     world.insert_resource(scenes.camera(scenes.tiny_config()))
-    from mo_renderer_tpu.assets.model import Model
-
-    model = next(m for m in world.query(Model))
-    model.meshes[0].material.base_color_uv = 1
-    with pytest.raises(NotImplementedError, match="UV set 1"):
-        Renderer(scenes.tiny_config(), "cpu").prepare(world)
+    r = Renderer(scenes.tiny_config(), "cpu")
+    r.prepare(world)
+    assert r._fast is False
 
 
 def _run_python(code, env=None):
@@ -191,21 +232,26 @@ def _run_python(code, env=None):
 
 def test_port_renders_without_jax():
     """A CUDA machine may have no jax at all: with jax made unimportable,
-    the package imports and renders a 256x128 frame on the CPU."""
+    the package imports and renders a 256x128 frame on the CPU on each of
+    its three paths, and no module of the JAX package is ever loaded."""
     out = _run_python("""
         import sys
         sys.modules["jax"] = None
         import mo_renderer_tpu_torch as port
         from mo_renderer_tpu_torch import scenes
-        cfg = scenes.tiny_config()
-        app = port.App.new(config=cfg, device="cpu")
-        app.world = scenes.tiny_world()
-        app.insert_resource(scenes.camera(cfg))
-        frame = app.run(num_frames=1)
-        assert frame.shape == (128, 256, 4), frame.shape
-        assert frame[..., :3].max() > 0
-        assert not any(m == "jax" or m.startswith("jax.")
-                       for m in sys.modules if sys.modules[m] is not None)
+        for kw in ({}, {"fast_sampling": False},
+                   {"raster_interp_attrs": True, "ssao_res_divisor": 1}):
+            cfg = scenes.tiny_config(**kw)
+            app = port.App.new(config=cfg, device="cpu")
+            app.world = scenes.tiny_world()
+            app.insert_resource(scenes.camera(cfg))
+            frame = app.run(num_frames=1)
+            assert frame.shape == (128, 256, 4), frame.shape
+            assert frame[..., :3].max() > 0
+        loaded = [m for m in sys.modules if sys.modules[m] is not None]
+        assert not any(m == "jax" or m.startswith("jax.") for m in loaded)
+        assert not any(m == "mo_renderer_tpu"
+                       or m.startswith("mo_renderer_tpu.") for m in loaded)
         print("ok", frame.shape)
     """)
     assert "ok (128, 256, 4)" in out

@@ -1,6 +1,9 @@
 """The port's scene packing and IBL precompute against the JAX reference's,
 and the carry-over of both states (mo_renderer_tpu_torch/interop.py).
 
+Each side packs a world built with its own package's builders (the port
+has its own World, Model and components); the outputs are compared.
+
 Bars: pack_scene field by field — integers exact, floats within atol
 1e-6.  IBL maps at stated tolerances (see test_ibl_maps_match_reference).
 """
@@ -17,34 +20,48 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 
 import __graft_entry__ as graft  # noqa: E402
-from mo_renderer_tpu.assets.procedural import procedural_model  # noqa: E402
 from mo_renderer_tpu.device import sampling as JSm  # noqa: E402
-from mo_renderer_tpu.math.transform import Transform  # noqa: E402
 from mo_renderer_tpu.scene import scene_buffers as JSB  # noqa: E402
-from mo_renderer_tpu.scene.components import (  # noqa: E402
-    DirectionalLight,
-    PointLight,
-    SpotLight,
-)
 from mo_renderer_tpu_torch import interop, scenes  # noqa: E402
 from mo_renderer_tpu_torch.device import sampling as S  # noqa: E402
 from mo_renderer_tpu_torch.scene import scene_buffers as SB  # noqa: E402
 
+# each side's builders: (tiny world, procedural_model, Transform, lights)
+SIDES = {"jax": "mo_renderer_tpu", "port": "mo_renderer_tpu_torch"}
 
-def _busy_world():
+
+def _api(side):
+    import importlib
+
+    pkg = SIDES[side]
+    comp = importlib.import_module(pkg + ".scene.components")
+    return (
+        graft._tiny_world if side == "jax" else scenes.tiny_world,
+        importlib.import_module(pkg + ".assets.procedural").procedural_model,
+        importlib.import_module(pkg + ".math.transform").Transform,
+        comp,
+    )
+
+
+def _tiny_world(side):
+    return _api(side)[0]()
+
+
+def _busy_world(side):
     """More entities, materials, textured slots and light types than the
     tiny scene: exercises stack entries, constant slots and light rows."""
-    world = graft._tiny_world()
+    tiny, procedural_model, Transform, comp = _api(side)
+    world = tiny()
     for i in range(3):
         world.spawn((
             Transform.from_xyz(-1.0 - i, 0.25 * i, 0.5),
             procedural_model("sphere", mr_gradient=True, textured=bool(i % 2),
                              base_color=(0.2, 0.4 + 0.1 * i, 0.9, 1.0)),
         ))
-    world.spawn((PointLight(Transform.from_xyz(0.0, 2.0, 1.0),
-                            (1.0, 0.8, 0.6), 3.0),))
-    world.spawn((SpotLight(Transform.from_xyz(1.0, 3.0, 0.0)
-                           .looking_at((0.0, 0.0, 0.0)), exponent=4.0),))
+    world.spawn((comp.PointLight(Transform.from_xyz(0.0, 2.0, 1.0),
+                                 (1.0, 0.8, 0.6), 3.0),))
+    world.spawn((comp.SpotLight(Transform.from_xyz(1.0, 3.0, 0.0)
+                                .looking_at((0.0, 0.0, 0.0)), exponent=4.0),))
     return world
 
 
@@ -67,37 +84,40 @@ def _assert_fields_equal(port, ref_fields):
             np.testing.assert_array_equal(got, ref, err_msg=name)
 
 
-@pytest.mark.parametrize("make_world", [graft._tiny_world, _busy_world])
+@pytest.mark.parametrize("make_world", [_tiny_world, _busy_world])
 def test_pack_scene_matches_reference(make_world):
-    cfg = graft._tiny_config()
-    world = make_world()
-    ref = JSB.pack_scene(world, cfg)
-    port = SB.pack_scene(world, cfg, "cpu")
+    ref = JSB.pack_scene(make_world("jax"), graft._tiny_config())
+    port = SB.pack_scene(make_world("port"), scenes.tiny_config(), "cpu")
     _assert_fields_equal(port, _jax_fields(ref))
 
 
-def test_refresh_transforms_matches_reference():
-    cfg = graft._tiny_config()
-    world = _busy_world()
-    ref = JSB.pack_scene(world, cfg)
-    port = SB.pack_scene(world, cfg, "cpu")
-    assert SB.refresh_transforms(port) is port  # nothing moved
+def _move_two(world, side):
+    _, procedural_model, Transform, _ = _api(side)
     for transform, _model in list(world.query(Transform,
                                               type(procedural_model())))[:2]:
         transform.translation = transform.translation + np.float32(0.3)
+
+
+def test_refresh_transforms_matches_reference():
+    jworld, world = _busy_world("jax"), _busy_world("port")
+    ref = JSB.pack_scene(jworld, graft._tiny_config())
+    port = SB.pack_scene(world, scenes.tiny_config(), "cpu")
+    assert SB.refresh_transforms(port) is port  # nothing moved
+    _move_two(jworld, "jax")
+    _move_two(world, "port")
     ref = JSB.refresh_transforms(ref)
     port = SB.refresh_transforms(port)
     _assert_fields_equal(port, _jax_fields(ref))
 
 
 def test_find_shadow_light_matches_reference():
-    world = _busy_world()
-    pv_r, ok_r = JSB.find_shadow_light(world)
+    pv_r, ok_r = JSB.find_shadow_light(_busy_world("jax"))
+    world = _busy_world("port")
     pv, ok = SB.find_shadow_light(world)
     assert ok == ok_r
     np.testing.assert_array_equal(pv, pv_r)
     world2 = type(world)()
-    world2.spawn((DirectionalLight(),))
+    world2.spawn((_api("port")[3].DirectionalLight(),))
     assert SB.find_shadow_light(world2)[1] is False
 
 
