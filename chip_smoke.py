@@ -10,8 +10,9 @@ Phases (each raises on failure; the script then exits non-zero):
 1. Build: compile the CUDA kernels from csrc/ with nvcc (one process per
    source, all at once).
 2. Kernels: capture each kernel's inputs from one 1920x1080 frame of the
-   asset-free scene on each of the port's three paths (default, reference
-   sampling, megakernel), then hold every CUDA kernel against its plain
+   asset-free scene on each of the port's four paths (default, reference
+   sampling, megakernel, and the texture-stack path on the scene's
+   all-slots variant), then hold every CUDA kernel against its plain
    PyTorch version on those same card tensors, and time both: the median
    over 20 calls of the device time between two CUDA events, with each
    call queued behind a sleep kernel so the host's issue time is not in
@@ -19,13 +20,19 @@ Phases (each raises on failure; the script then exits non-zero):
    must move over 3.35 TB/s and its FP32 operations over 67 TFLOP/s
    (the H100 SXM data sheet), both counted from this run's inputs.
 3. Frames at 256x128: the default frame, the reference-path frame
-   (fast_sampling=False), the UV1 scene under default flags and the
-   megakernel frame (raster_interp_attrs=True, ssao_res_divisor=1), each
-   on the card against the port's CPU frame of the same scene, within the
-   golden bar of tests/test_golden.py (mean |diff| < 2/255, < 0.5% of
-   channels > 16/255).
+   (fast_sampling=False), the UV1 scene under default flags, the
+   megakernel frame (raster_interp_attrs=True, ssao_res_divisor=1), the
+   texture-stack frames (stack kernel on, attrs kernel off or on) and
+   the frame under each other fast-path option (the two other PCF
+   layouts, the specular taps at full rate or unmerged, SSAO without the
+   tile kernel), each on the card against the port's CPU frame of the
+   same scene, within the golden bar of tests/test_golden.py (mean
+   |diff| < 2/255, < 0.5% of channels > 16/255).  The stack kernel must
+   launch on the texture-stack frames and nowhere else, also when the
+   reference and megakernel paths are given stack_plane_kernel=True.
 4. Frames at 1920x1080 through the port's App.run along the reference
-   benchmark's small camera orbit, on each path: finite, not black, sky
+   benchmark's small camera orbit, on each of the four paths (the
+   texture-stack path on the all-slots scene): finite, not black, sky
    and geometry both present, no bin overflow, and every kernel of the
    path launched during its run (the counts are set to 0 just before each
    path and read just after; the reference path re-rasterizes the shadow
@@ -66,16 +73,23 @@ KERNELS = {
                     "mo_renderer_tpu/kernels/rasterizer.py:549"),
     "raster_attrs": ("mo_renderer_tpu_torch/csrc/raster_attrs.cu",
                      "mo_renderer_tpu/kernels/rasterizer.py:288"),
+    "stack_planes": ("mo_renderer_tpu_torch/csrc/stack_planes.cu",
+                     "mo_renderer_tpu/kernels/stack_planes.py:66"),
 }
 
-# the port's three paths: EngineConfig overrides and the kernels each runs
+STACKS = {"attrs_plane_kernel": False, "stack_plane_kernel": True}
+
+# the port's four paths: EngineConfig overrides, the kernels each runs,
+# and the scene variant (scenes.tiny_world keywords)
 PATHS = {
     "default": ({}, ("raster_slim", "raster_depth", "attr_planes", "ssao",
-                     "interleave")),
+                     "interleave"), {}),
     "reference": ({"fast_sampling": False},
-                  ("raster_full", "raster_depth", "ssao")),
+                  ("raster_full", "raster_depth", "ssao"), {}),
     "megakernel": ({"raster_interp_attrs": True},
-                   ("raster_attrs", "raster_depth", "ssao")),
+                   ("raster_attrs", "raster_depth", "ssao"), {}),
+    "stacks": (STACKS, ("raster_slim", "raster_depth", "stack_planes",
+                        "ssao", "interleave"), {"all_slots": True}),
 }
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -89,6 +103,8 @@ FULL_FLOPS_PER_PIXEL = 8  # two fused edges and two products, per pixel
 ATTRS_FLOPS_PER_PIXEL = 95  # q, qs, 1/qs, 14 channels x 5
 ATTR_PLANES_FLOPS_PER_PIXEL = 50
 SSAO_FLOPS_PER_TAP = 10
+STACK_FLOPS_PER_PIXEL = 6  # the four bilinear weights
+STACK_FLOPS_PER_PLANE = 11  # 4 scales by 1/255, 4 weights, 3 adds
 
 
 def card_line() -> str:
@@ -131,7 +147,7 @@ def bound(n_bytes, n_flops):
 
 def capture_inputs(cfg, device):
     """Run one frame on each path and record what each kernel wrapper got
-    (the first call per kernel)."""
+    (the first call per kernel).  Returns {kernel: (args, kwargs)}."""
     import mo_renderer_tpu_torch.passes.frame_graph as FG
     import mo_renderer_tpu_torch.passes.gbuffer as GB
     from mo_renderer_tpu_torch import Renderer, scenes
@@ -143,6 +159,7 @@ def capture_inputs(cfg, device):
         (GB, "attr_planes"): GB.attr_planes,
         (FG, "ssao_pass_tiles"): FG.ssao_pass_tiles,
         (FG, "reconstruct_full"): FG.reconstruct_full,
+        (GB, "stack_planes"): GB.stack_planes,
     }
 
     def recorder(key, fn):
@@ -163,10 +180,12 @@ def capture_inputs(cfg, device):
         "ssao", originals[(FG, "ssao_pass_tiles")])
     FG.reconstruct_full = recorder(
         "interleave", originals[(FG, "reconstruct_full")])
+    GB.stack_planes = recorder(
+        "stack_planes", originals[(GB, "stack_planes")])
     try:
-        for overrides, _ in PATHS.values():
+        for overrides, _, scene_kw in PATHS.values():
             pcfg = dataclasses.replace(cfg, **overrides)
-            world = scenes.tiny_world()
+            world = scenes.tiny_world(**scene_kw)
             world.insert_resource(scenes.camera(pcfg))
             renderer = Renderer(pcfg, device)
             renderer.prepare(world)
@@ -186,6 +205,7 @@ def check_kernels(cfg, device):
 
     from mo_renderer_tpu_torch.kernels import attr_planes as AP
     from mo_renderer_tpu_torch.kernels import rasterizer as R
+    from mo_renderer_tpu_torch.kernels import stack_planes as SP
     from mo_renderer_tpu_torch.passes import checkerboard as CB
     from mo_renderer_tpu_torch.passes import ssao as S
 
@@ -315,10 +335,31 @@ def check_kernels(cfg, device):
             nbytes(cb, tri, tri), 0,
         )
 
+    def stack():
+        (idx, fx, fy, groups, spec), _ = seen["stack_planes"]
+        args = (idx, fx, fy, groups, spec)
+        widths = "/".join(str(g.shape[1]) for g in groups)
+
+        def cmp(k, p):
+            err = exact(k, p)
+            return err, err <= 1e-6, "exact expected, atol 1e-6"
+        # each input read once (the group tables whole), each plane
+        # written once
+        return (
+            lambda: SP._stack_planes_cuda(*args),
+            lambda: SP._stack_planes_plain(*args),
+            cmp, f"{tuple(idx.shape)}, groups {widths} wide "
+            f"({groups[0].shape[0]} rows) -> {len(spec)} planes",
+            nbytes(idx, fx, fy, *groups) + len(spec) * 4 * idx.numel(),
+            (STACK_FLOPS_PER_PIXEL + STACK_FLOPS_PER_PLANE * len(spec))
+            * idx.numel(),
+        )
+
     cases = {
         "raster_slim": raster("slim"), "raster_depth": raster("depth"),
         "attr_planes": attr(), "ssao": ssao(), "interleave": interleave(),
         "raster_full": raster("full"), "raster_attrs": raster_attrs(),
+        "stack_planes": stack(),
     }
     for name, (kern, plain, cmp, shape, n_bytes, n_flops) in cases.items():
         k_out, p_out = kern(), plain()
@@ -344,27 +385,57 @@ def check_kernels(cfg, device):
 
 
 def check_small_frames(device):
-    """Phase 3: the 256x128 frames on the card vs on the CPU."""
+    """Phase 3: the 256x128 frames on the card vs on the CPU; the stack
+    kernel launches on the card exactly where the config and the path
+    call for it."""
     import numpy as np
 
     from mo_renderer_tpu_torch import Renderer, scenes
+    from mo_renderer_tpu_torch.kernels import _build
 
+    stack_on = {"stack_plane_kernel": True}
+    # what -> (overrides, scene variant, the stack kernel runs)
     cases = {
-        "default": ({}, False),
-        "reference path": ({"fast_sampling": False}, False),
-        "UV1 scene": ({}, True),
+        "default": ({}, {}, False),
+        "reference path": ({"fast_sampling": False}, {}, False),
+        "UV1 scene": ({}, {"uv1": True}, False),
         "megakernel": ({"raster_interp_attrs": True,
-                        "ssao_res_divisor": 1}, False),
+                        "ssao_res_divisor": 1}, {}, False),
+        "texture-stack": (STACKS, {"all_slots": True}, True),
+        "both plane kernels": ({"attrs_plane_kernel": True, **stack_on},
+                               {"all_slots": True}, True),
+        "reference path, stack kernel on": (
+            {"fast_sampling": False, **stack_on}, {"all_slots": True},
+            False),
+        "megakernel, stack kernel on": (
+            {"raster_interp_attrs": True, "ssao_res_divisor": 1, **stack_on},
+            {"all_slots": True}, False),
+        "pcf_u16=False": ({"pcf_u16": False}, {}, False),
+        "pcf_half_anchor=False": ({"pcf_half_anchor": False}, {}, False),
+        "spec_parent_mip_half_res=False": (
+            {"spec_parent_mip_half_res": False}, {}, False),
+        "spec_merged_trilinear=False": (
+            {"spec_merged_trilinear": False}, {}, False),
+        "spec_mirror_half_res=False, checkerboard=False": (
+            {"spec_mirror_half_res": False, "checkerboard": False}, {},
+            False),
+        "ssao_pallas=False": ({"ssao_pallas": False}, {}, False),
     }
-    for what, (overrides, uv1) in cases.items():
+    for what, (overrides, scene_kw, k7) in cases.items():
         frames = []
         for dev in (device, "cpu"):
             cfg = scenes.tiny_config(**overrides)
-            world = scenes.tiny_world(uv1=uv1)
+            world = scenes.tiny_world(**scene_kw)
             world.insert_resource(scenes.camera(cfg))
             r = Renderer(cfg, dev)
             r.prepare(world)
+            before = _build.LAUNCHES["stack_planes"]
             frames.append(r.render(world).astype(np.int32))
+            launched = _build.LAUNCHES["stack_planes"] > before
+            if launched != (k7 and dev == device):
+                raise AssertionError(
+                    f"256x128 {what} frame on {dev}: the stack kernel "
+                    f"{'launched' if launched else 'did not launch'}")
         gpu, cpu = frames
         if gpu.shape != (128, 256, 4):
             raise AssertionError(f"256x128 frame has shape {gpu.shape}")
@@ -409,10 +480,10 @@ def run_full_frame(device, line, path, n_frames, warmup=3):
     from mo_renderer_tpu_torch.config import EngineConfig
     from mo_renderer_tpu_torch.kernels import _build
 
-    overrides, kernels = PATHS[path]
+    overrides, kernels, scene_kw = PATHS[path]
     cfg = EngineConfig(width=1920, height=1080, **overrides)
     app = App.new(config=cfg, device=device)
-    app.world = scenes.tiny_world()
+    app.world = scenes.tiny_world(**scene_kw)
     app.insert_resource(scenes.camera(cfg))
     app.add_runtime_system(scenes.orbit_system(warmup + n_frames))
     app.resumed()
@@ -512,7 +583,7 @@ def main() -> int:
     check_small_frames(device)
     launches = {name: {} for name in KERNELS}
     for path, n_frames in (("default", 16), ("reference", 8),
-                           ("megakernel", 8)):
+                           ("megakernel", 8), ("stacks", 8)):
         counts, _ = run_full_frame(device, line, path, n_frames)
         for name in PATHS[path][1]:
             launches[name][path] = counts[name]

@@ -89,7 +89,51 @@ def sample_array_bilinear(tex_array, layer, uv, mode: int = CLAMP_TO_EDGE):
                    tap(y1w, x1w), fx, fy)
 
 
-# --- PCF window table -------------------------------------------------------
+# --- PCF window tables --------------------------------------------------------
+#
+# Three layouts (EngineConfig.pcf_u16 / pcf_half_anchor), told apart by
+# shading.calculate_shadow_fast from the dtype and the row count: f32
+# 2x4 wide rows (two gathers per pixel), u16 4x4 windows at every texel,
+# u16 4x4 windows at every even texel (the default).
+
+def _shift_rows(t, k):
+    """t[y + k] with the last row repeated past the edge."""
+    return t if k == 0 else torch.cat([t[k:], t[-1:].expand(k, -1)], dim=0)
+
+
+def _shift_cols(t, k):
+    """t[:, x + k] with the last column repeated past the edge."""
+    return t if k == 0 else torch.cat([t[:, k:], t[:, -1:].expand(-1, k)],
+                                      dim=1)
+
+
+def build_window_rows_2x4(img):
+    """(H, W) -> (H*W, 8) f32 rows [t(y, x..x+3), t(y+1, x..x+3)],
+    edge-clamped (sampling.py:374): two rows, at y-1 and y+1, column x-1,
+    hold the 4x4 PCF neighbourhood of texel (y, x)."""
+    down = _shift_rows(img, 1)
+    cols = ([_shift_cols(img, k) for k in range(4)]
+            + [_shift_cols(down, k) for k in range(4)])
+    return torch.stack(cols, dim=-1).reshape(-1, 8)
+
+
+def _quantize_u16(img):
+    """Depth -> 16-bit unorm, rounded up (int32)."""
+    return torch.clamp(
+        torch.ceil(torch.clamp(img, 0.0, 1.0) * 65535.0), max=65535.0
+    ).to(torch.int32)
+
+
+def build_pcf_window_u16(img):
+    """(S, S) depth -> (S*S, 8) int32: texel (y, x)'s 4x4 window (rows
+    y..y+3, cols x..x+3, edge-clamped) of ceil-quantized 16-bit depth,
+    packed two texels per word in row-major pairs (sampling.py:403)."""
+    q = _quantize_u16(img)
+    vals = [_shift_cols(_shift_rows(q, r), c)
+            for r in range(4) for c in range(4)]
+    packed = [vals[2 * j] | (vals[2 * j + 1] << 16) for j in range(8)]
+    return torch.stack(packed, dim=-1).reshape(-1, 8)
+
 
 def build_pcf_window_u16_half(img):
     """(S, S) depth -> ((S/2)^2, 8) int32: the 4x4 window of 16-bit
@@ -97,9 +141,7 @@ def build_pcf_window_u16_half(img):
     cols 2j..2j+3, edge-clamped), packed two texels per word in row-major
     pairs (sampling.py:440)."""
     h2, w2 = img.shape[0] // 2, img.shape[1] // 2
-    q = torch.clamp(
-        torch.ceil(torch.clamp(img, 0.0, 1.0) * 65535.0), max=65535.0
-    ).to(torch.int32)
+    q = _quantize_u16(img)
     q = torch.cat([q, q[:, -1:].expand(-1, 2)], dim=1)
     q = torch.cat([q, q[-1:].expand(2, -1)], dim=0)
     vals = []
@@ -391,6 +433,37 @@ def mipcube_quad_index_anchor(sizes, offsets, level, face, u, v):
     x0i = torch.minimum(torch.clamp(x0.to(torch.int32), min=0), s - 1)
     y0i = torch.minimum(torch.clamp(y0.to(torch.int32), min=0), s - 1)
     return off + face * s * s + y0i * s + x0i, fx, fy, x0i, y0i
+
+
+def mipcube_quad_index(sizes, offsets, level, face, u, v):
+    """Quad-row index + bilinear fractions at per-pixel integer mip
+    ``level`` (sampling.py:687)."""
+    idx, fx, fy, _, _ = mipcube_quad_index_anchor(
+        sizes, offsets, level, face, u, v
+    )
+    return idx, fx, fy
+
+
+def _sample_mipcube_quad_level(rows, sizes, offsets, level, face, u, v):
+    """RGBE bilinear sample at per-pixel integer mip ``level``: one row
+    gather (sampling.py:696)."""
+    idx, fx, fy = mipcube_quad_index(sizes, offsets, level, face, u, v)
+    return quad_lerp_rgbe(take_rows(rows, idx), fx, fy)
+
+
+def sample_mipcube_quad_lod(mq: MipCubeQuad, dirs, lod):
+    """textureLod on the RGBE quad-packed chain: trilinear from two row
+    gathers (sampling.py:728)."""
+    sizes, offsets = _level_tables(mq, dirs.device)
+    nl = mq.num_levels
+    face, u, v = cube_face_uv(dirs)
+    lod = torch.clamp(lod, 0.0, nl - 1)
+    l0 = torch.floor(lod).to(torch.int32)
+    l1 = torch.clamp(l0 + 1, max=nl - 1)
+    f = (lod - l0.to(lod.dtype))[..., None]
+    c0 = _sample_mipcube_quad_level(mq.rows, sizes, offsets, l0, face, u, v)
+    c1 = _sample_mipcube_quad_level(mq.rows, sizes, offsets, l1, face, u, v)
+    return c0 * (1 - f) + c1 * f
 
 
 def _level_tables(mq, device):

@@ -52,6 +52,7 @@ LAUNCHES: dict[str, int] = {
     "interleave": 0,
     "raster_full": 0,
     "raster_attrs": 0,
+    "stack_planes": 0,
 }
 
 _lock = threading.Lock()

@@ -5,7 +5,12 @@
   light and the scene stay the same) -> visibility raster from the packed
   per-triangle corners -> checkerboard decimation -> G-buffer
   (attr_planes) -> half-rate SSAO -> fast shading + skybox -> present ->
-  checkerboard reconstruction -> crop.
+  checkerboard reconstruction -> crop.  Its options all run as in the
+  reference: the attribute planes as torch ops (``attrs_plane_kernel``
+  off), the texture stacks through the ``stack_planes`` kernel
+  (``stack_plane_kernel``), the three PCF table layouts, the specular
+  branches (``spec_*``) and SSAO as whole-image torch ops
+  (``ssao_pallas`` off).
 - Reference sampling path (``fast_sampling=False``, or any material that
   samples UV set 1): the per-vertex stage, the shadow map re-rasterized
   from its light clip positions every frame, the full-mode raster with
@@ -17,9 +22,9 @@
   checkerboard.
 
 PyTorch runs the frame eagerly on the Renderer's device; the kernels
-launch on the current CUDA stream.  Config flags whose code is not ported
-raise ``NotImplementedError`` (see ``_check_config``); nothing falls back
-to another path.
+launch on the current CUDA stream.  Extra render passes, which are not
+ported, raise ``NotImplementedError`` (see ``_check_config``); nothing
+falls back to another path.
 """
 
 from __future__ import annotations
@@ -32,7 +37,11 @@ import torch
 from ..assets.ibl_resource import IBLResource
 from ..config import EngineConfig
 from ..device import resolve_device
-from ..device.sampling import build_pcf_window_u16_half
+from ..device.sampling import (
+    build_pcf_window_u16,
+    build_pcf_window_u16_half,
+    build_window_rows_2x4,
+)
 from ..kernels.decimate import decimate_cols
 from ..kernels.raster_setup import (
     bin_triangles,
@@ -51,7 +60,7 @@ from .gbuffer import gbuffer_pass, gbuffer_pass_fast, gbuffer_pass_from_planes
 from .present import present_pass, unpack_rgba8
 from .shading import _even_grid, _upsample_pow2, _upsample_to_cb
 from .shading import shading_pass, shading_pass_fast
-from .ssao import ssao_pass_tiles
+from .ssao import ssao_pass, ssao_pass_tiles
 from .vertex_stage import pack_raster_attr_columns, run_vertex_stage
 
 logger = logging.getLogger("mo_renderer_tpu_torch")
@@ -62,27 +71,24 @@ def _round_up(x, m):
 
 
 def _check_config(cfg: EngineConfig, extra_passes=()) -> None:
-    """Raise for every option whose code this package does not port."""
-    unported = [
-        (cfg.stack_plane_kernel, "stack_plane_kernel=True",
-         "ROADMAP Queue 2 K7 (stack_planes)"),
-        (not cfg.ssao_pallas, "ssao_pallas=False",
-         "ROADMAP Queue 1 item 12 (reference sampling path: ssao_pass)"),
-        (bool(extra_passes), "extra render passes",
-         "ROADMAP Queue 1 item 13 (sequences and the RenderPass API)"),
-        (not (cfg.pcf_u16 and cfg.pcf_half_anchor),
-         "pcf_u16/pcf_half_anchor off",
-         "ROADMAP Queue 1 item 16 (fast-path option variants)"),
-        (not (cfg.spec_parent_mip_half_res and cfg.spec_mirror_half_res
-              and cfg.spec_merged_trilinear),
-         "spec_*_half_res / spec_merged_trilinear off",
-         "ROADMAP Queue 1 item 16 (fast-path option variants)"),
-    ]
-    for bad, what, item in unported:
-        if bad:
-            raise NotImplementedError(
-                f"mo_renderer_tpu_torch does not port {what} yet: {item}"
-            )
+    """Raise for what this package does not port: every EngineConfig
+    option runs, extra render passes do not."""
+    if extra_passes:
+        raise NotImplementedError(
+            "mo_renderer_tpu_torch does not port extra render passes yet: "
+            "ROADMAP Queue 1 item 13 (sequences and the RenderPass API)"
+        )
+
+
+def _pcf_build(cfg):
+    """Shadow map -> PCF table builder for the configured layout
+    (frame_graph.py:50); shading.calculate_shadow_fast reads the layout
+    off the table."""
+    if not cfg.pcf_u16:
+        return build_window_rows_2x4
+    if cfg.pcf_half_anchor:
+        return build_pcf_window_u16_half
+    return build_pcf_window_u16
 
 
 class CameraParams:
@@ -177,12 +183,12 @@ def shadow_map_from_clip(scene, *, cfg, binned_cap, shadow_clip=None,
 
 def shadow_program(scene, light_proj_view, *, cfg, binned_cap):
     """The fast path's memoizable shadow: the map from the packed corners
-    -> u16 half-anchor PCF window table.  Returns (table, dropped pair
+    -> the configured PCF window table.  Returns (table, dropped pair
     count)."""
     shadow_map, overflow = shadow_map_from_clip(
         scene, cfg=cfg, binned_cap=binned_cap, light_pv=light_proj_view
     )
-    return build_pcf_window_u16_half(shadow_map), overflow
+    return _pcf_build(cfg)(shadow_map), overflow
 
 
 def _pad_edge(a, ph, pw):
@@ -246,7 +252,9 @@ def frame_program(scene, ibl, params, *, cfg, pad_w, pad_h, binned_cap,
         if use_cb:
             tri_g, z_g = decimate_cols(tri, "cb"), decimate_cols(z, "cb")
         gbuf = gbuffer_pass_fast(tri_g, z_g, scene, scene.tri_attrs, params,
-                                 slot_map, cb=use_cb, full_wh=(pad_w, pad_h))
+                                 slot_map, cb=use_cb, full_wh=(pad_w, pad_h),
+                                 plane_kernel=cfg.attrs_plane_kernel,
+                                 stack_kernel=cfg.stack_plane_kernel)
 
     # SSAO on the full-resolution depth; ssao_res_divisor > 1 evaluates it
     # on the even grid, edge-padded to tile multiples exactly as the
@@ -259,7 +267,9 @@ def frame_program(scene, ibl, params, *, cfg, pad_w, pad_h, binned_cap,
             _round_up(d_in.shape[0], cfg.tile_h) - d_in.shape[0],
             _round_up(d_in.shape[1], cfg.tile_w) - d_in.shape[1],
         ).contiguous()
-        ssao = ssao_pass_tiles(d_pad, near=cfg.ssao_near, far=cfg.ssao_far)
+        ssao = (ssao_pass_tiles if cfg.ssao_pallas else ssao_pass)(
+            d_pad, near=cfg.ssao_near, far=cfg.ssao_far
+        )
         ssao = ssao[: d_in.shape[0], : d_in.shape[1]]
         if half_ssao and use_cb:
             ssao = _upsample_to_cb(ssao, *gbuf.depth.shape, 2, 1)
@@ -272,11 +282,14 @@ def frame_program(scene, ibl, params, *, cfg, pad_w, pad_h, binned_cap,
 
     if fast:
         if use_shadow and shadow_quads is None:
-            shadow_quads = build_pcf_window_u16_half(shadow_map)
+            shadow_quads = _pcf_build(cfg)(shadow_map)
         color = shading_pass_fast(
             gbuf, ssao, shadow_quads if use_shadow else None,
             cfg.shadow_map_size, scene.lights, n_lights, params, ibl=ibl,
-            shadow_res_divisor=cfg.pcf_res_divisor, cb=use_cb,
+            shadow_res_divisor=cfg.pcf_res_divisor,
+            parent_mip_half_res=cfg.spec_parent_mip_half_res,
+            mirror_half_res=cfg.spec_mirror_half_res,
+            merged_trilinear=cfg.spec_merged_trilinear, cb=use_cb,
         )
     else:
         color = shading_pass(gbuf, ssao, shadow_map, scene.lights, n_lights,

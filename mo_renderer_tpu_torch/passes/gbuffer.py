@@ -9,12 +9,17 @@ reference sampling path's ``gbuffer_pass``, the fast path's
   own UV set (0 or 1).
 - ``gbuffer_pass_fast``: the visibility buffer's triangle ids go through
   the ``attr_planes`` kernel (row gather + perspective-correct
-  interpolation), then the material columns that ride the attribute rows
-  drive one texture-stack row gather per sampled slot group, bilinear
-  filtering of the packed RGBA8 quads, factor application and TBN normal
-  mapping.
+  interpolation) or, with ``attrs_plane_kernel`` off, through the same
+  math as torch ops (the reference's non-kernel branch, which takes the
+  bitangent as cross(n, t) * handedness); then the material columns that
+  ride the attribute rows drive the texture-stack sampling of the
+  sampled slots (one row gather per slot group and the bilinear filter
+  of the packed RGBA8 quads as torch ops, or both fused in the
+  ``stack_planes`` kernel with ``stack_plane_kernel`` on), factor
+  application and TBN normal mapping.
 - ``gbuffer_pass_from_planes`` takes the planes the raster megakernel
-  already interpolated and runs the same texturing tail.
+  already interpolated and runs the same texturing tail, always with the
+  torch-op stack sampling (the reference passes it no stack kernel).
 """
 
 from __future__ import annotations
@@ -25,8 +30,17 @@ import torch
 
 from ..assets import materials as M
 from ..device import sampling
-from ..kernels.attr_planes import attr_planes
+from ..kernels.attr_planes import attr_planes, pixel_ndc
+from ..kernels.stack_planes import out_spec, stack_planes
 from ..kernels.tonemap import srgb_to_linear
+from .vertex_stage import (
+    TRI_HANDED,
+    TRI_N0,
+    TRI_STRIDE,
+    TRI_T0,
+    TRI_UV0,
+    TRI_WP0,
+)
 
 
 @dataclasses.dataclass
@@ -130,37 +144,103 @@ def gbuffer_pass(tri, z, b0, b1, scene, vs) -> GBuffer:
 
 
 def gbuffer_pass_fast(tri, z, scene, tri_attrs, params, slot_map: tuple,
-                      cb: bool = False, full_wh=None) -> GBuffer:
+                      cb: bool = False, full_wh=None,
+                      plane_kernel: bool = True,
+                      stack_kernel: bool = False) -> GBuffer:
     """tri/z: visibility planes (H, W), or the (H, W/2) checkerboard
-    domain when ``cb``; ``full_wh`` is the raster target size."""
+    domain when ``cb``; ``full_wh`` is the raster target size.
+
+    ``plane_kernel`` (``EngineConfig.attrs_plane_kernel``): the attribute
+    planes come from the ``attr_planes`` kernel; off, the reference's
+    non-kernel branch runs as torch ops (gbuffer.py:295-358): the row
+    gather, homogeneous barycentrics, the corner interpolation and the
+    bitangent as cross(n, t) * handedness.  ``stack_kernel``
+    (``EngineConfig.stack_plane_kernel``): the sampled slots' channels
+    come from the ``stack_planes`` kernel."""
     covered = tri >= 0
     pv = params["proj_view"]
     prev_pv = params["prev_proj_view"]
     used_cols = M.fast_used_cols(slot_map)
     if full_wh is None:
         full_wh = (tri.shape[1] * (2 if cb else 1), tri.shape[0])
-    planes = attr_planes(
-        tri, tri_attrs, pv, n_mat=len(used_cols), full_wh=full_wh, cb=cb
-    )
+    if plane_kernel:
+        planes = attr_planes(
+            tri, tri_attrs, pv, n_mat=len(used_cols), full_wh=full_wh, cb=cb
+        )
 
-    def vec(a, b):
-        return planes[a:b].permute(1, 2, 0)
+        def vec(a, b):
+            return planes[a:b].permute(1, 2, 0)
 
-    world_pos = vec(0, 3)
+        world_pos, n_in, t_in, bt_in = (vec(0, 3), vec(3, 6), vec(6, 9),
+                                        vec(9, 12))
+        uv0 = vec(12, 14)
+        has_tangent = planes[15].abs() > 0.5
+        mat_cols = vec(16, planes.shape[0])
+    else:
+        row = sampling.take_rows(tri_attrs, torch.clamp(tri, min=0))
+
+        def corner(base, width, k):
+            return row[..., base + width * k : base + width * (k + 1)]
+
+        nx, ny = pixel_ndc(tri.shape, full_wh, cb=cb, device=tri.device)
+        bb = _homogeneous_barycentrics(
+            [corner(TRI_WP0, 3, k) for k in range(3)], pv, nx, ny
+        )
+
+        def interp(base, width):
+            return (corner(base, width, 0) * bb[0][..., None]
+                    + corner(base, width, 1) * bb[1][..., None]
+                    + corner(base, width, 2) * bb[2][..., None])
+
+        world_pos = interp(TRI_WP0, 3)
+        n_in = interp(TRI_N0, 3)
+        t_in = interp(TRI_T0, 3)
+        uv0 = interp(TRI_UV0, 2)
+        handed = row[..., TRI_HANDED]
+        has_tangent = handed.abs() > 0.5
+        # the rows carry no corner bitangents: B = cross(N, T) * tangent.w
+        bt_in = torch.linalg.cross(n_in, t_in, dim=-1) * handed[..., None]
+        mat_cols = row[..., TRI_STRIDE : TRI_STRIDE + len(used_cols)]
+
+    # clip positions are linear in world pos: interpolate-then-project
     wp1 = torch.cat([world_pos, torch.ones_like(world_pos[..., :1])], -1)
     velocity = _ndc01(wp1 @ pv.t()) - _ndc01(wp1 @ prev_pv.t())
     return _texture_and_assemble(
-        covered, z, world_pos, vec(3, 6), vec(6, 9), vec(9, 12), vec(12, 14),
-        planes[15].abs() > 0.5, velocity, scene, slot_map,
-        mat_cols=vec(16, planes.shape[0]),
+        covered, z, world_pos, n_in, t_in, bt_in, uv0, has_tangent,
+        velocity, scene, slot_map, mat_cols=mat_cols,
+        stack_kernel=stack_kernel,
     )
 
 
+def _homogeneous_barycentrics(wp, pv, nx, ny):
+    """Perspective-correct barycentrics of the pixel at NDC (nx, ny) from
+    the three world-space corners ``wp`` (gbuffer.py:168): bb is
+    proportional to the cross product of u = x - nx*w and v = y - ny*w
+    over the corners' clip coordinates."""
+    def clip_row(p, r):
+        return (p[..., 0] * pv[r, 0] + p[..., 1] * pv[r, 1]
+                + p[..., 2] * pv[r, 2] + pv[r, 3])
+
+    u, v = [], []
+    for k in range(3):
+        wk = clip_row(wp[k], 3)
+        u.append(clip_row(wp[k], 0) - nx * wk)
+        v.append(clip_row(wp[k], 1) - ny * wk)
+    q0 = u[1] * v[2] - u[2] * v[1]
+    q1 = u[2] * v[0] - u[0] * v[2]
+    q2 = u[0] * v[1] - u[1] * v[0]
+    qs = q0 + q1 + q2
+    qs = torch.where(qs.abs() > 1e-30, qs, 1.0)
+    return q0 / qs, q1 / qs, q2 / qs
+
+
 def _texture_and_assemble(covered, z, world_pos, n_in, t_in, bt_in, uv0,
-                          has_tangent, velocity, scene, slot_map, mat_cols):
+                          has_tangent, velocity, scene, slot_map, mat_cols,
+                          stack_kernel=False):
     """Material constants from ``mat_cols`` (the materials.fast_used_cols
-    values per pixel), texture-stack sampling, factors, TBN normal
-    mapping and G-buffer assembly."""
+    values per pixel), texture-stack sampling (by the ``stack_planes``
+    kernel when ``stack_kernel``), factors, TBN normal mapping and
+    G-buffer assembly."""
     used_cols = M.fast_used_cols(slot_map)
     col_pos = {c: i for i, c in enumerate(used_cols)}
 
@@ -191,18 +271,24 @@ def _texture_and_assemble(covered, z, world_pos, n_in, t_in, bt_in, uv0,
             groups.append(scene.texture_stack_b)
         if n_sampled > 4:
             groups.append(scene.texture_stack_c)
-        stack_row = torch.cat(
-            [sampling.take_rows(g, idx) for g in groups], dim=-1
-        )  # (H, W, 4 * n_sampled) packed RGBA8 quads
-        w00 = (1 - fx) * (1 - fy)
-        w10 = fx * (1 - fy)
-        w01 = (1 - fx) * fy
-        w11 = fx * fy
+        if stack_kernel:
+            spec, plane_of = out_spec(slot_map, [g.shape[1] for g in groups])
+            sk_planes = stack_planes(idx, fx, fy, groups, spec)
+        else:
+            stack_row = torch.cat(
+                [sampling.take_rows(g, idx) for g in groups], dim=-1
+            )  # (H, W, 4 * n_sampled) packed RGBA8 quads
+            w00 = (1 - fx) * (1 - fy)
+            w10 = fx * (1 - fy)
+            w01 = (1 - fx) * fy
+            w11 = fx * fy
 
     def chan(k, c):
         """Channel c of slot k, bilinearly filtered, as (H, W)."""
         if slot_map[k] < 0:  # constant layer: per-material table value
             return cols(M.MAT_CONST_BASE + 4 * k, 4)[..., c]
+        if stack_kernel:
+            return sk_planes[plane_of[(k, c)]]
         quad = stack_row[..., 4 * slot_map[k] : 4 * slot_map[k] + 4]
         v = ((quad >> (8 * c)) & 0xFF).to(torch.float32) * (1.0 / 255.0)
         return (

@@ -9,13 +9,19 @@ emissive``, Unreal tonemap, and the skybox where depth == 1.
 - The reference path samples the maps directly: 9 bilinear taps on the
   raw shadow map, the irradiance cube, the trilinear specular mip chain,
   the BRDF LUT and the environment cube, all at full rate.
-- The fast path takes the default layouts: SH9 irradiance, the RGBE
-  child+parent merged specular row sampled on the even grid (mirror tap
-  and parent mip, ``spec_parent_mip_half_res``, ``spec_mirror_half_res``
-  and ``spec_merged_trilinear`` all on), the polynomial BRDF, and the u16
-  half-anchor PCF window table evaluated on a strided grid and upsampled.
-  With ``cb`` the G-buffer lives on the (H, W/2) checkerboard domain and
-  only the upsample targets change.
+- The fast path takes SH9 irradiance, the polynomial BRDF, the RGBE
+  quad-packed specular chain and a PCF window table evaluated on a
+  strided grid and upsampled.  The specular taps follow the three
+  ``spec_*`` flags: by default the mirror tap (which serves the sky) and
+  the parent-mip tap both come from one merged child+parent row on the
+  even grid; with flags off, either tap runs at full rate or from its
+  own row.  The PCF table is whichever layout the config built
+  (``pcf_u16`` / ``pcf_half_anchor``: u16 windows at every even texel by
+  default, at every texel, or f32 2x4 wide rows); ``calculate_shadow_fast``
+  reads the layout off the table.  With ``cb`` the G-buffer lives on the
+  (H, W/2) checkerboard domain and only the upsample targets change; the
+  full-rate mirror tap is not evaluated there and raises, as in the
+  reference.
 """
 
 from __future__ import annotations
@@ -145,14 +151,12 @@ def _select3(k, v0, v1, v2):
 
 
 def calculate_shadow_fast(world_pos, light_proj_view, shadow_quad_rows, s):
-    """PCF from the u16 half-anchor 4x4 window table
-    (sampling.build_pcf_window_u16_half): ONE row gather per pixel, all
-    9 Poisson taps arithmetic."""
-    if shadow_quad_rows.shape[0] != (s // 2) ** 2:
-        raise NotImplementedError(
-            "only the u16 half-anchor PCF table is ported (ROADMAP Queue 1: "
-            "fast-path option variants)"
-        )
+    """PCF from the 4x4 texel window around the pixel's shadow texel, all
+    9 Poisson taps arithmetic (shading.py:211).  The layout is read off
+    the table (sampling.py's PCF builders): int32 rows are u16-packed
+    windows, one row gather per pixel, anchored at every even texel when
+    the table has (s/2)^2 rows, else at every texel; float32 rows are the
+    2x4 wide rows, two gathers per pixel."""
     p = torch.cat([world_pos, torch.ones_like(world_pos[..., :1])], -1)
     lp = p @ light_proj_view.t()
     wc = torch.where(lp[..., 3].abs() > 1e-20, lp[..., 3], 1.0)
@@ -161,33 +165,61 @@ def calculate_shadow_fast(world_pos, light_proj_view, shadow_quad_rows, s):
     beyond_far = proj[..., 2] > 1.0
     current = proj[..., 2] - SHADOW_BIAS
 
+    # window anchor (clamped so the 4x4 window stays on the map)
     xf = torch.clamp(uv[..., 0] * s - 0.5, 1.0, s - 3.0)
     yf = torch.clamp(uv[..., 1] * s - 0.5, 1.0, s - 3.0)
     x0 = torch.floor(xf)
     y0 = torch.floor(yf)
     ax = xf - x0
     ay = yf - y0
-    xa = x0.to(torch.int32) - 1
-    ya = y0.to(torch.int32) - 1
-    q = sampling.take_rows(shadow_quad_rows, (ya >> 1) * (s // 2) + (xa >> 1))
+    x0i = x0.to(torch.int32)
+    y0i = y0.to(torch.int32)
 
-    def texel(r, c):
-        v = (q[..., (r * 4 + c) // 2] >> (16 * (c & 1))) & 0xFFFF
-        return v.to(torch.float32) * (1.0 / 65535.0)
+    if shadow_quad_rows.dtype == torch.int32:
+        xa = x0i - 1
+        ya = y0i - 1
+        half_anchor = shadow_quad_rows.shape[0] == (s // 2) ** 2
+        if half_anchor:
+            idx = (ya >> 1) * (s // 2) + (xa >> 1)
+        else:
+            idx = ya * s + xa
+        q = sampling.take_rows(shadow_quad_rows, idx)
 
-    ry = ya & 1
-    rx = xa & 1
-    phys = [[texel(r, c) for c in range(4)] for r in range(4)]
+        def texel(r, c):
+            v = (q[..., (r * 4 + c) // 2] >> (16 * (c & 1))) & 0xFFFF
+            return v.to(torch.float32) * (1.0 / 65535.0)
 
-    def shifted(r, c):
-        # logical texel (r, c) lives at physical (r+ry, c+rx); neighbours
-        # past the window edge clamp to it
-        r1, c1 = min(r + 1, 3), min(c + 1, 3)
-        a = torch.where(rx == 0, phys[r][c], phys[r][c1])
-        b = torch.where(rx == 0, phys[r1][c], phys[r1][c1])
-        return torch.where(ry == 0, a, b)
+        if half_anchor:
+            ry = ya & 1
+            rx = xa & 1
+            phys = [[texel(r, c) for c in range(4)] for r in range(4)]
 
-    w_rows = [[shifted(r, c) for c in range(4)] for r in range(4)]
+            def shifted(r, c):
+                # logical texel (r, c) lives at physical (r+ry, c+rx);
+                # neighbours past the window edge clamp to it
+                r1, c1 = min(r + 1, 3), min(c + 1, 3)
+                a = torch.where(rx == 0, phys[r][c], phys[r][c1])
+                b = torch.where(rx == 0, phys[r1][c], phys[r1][c1])
+                return torch.where(ry == 0, a, b)
+
+            w_rows = [[shifted(r, c) for c in range(4)] for r in range(4)]
+        else:
+            w_rows = [[texel(r, c) for c in range(4)] for r in range(4)]
+    else:
+        def wide(dy):  # rows (y0+dy, y0+dy+1) x cols (x0-1 .. x0+2)
+            return sampling.take_rows(
+                shadow_quad_rows, (y0i + dy) * s + (x0i - 1)
+            )
+
+        g_top = wide(-1)
+        g_bot = wide(1)
+        w_rows = [
+            [g_top[..., c] for c in range(4)],
+            [g_top[..., 4 + c] for c in range(4)],
+            [g_bot[..., c] for c in range(4)],
+            [g_bot[..., 4 + c] for c in range(4)],
+        ]
+
     shadow = torch.zeros_like(current)
     for dx, dy in POISSON:
         sx = ax + dx
@@ -362,11 +394,46 @@ def _env_quad_index(ibl, dirs):
     return env_off + face * (s * s) + idx, fx, fy
 
 
-def ibl_ambient_sky_fast(gbuf, eye_pos, ibl, camera_basis, half_geo,
+def ibl_ambient_fast(gbuf, eye_pos, ibl):
+    """Split-sum ambient from SH9 irradiance, the RGBE quad-packed
+    specular chain (two row gathers) and the polynomial BRDF
+    (shading.py:490)."""
+    irradiance = sh9_eval(ibl.irradiance_sh9, gbuf.normal)
+    r = brdf.ibl_reflection_dir(gbuf.position, gbuf.normal, eye_pos)
+    lod = gbuf.orm[..., 1] * MAX_REFLECTION_LOD
+    prefiltered = sampling.sample_mipcube_quad_lod(ibl.specular_quad, r, lod)
+    return _ambient(gbuf, eye_pos, irradiance, prefiltered)
+
+
+def _ambient(gbuf, eye_pos, irradiance, prefiltered):
+    veye = brdf.normalize(eye_pos - gbuf.position, eps=1e-20)
+    ndotv = torch.clamp(brdf.dot3(gbuf.normal, veye), min=0.0)
+    lut = brdf.env_brdf_poly(ndotv, gbuf.orm[..., 1])
+    return brdf.image_based_lighting(
+        gbuf.position, gbuf.base_color, gbuf.normal,
+        gbuf.orm[..., 2], gbuf.orm[..., 1], gbuf.orm[..., 0],
+        eye_pos, irradiance, prefiltered, lut,
+    )
+
+
+def ibl_ambient_sky_fast(gbuf, eye_pos, ibl, camera_basis,
+                         parent_mip_half_res=True, half_geo=None,
+                         mirror_half_res=True, merged_trilinear=True,
                          cb=False):
-    """Ambient AND sky from one merged trilinear row per even-grid pixel
-    (shading.py:558, the merged half-res branch).  Returns (ambient
-    (H,W,3), sky (H,W,3), sky_mask (H,W) bool)."""
+    """Ambient AND sky from the trilinear specular taps (shading.py:558):
+    sky pixels (depth == 1) re-point the mirror tap at the environment,
+    which is mip 0 of the specular table.  Returns (ambient (H,W,3), sky
+    (H,W,3), sky_mask (H,W) bool).
+
+    - ``mirror_half_res``: the mirror tap and the sky on the even grid,
+      upsampled without blending across the sky silhouette; off, at full
+      rate (not on the checkerboard domain, where it raises as the
+      reference does).
+    - ``parent_mip_half_res``: the coarser tap (mip l0+1) on the even
+      grid, upsampled; off, at full rate.
+    - ``merged_trilinear`` (needs both): both taps from one row of the
+      child+parent table, the parent's fractions from the child anchor's
+      parity."""
     mq = ibl.specular_quad
     nl = mq.num_levels
     dev = gbuf.depth.device
@@ -374,67 +441,129 @@ def ibl_ambient_sky_fast(gbuf, eye_pos, ibl, camera_basis, half_geo,
     offsets = torch.as_tensor(mq.offsets, dtype=torch.int32, device=dev)
 
     lod = torch.clamp(gbuf.orm[..., 1] * MAX_REFLECTION_LOD, 0.0, nl - 1)
-    f = (lod - torch.floor(lod))[..., None]
+    l0 = torch.floor(lod).to(torch.int32)
+    f = (lod - l0.to(lod.dtype))[..., None]
     sky_mask = gbuf.depth >= 1.0
     h, w = gbuf.depth.shape
+    # on the checkerboard domain w is the half width; sky rays take x
+    # against the full frame width
     sky_w = 2 * w if cb else w
+    if cb and not mirror_half_res:
+        raise NotImplementedError(
+            "checkerboard shading requires spec_mirror_half_res (full-res "
+            "sky rays are not evaluated on the cb domain)"
+        )
+    if (mirror_half_res or parent_mip_half_res) and half_geo is None:
+        half_geo = half_res_geometry(gbuf, cb=cb)
 
-    pos_h, n_h, rough_h, depth_h = half_geo
-    rh = brdf.ibl_reflection_dir(pos_h, n_h, eye_pos)
-    l0h = torch.floor(
-        torch.clamp(rough_h * MAX_REFLECTION_LOD, 0.0, nl - 1)
-    ).to(torch.int32)
-    fh, uh, vh = sampling.cube_face_uv(rh)
-    idx0, fx0, fy0, x0i, y0i = sampling.mipcube_quad_index_anchor(
-        sizes, offsets, l0h, fh, uh, vh
-    )
-    sky_h = depth_h >= 1.0
-    eidx, efx, efy = _env_quad_index(
-        ibl, _sky_dirs(h, sky_w, camera_basis, stride=2)
-    )
-    idx0 = torch.where(sky_h, eidx, idx0)
-    fx0 = torch.where(sky_h, efx, fx0)
-    fy0 = torch.where(sky_h, efy, fy0)
-    rows8 = sampling.take_rows(ibl.specular_quad_merged.rows, idx0)
-    c0h = sampling.quad_lerp_rgbe(rows8[..., :4], fx0, fy0)
-    last = l0h >= nl - 1
-    fpx = torch.where(last, fx0, ((x0i & 1).to(fx0.dtype) + fx0) * 0.5)
-    fpy = torch.where(last, fy0, ((y0i & 1).to(fy0.dtype) + fy0) * 0.5)
-    c1h = sampling.quad_lerp_rgbe(rows8[..., 4:], fpx, fpy)
-    if cb:
-        c1 = _upsample_to_cb(c1h, h, w, 2, 1)
-        c0 = _upsample_to_cb_mask_aware(c0h, sky_h, sky_mask, h, w)
+    def upsample(vals_h):
+        return (_upsample_to_cb(vals_h, h, w, 2, 1) if cb
+                else _upsample2x(vals_h, h, w))
+
+    c1 = None
+    if mirror_half_res:
+        pos_h, n_h, rough_h, depth_h = half_geo
+        rh = brdf.ibl_reflection_dir(pos_h, n_h, eye_pos)
+        l0h = torch.floor(
+            torch.clamp(rough_h * MAX_REFLECTION_LOD, 0.0, nl - 1)
+        ).to(torch.int32)
+        fh, uh, vh = sampling.cube_face_uv(rh)
+        idx0, fx0, fy0, x0i, y0i = sampling.mipcube_quad_index_anchor(
+            sizes, offsets, l0h, fh, uh, vh
+        )
+        sky_h = depth_h >= 1.0
+        eidx, efx, efy = _env_quad_index(
+            ibl, _sky_dirs(h, sky_w, camera_basis, stride=2)
+        )
+        idx0 = torch.where(sky_h, eidx, idx0)
+        fx0 = torch.where(sky_h, efx, fx0)
+        fy0 = torch.where(sky_h, efy, fy0)
+        if merged_trilinear and parent_mip_half_res:
+            # one 32-byte row: child quad + parent quad (the sky pixels'
+            # parent lanes are garbage, masked out through f)
+            rows8 = sampling.take_rows(ibl.specular_quad_merged.rows, idx0)
+            c0h = sampling.quad_lerp_rgbe(rows8[..., :4], fx0, fy0)
+            last = l0h >= nl - 1
+            fpx = torch.where(last, fx0,
+                              ((x0i & 1).to(fx0.dtype) + fx0) * 0.5)
+            fpy = torch.where(last, fy0,
+                              ((y0i & 1).to(fy0.dtype) + fy0) * 0.5)
+            c1 = upsample(sampling.quad_lerp_rgbe(rows8[..., 4:], fpx, fpy))
+        else:
+            c0h = sampling.quad_lerp_rgbe(
+                sampling.take_rows(mq.rows, idx0), fx0, fy0
+            )
+        if cb:
+            c0 = _upsample_to_cb_mask_aware(c0h, sky_h, sky_mask, h, w)
+        else:
+            c0 = _upsample2x_mask_aware(c0h, sky_h, sky_mask, h, w)
     else:
-        c1 = _upsample2x(c1h, h, w)
-        c0 = _upsample2x_mask_aware(c0h, sky_h, sky_mask, h, w)
+        # full-rate mirror tap; sky pixels re-point it at the environment
+        r = brdf.ibl_reflection_dir(gbuf.position, gbuf.normal, eye_pos)
+        face, u, v = sampling.cube_face_uv(r)
+        idx0, fx0, fy0 = sampling.mipcube_quad_index(
+            sizes, offsets, l0, face, u, v
+        )
+        eidx, efx, efy = _env_quad_index(ibl, _sky_dirs(h, w, camera_basis))
+        idx0 = torch.where(sky_mask, eidx, idx0)
+        fx0 = torch.where(sky_mask, efx, fx0)
+        fy0 = torch.where(sky_mask, efy, fy0)
+        c0 = sampling.quad_lerp_rgbe(
+            sampling.take_rows(mq.rows, idx0), fx0, fy0
+        )
+
+    if c1 is None and parent_mip_half_res:
+        pos_h, n_h, rough_h = half_geo[:3]
+        r2 = brdf.ibl_reflection_dir(pos_h, n_h, eye_pos)
+        l1h = torch.clamp(
+            torch.floor(
+                torch.clamp(rough_h * MAX_REFLECTION_LOD, 0.0, nl - 1)
+            ).to(torch.int32) + 1,
+            max=nl - 1,
+        )
+        f2, u2, v2 = sampling.cube_face_uv(r2)
+        idx1, fx1, fy1 = sampling.mipcube_quad_index(
+            sizes, offsets, l1h, f2, u2, v2
+        )
+        c1 = upsample(sampling.quad_lerp_rgbe(
+            sampling.take_rows(mq.rows, idx1), fx1, fy1
+        ))
+    elif c1 is None:
+        r1 = brdf.ibl_reflection_dir(gbuf.position, gbuf.normal, eye_pos)
+        face1, u1, v1 = sampling.cube_face_uv(r1)
+        l1 = torch.clamp(l0 + 1, max=nl - 1)
+        idx1, fx1, fy1 = sampling.mipcube_quad_index(
+            sizes, offsets, l1, face1, u1, v1
+        )
+        c1 = sampling.quad_lerp_rgbe(
+            sampling.take_rows(mq.rows, idx1), fx1, fy1
+        )
 
     prefiltered = c0 * (1 - f) + c1 * f  # garbage at sky pixels (masked)
     irradiance = sh9_eval(ibl.irradiance_sh9, gbuf.normal)
-    veye = brdf.normalize(eye_pos - gbuf.position, eps=1e-20)
-    ndotv = torch.clamp(brdf.dot3(gbuf.normal, veye), min=0.0)
-    lut = brdf.env_brdf_poly(ndotv, gbuf.orm[..., 1])
-    ambient = brdf.image_based_lighting(
-        gbuf.position, gbuf.base_color, gbuf.normal,
-        gbuf.orm[..., 2], gbuf.orm[..., 1], gbuf.orm[..., 0],
-        eye_pos, irradiance, prefiltered, lut,
-    )
-    return ambient, c0, sky_mask
+    return _ambient(gbuf, eye_pos, irradiance, prefiltered), c0, sky_mask
 
 
 def shading_pass_fast(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
                       num_lights: int, params, ibl=None,
-                      shadow_res_divisor=1, cb=False):
-    """Tonemapped colour (H, W, 3) in [0, 1] on the G-buffer's domain."""
+                      shadow_res_divisor=1, parent_mip_half_res=True,
+                      mirror_half_res=True, merged_trilinear=True, cb=False):
+    """Tonemapped colour (H, W, 3) in [0, 1] on the G-buffer's domain
+    (shading.py:717); the three ``spec_*`` flags choose the specular
+    branches of ``ibl_ambient_sky_fast``."""
     eye = params["eye_pos"]
     lo = shade_lights(gbuf, lights, num_lights, eye)
+    # one shared even-grid slice feeds every half-res consumer
     need_half = (
         shadow_res_divisor > 1 and shadow_quad_rows is not None
-    ) or ibl is not None
+    ) or (ibl is not None and (parent_mip_half_res or mirror_half_res))
     half_geo = half_res_geometry(gbuf, cb=cb) if need_half else None
 
     if ibl is not None:
         ambient, sky, sky_mask = ibl_ambient_sky_fast(
-            gbuf, eye, ibl, params, half_geo, cb=cb
+            gbuf, eye, ibl, params, parent_mip_half_res=parent_mip_half_res,
+            half_geo=half_geo, mirror_half_res=mirror_half_res,
+            merged_trilinear=merged_trilinear, cb=cb,
         )
     else:
         ambient = torch.zeros_like(lo)

@@ -2,7 +2,9 @@
 ``mo_renderer_tpu/passes/ssao.py`` (a port of the reference's ssao.comp).
 
 ``ssao_pass_tiles`` is the port of ``ssao_pass_pallas`` (K4); its CUDA
-kernel is ``csrc/ssao.cu``.  Per pixel: hash noise from the global pixel
+kernel is ``csrc/ssao.cu``.  ``ssao_pass`` (``EngineConfig.ssao_pallas``
+off) computes the same radius-quantized AO as whole-image torch ops, and
+``ssao_pass_exact`` is the tests' tap-for-tap oracle.  Per pixel: hash noise from the global pixel
 coordinate, a radius level out of 16 geometric levels, then the
 fade-weighted sum of depth compares over that level's 18 integer taps,
 read from the edge-clamped image, in tap order.  AO = 1 - sum/3,
@@ -87,12 +89,32 @@ def _compare_depths(d1, d2, near=NEAR, far=FAR):
     ) * diff
 
 
-def _noise(px, py):
-    """generateRandomNoise (ssao.comp:15-20), x component:
-    fract(sin(px*12.9898 + py*78.233) * 43758.5453) * 0.004."""
-    arg = _fma(px, float(_F32(12.9898)), py * 78.233)
+def _noise(px, py, sx=12.9898, sy=78.233):
+    """One component of generateRandomNoise (ssao.comp:15-20):
+    fract(sin(px*sx + py*sy) * 43758.5453) * 0.004; (sx, sy) doubled
+    gives the y component."""
+    arg = _fma(px, float(_F32(sx)), py * sy)
     v = torch.sin(arg.double()).float() * 43758.5453
     return (v - torch.floor(v)) * 0.004
+
+
+def _radius(d_c, n, size):
+    """((1/size) / d_c + n (1 - n)) * (size / 2): one axis of the sample
+    radius in pixels (ssao.comp:97-101)."""
+    return _fma(n, (1.0 - n).double(), _div(1.0 / size, d_c)) * (size / 2.0)
+
+
+def _radii(d_lin, w, h, row_offset=0):
+    """Per-pixel sample radii (rw, rh) in pixels (ssao.py:80); the noise
+    takes the global row ``iy + row_offset``."""
+    hh, ww = d_lin.shape
+    dev = d_lin.device
+    iy = (torch.arange(hh, device=dev)[:, None] + row_offset).expand(hh, ww)
+    ix = torch.arange(ww, device=dev)[None, :].expand(hh, ww)
+    px, py = ix.to(torch.float32), iy.to(torch.float32)
+    d_c = torch.clamp(d_lin, 0.05, 1.0)
+    return (_radius(d_c, _noise(px, py), w),
+            _radius(d_c, _noise(px, py, 12.9898 * 2.0, 78.233 * 2.0), h))
 
 
 def _ssao_tap_table(w: int, num_levels: int = NUM_LEVELS):
@@ -150,9 +172,7 @@ def _ssao_plain(depth, num_levels, row_offset, near, far):
     d_lin = _linear_depth(depth, near, far)
     iy = torch.arange(h, device=dev)[:, None].expand(h, w)
     ix = torch.arange(w, device=dev)[None, :].expand(h, w)
-    nx = _noise(ix.to(torch.float32), (iy + row_offset).to(torch.float32))
-    d_c = torch.clamp(d_lin, 0.05, 1.0)
-    rw = _fma(nx, (1.0 - nx).double(), _div(1.0 / w, d_c)) * (w / 2.0)
+    rw, _ = _radii(d_lin, w, h, row_offset)
     lvl = (rw[..., None] > edges).sum(-1)
     ao = None
     for t in range(offs.shape[1]):
@@ -161,8 +181,69 @@ def _ssao_plain(depth, num_levels, row_offset, near, far):
         sx = torch.clamp(ix + o[..., 0], 0, w - 1)
         c = _compare_depths(d_lin, d_lin[sy, sx], near, far) * fades[t]
         ao = c if ao is None else ao + c
+    return _quantized_ao(ao)
+
+
+def _quantized_ao(ao):
+    """1 - ao / total fade, clamped and quantized to k/255."""
     ao = 1.0 - ao * _recip(_TOTAL)
     return torch.round(torch.clamp(ao, 0.0, 1.0) * 255.0) * _recip(255.0)
+
+
+def ssao_pass(depth, num_levels: int = NUM_LEVELS, near=NEAR, far=FAR):
+    """The radius-quantized SSAO as whole-image torch ops (ssao.py:92;
+    ``EngineConfig.ssao_pallas=False``): per radius level, the sum of its
+    taps' depth compares against the edge-clamped shifted image (one
+    compare per unique integer offset, shared across levels); each pixel
+    keeps its level's sum.  Same semantics as the tile kernel, without
+    the row offset.  depth (H, W) raw [0, 1] -> AO (H, W) in k/255."""
+    h, w = depth.shape
+    dev = depth.device
+    d_lin = _linear_depth(depth, near, far)
+    rw, _ = _radii(d_lin, w, h)
+    _, level_taps, _ = _ssao_tap_table(w, num_levels)
+    lvl = torch.searchsorted(_tables(w, num_levels, dev)[2], rw.contiguous())
+    ys = torch.arange(h, device=dev)
+    xs = torch.arange(w, device=dev)
+    cache = {}
+
+    def compare_at(ox, oy):
+        # the reference edge-pads d_lin and slices; an index clamp reads
+        # the same values
+        if (ox, oy) not in cache:
+            shifted = d_lin[torch.clamp(ys + oy, 0, h - 1)][
+                :, torch.clamp(xs + ox, 0, w - 1)
+            ]
+            cache[(ox, oy)] = _compare_depths(d_lin, shifted, near, far)
+        return cache[(ox, oy)]
+
+    ao = torch.zeros_like(d_lin)
+    for k in range(num_levels):
+        ao_k = None
+        for ox, oy, fade in level_taps[k]:
+            c = compare_at(ox, oy) * fade
+            ao_k = c if ao_k is None else ao_k + c
+        ao = torch.where(lvl == k, ao_k, ao)
+    return _quantized_ao(ao)
+
+
+def ssao_pass_exact(depth, near=NEAR, far=FAR):
+    """The direct tap-for-tap port of ssao.comp (ssao.py:296): unquantized
+    per-pixel radii on both axes.  The numeric oracle of the tests."""
+    h, w = depth.shape
+    dev = depth.device
+    d_lin = _linear_depth(depth, near, far)
+    rw, rh = _radii(d_lin, w, h)
+    iy = torch.arange(h, device=dev)[:, None]
+    ix = torch.arange(w, device=dev)[None, :]
+    ao = torch.zeros_like(d_lin)
+    for sw, sh, fade in _TAPS:
+        ox = torch.trunc(float(sw) * rw).to(torch.int64)
+        oy = torch.trunc(float(sh) * rh).to(torch.int64)
+        sy = torch.clamp(iy + oy, 0, h - 1)
+        sx = torch.clamp(ix + ox, 0, w - 1)
+        ao = ao + _compare_depths(d_lin, d_lin[sy, sx], near, far) * fade
+    return _quantized_ao(ao)
 
 
 def _ssao_cuda(depth, num_levels, row_offset, near, far):

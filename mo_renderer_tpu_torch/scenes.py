@@ -4,7 +4,9 @@ rebuilt with the port's own classes: a textured cube, a metallic sphere,
 a ground plane, one shadow-casting directional light and a synthetic
 gradient sky, with the same entities and parameters.  Its UV1 variant
 samples the cube's base colour with UV set 1, which sends the frame down
-the reference sampling path.
+the reference sampling path; its all-slots variant gives the cube
+textures in all five material slots (and tangents), so the fast path
+samples every slot of the texture stacks.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ import math
 import numpy as np
 
 from .assets.ibl_resource import IBLResource
-from .assets.procedural import procedural_model
+from .assets.materials import DEFAULT_TEXTURE_MAP
+from .assets.procedural import _mr_gradient_texture, procedural_model
 from .config import EngineConfig
 from .math import quat
 from .math.transform import Transform
@@ -55,11 +58,84 @@ def use_uv1(model) -> None:
     mesh.primitive.uv1 = (mesh.primitive.uv0 * 2.0).astype(np.float32)
 
 
-def tiny_world(device=None, uv1=False):
+def _tangents(prim) -> np.ndarray:
+    """(N, 4) per-vertex tangents from the triangles' uv gradients, w the
+    handedness of the uv frame against the normal."""
+    tri = prim.indices.reshape(-1, 3).astype(np.int64)
+    p = prim.position[:, :3][tri]
+    uv = prim.uv0[tri]
+    e1, e2 = p[:, 1] - p[:, 0], p[:, 2] - p[:, 0]
+    d1, d2 = uv[:, 1] - uv[:, 0], uv[:, 2] - uv[:, 0]
+    det = (d1[:, 0] * d2[:, 1] - d2[:, 0] * d1[:, 1])[:, None]
+    t_face = (e1 * d2[:, 1:2] - e2 * d1[:, 1:2]) / det
+    b_face = (e2 * d1[:, 0:1] - e1 * d2[:, 0:1]) / det
+    n = prim.normal[:, :3].astype(np.float64)
+    t = np.zeros_like(n)
+    b = np.zeros_like(n)
+    np.add.at(t, tri.reshape(-1), np.repeat(t_face, 3, axis=0))
+    np.add.at(b, tri.reshape(-1), np.repeat(b_face, 3, axis=0))
+    t = t - n * (t * n).sum(-1, keepdims=True)
+    t = t / np.maximum(np.linalg.norm(t, axis=-1, keepdims=True), 1e-12)
+    w = np.where((np.cross(n, t) * b).sum(-1) < 0.0, -1.0, 1.0)
+    return np.concatenate([t, w[:, None]], axis=-1).astype(np.float32)
+
+
+def use_all_slots(model, size: int = 64) -> None:
+    """Give ``model``'s first mesh procedural textures in all five
+    material slots -- base colour (a checker unless it has one), a
+    tangent-space bump normal map, metallic-roughness (roughness along u,
+    metallic along v), occlusion and emissive -- and tangents, so that
+    the normal map takes effect.  Numpy only: it applies to the JAX
+    package's Model too."""
+    mesh = model.meshes[0]
+    mat = mesh.material
+    textures = model.textures
+    yy, xx = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    u = (xx + 0.5) / size
+    v = (yy + 0.5) / size
+
+    def add(img) -> int:
+        textures.append(np.ascontiguousarray(img, dtype=np.uint8))
+        return len(textures) - 1
+
+    def rgba(r, g, b, a=255):
+        return np.stack(np.broadcast_arrays(r, g, b, a), axis=-1)
+
+    if mat.base_color_texture == DEFAULT_TEXTURE_MAP:
+        ck = ((xx * 8 // size + yy * 8 // size) % 2).astype(bool)
+        mat.base_color_texture = add(np.where(
+            ck[..., None], np.array([60, 60, 60, 255], np.uint8),
+            np.array([220, 220, 220, 255], np.uint8),
+        ))
+    # tangent-space normals of a bump field sin(2 pi 3u) sin(2 pi 3v)
+    gx = 0.6 * np.cos(6 * np.pi * u) * np.sin(6 * np.pi * v)
+    gy = 0.6 * np.sin(6 * np.pi * u) * np.cos(6 * np.pi * v)
+    nrm = np.stack([-gx, -gy, np.ones_like(gx)], axis=-1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    mat.normal_texture = add(np.concatenate(
+        [np.round((nrm * 0.5 + 0.5) * 255.0),
+         np.full((size, size, 1), 255.0)], axis=-1,
+    ))
+    mr = _mr_gradient_texture(size)
+    mr[..., 2] = np.round(v * 255.0)  # metallic along v
+    mat.surface_properties_texture = add(mr)
+    occ = np.round(255.0 * (1.0 - 0.6 * ((u - 0.5) ** 2 + (v - 0.5) ** 2)))
+    mat.occlusion_texture = add(rgba(occ, occ, occ))
+    stripes = ((xx // 4 + yy // 8) % 3 == 0) * 200.0
+    mat.emissive_texture = add(rgba(stripes, stripes * 0.5, stripes * 0.2))
+    mat.ormn = np.array([1.0, 1.0, 1.0, 1.0], np.float32)
+    mat.emissive_factor_alpha_cutoff = np.array([0.6, 0.6, 0.6, 0.5],
+                                                np.float32)
+    mesh.primitive.tangent = _tangents(mesh.primitive)
+
+
+def tiny_world(device=None, uv1=False, all_slots=False):
     world = World()
     cube = procedural_model("cube", textured=True, roughness=0.4)
     if uv1:
         use_uv1(cube)
+    if all_slots:
+        use_all_slots(cube)
     world.spawn((Transform.from_xyz(0.0, 0.5, 0.0), cube))
     world.spawn((
         Transform.from_xyz(1.2, 0.5, 0.0),

@@ -110,6 +110,38 @@ def test_raster_attrs_kernel_matches_plain(cuda, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("widths,slot_map,hw", [
+    ([8, 8, 4], (0, 1, 2, 3, 4), (37, 51)),
+    ([8], (-1, 0, -1, 1, -1), (64, 128)),
+])
+def test_stack_planes_kernel_matches_plain(cuda, widths, slot_map, hw):
+    """K7 on random quad tables, any pixel count (no block constraint):
+    exact against its plain version."""
+    import numpy as np
+
+    from mo_renderer_tpu_torch.kernels import stack_planes as SP
+
+    rng = np.random.default_rng(sum(widths))
+    n_rows = 500
+    groups = [
+        torch.from_numpy(rng.integers(0, 1 << 32, size=(n_rows, w),
+                                      dtype=np.uint64)
+                         .astype(np.uint32).view(np.int32)).to(cuda)
+        for w in widths
+    ]
+    idx = torch.from_numpy(
+        rng.integers(0, n_rows, size=hw).astype(np.int32)).to(cuda)
+    fx, fy = (torch.from_numpy(rng.uniform(0, 1, size=hw).astype(np.float32))
+              .to(cuda) for _ in range(2))
+    spec, _ = SP.out_spec(slot_map, widths)
+    k = SP._stack_planes_cuda(idx, fx, fy, groups, spec)
+    p = SP._stack_planes_plain(idx, fx, fy, groups, spec)
+    torch.cuda.synchronize()
+    assert k.shape == (len(spec), *hw)
+    assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
 def test_entry_points_default_to_the_card(cuda):
     from mo_renderer_tpu_torch import App, Renderer, scenes
 

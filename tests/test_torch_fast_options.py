@@ -1,0 +1,251 @@
+"""The fast path's option variants in the port against the JAX reference,
+on the same inputs: the PCF table layouts (``pcf_u16``,
+``pcf_half_anchor``) and the shadow factor each gives, every reachable
+branch of the specular/sky sampler (``spec_parent_mip_half_res``,
+``spec_mirror_half_res``, ``spec_merged_trilinear``, with and without
+the checkerboard domain), and SSAO without the tile kernel
+(``ssao_pallas=False``: ``ssao_pass``, with ``ssao_pass_exact`` as the
+oracle).  The inputs are the tiny scene's own G-buffer, shadow map and
+IBL maps, made by the JAX package and carried over as numpy.
+
+Bars: PCF tables exact.  The shadow factor equal on > 99.9% of pixels
+and within one tap elsewhere (``current > closest`` flips on one ulp, as
+in tests/test_torch_vertex_path.py); the test prints the share that
+differs.  Ambient and sky atol 1e-5 / rtol 1e-5 (float32 sums in another
+order).  SSAO at the bar of tests/test_torch_ssao.py.
+"""
+
+import os
+import sys
+import types
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+import __graft_entry__ as graft  # noqa: E402
+from mo_renderer_tpu.device import sampling as JSm  # noqa: E402
+from mo_renderer_tpu.kernels import raster_setup as JRS  # noqa: E402
+from mo_renderer_tpu.kernels.decimate import decimate_cols as j_decimate  # noqa: E402
+from mo_renderer_tpu.kernels.rasterizer import rasterize as j_rasterize  # noqa: E402
+from mo_renderer_tpu.passes import gbuffer as JG  # noqa: E402
+from mo_renderer_tpu.passes import shading as JSh  # noqa: E402
+from mo_renderer_tpu.passes import ssao as JS  # noqa: E402
+from mo_renderer_tpu.passes.frame_graph import (  # noqa: E402
+    Renderer as JRenderer,
+    _shadow_map_from_clip,
+    build_camera_params as j_camera_params,
+)
+from mo_renderer_tpu.scene.scene_buffers import find_shadow_light  # noqa: E402
+from mo_renderer_tpu_torch import interop  # noqa: E402
+from mo_renderer_tpu_torch.device import sampling as S  # noqa: E402
+from mo_renderer_tpu_torch.passes import shading as Sh  # noqa: E402
+from mo_renderer_tpu_torch.passes import ssao as SS  # noqa: E402
+from mo_renderer_tpu_torch.passes.gbuffer import GBuffer  # noqa: E402
+
+from test_torch_ssao import _assert_ssao_bar, _scene_depth, _synthetic_depth  # noqa: E402
+
+
+def n(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The tiny scene's G-buffers (full-res and checkerboard), shadow
+    map, camera block and IBL maps, from the JAX package."""
+    cfg = graft._tiny_config()
+    world = graft._tiny_world()
+    cam = graft._camera(cfg)
+    world.insert_resource(cam)
+    r = JRenderer(cfg)
+    r.prepare(world)
+    light_pv, _ = find_shadow_light(world)
+    params = j_camera_params(cam, light_pv)
+    setup = JRS.triangle_setup_from_attrs(
+        r.scene.tri_attrs, r.scene.tri_valid, params["proj_view"],
+        r.pad_w, r.pad_h, cull_backface=True,
+    )
+    binned = JRS.bin_triangles(
+        setup, tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+        n_tiles_x=r.pad_w // cfg.tile_w, n_tiles_y=r.pad_h // cfg.tile_h,
+        max_tiles_per_tri=8, binned_cap=r._binned_cap, global_cap=512,
+    )
+    tri, z, _, _ = j_rasterize(binned, width=r.pad_w, height=r.pad_h,
+                               tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+                               slim=True)
+    gbufs = {}
+    for cb in (False, True):
+        tri_g, z_g = (j_decimate(tri, "cb"), j_decimate(z, "cb")) if cb \
+            else (tri, z)
+        gbufs[cb] = JG.gbuffer_pass_fast(
+            tri_g, z_g, None, None, r.scene, r.scene.tri_attrs, params,
+            slot_map=r._slot_map, cb=cb, full_wh=(r.pad_w, r.pad_h),
+        )
+    smap, _ = _shadow_map_from_clip(
+        None, r.scene, cfg=cfg, binned_cap=r._binned_cap,
+        light_pv=params["light_proj_view"],
+    )
+    m = r.ibl.maps()
+
+    def chain(c, key):
+        return {key: np.asarray(c.data if key == "data" else c.rows),
+                "sizes": c.sizes, "offsets": c.offsets}
+
+    port_ibl = interop.ibl_from_numpy({
+        "environment_faces": np.asarray(m.environment_faces),
+        "irradiance_faces": np.asarray(m.irradiance_faces),
+        "specular_mips": chain(m.specular_mips, "data"),
+        "brdf_lut": np.asarray(m.brdf_lut),
+        "specular_quad": chain(m.specular_quad, "rows"),
+        "specular_quad_merged": chain(m.specular_quad_merged, "rows"),
+        "irradiance_sh9": np.asarray(m.irradiance_sh9),
+    }, "cpu")
+    basis = ("eye_pos", "direction", "right", "up", "near", "near_wh",
+             "light_proj_view")
+    return types.SimpleNamespace(
+        cfg=cfg, gbufs=gbufs, smap=smap, params=params, ibl=m,
+        port_ibl=port_ibl, port_params={k: t(params[k]) for k in basis},
+        s=cfg.shadow_map_size,
+    )
+
+
+def _port_gbuf(gb):
+    return GBuffer(*[t(getattr(gb, f)) for f in (
+        "base_color", "position", "normal", "emissive", "orm", "velocity",
+        "depth", "mask")])
+
+
+BUILDERS = {
+    "f32 2x4 rows": (JSm.build_window_rows_2x4, S.build_window_rows_2x4),
+    "u16 windows": (JSm.build_pcf_window_u16, S.build_pcf_window_u16),
+    "u16 half-anchor": (JSm.build_pcf_window_u16_half,
+                        S.build_pcf_window_u16_half),
+}
+
+
+@pytest.mark.parametrize("layout", ["f32 2x4 rows", "u16 windows"])
+def test_pcf_table_matches_reference(ref, layout):
+    j_build, build = BUILDERS[layout]
+    want = n(j_build(ref.smap))
+    got = n(build(t(ref.smap)))
+    if want.dtype == np.uint32:
+        got = got.view(np.uint32)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("layout", list(BUILDERS))
+def test_calculate_shadow_fast_matches_reference(ref, layout):
+    """Each layout's PCF factor on the same shadow map and positions."""
+    j_build, build = BUILDERS[layout]
+    pos = ref.gbufs[False].position
+    lpv = ref.params["light_proj_view"]
+    want = n(JSh.calculate_shadow_fast(pos, lpv, j_build(ref.smap), ref.s))
+    got = n(Sh.calculate_shadow_fast(t(pos), t(lpv), build(t(ref.smap)),
+                                     ref.s))
+    same = (got == want).mean()
+    print(f"{layout}: {1 - same:.4%} of pixels differ, "
+          f"{(want < 1).mean():.3f} shadowed")
+    assert (want < 1).mean() > 0.05
+    assert same > 0.999
+    np.testing.assert_allclose(got, want, atol=1.0 / 9 + 1e-6, rtol=0)
+
+
+# (parent_mip_half_res, mirror_half_res, merged_trilinear, cb): every
+# combination the reference runs (the full-rate mirror tap raises on the
+# checkerboard domain)
+SPEC_CASES = [
+    (p, m, g, cb)
+    for cb in (False, True) for m in (True, False) for p in (True, False)
+    for g in (True, False) if m or not cb
+]
+
+
+@pytest.mark.parametrize("parent,mirror,merged,cb", SPEC_CASES)
+def test_ibl_ambient_sky_fast_matches_reference(ref, parent, mirror, merged,
+                                                cb):
+    gb = ref.gbufs[cb]
+    flags = dict(parent_mip_half_res=parent, mirror_half_res=mirror,
+                 merged_trilinear=merged, cb=cb)
+    want = JSh.ibl_ambient_sky_fast(gb, ref.params["eye_pos"], ref.ibl,
+                                    ref.params, **flags)
+    got = Sh.ibl_ambient_sky_fast(_port_gbuf(gb), ref.port_params["eye_pos"],
+                                  ref.port_ibl, ref.port_params, **flags)
+    sky = n(want[2])
+    assert 0.05 < sky.mean() < 0.95
+    np.testing.assert_array_equal(n(got[2]), sky)
+    # ambient is garbage (and masked) at sky pixels; the sky only counts
+    # there
+    np.testing.assert_allclose(n(got[0])[~sky], n(want[0])[~sky],
+                               atol=1e-5, rtol=1e-5, err_msg="ambient")
+    np.testing.assert_allclose(n(got[1])[sky], n(want[1])[sky],
+                               atol=1e-5, rtol=1e-5, err_msg="sky")
+
+
+def test_full_rate_mirror_on_the_checkerboard_raises(ref):
+    gb = ref.gbufs[True]
+    with pytest.raises(NotImplementedError, match="spec_mirror_half_res"):
+        JSh.ibl_ambient_sky_fast(gb, ref.params["eye_pos"], ref.ibl,
+                                 ref.params, mirror_half_res=False, cb=True)
+    with pytest.raises(NotImplementedError, match="spec_mirror_half_res"):
+        Sh.ibl_ambient_sky_fast(_port_gbuf(gb), ref.port_params["eye_pos"],
+                                ref.port_ibl, ref.port_params,
+                                mirror_half_res=False, cb=True)
+
+
+def test_ibl_ambient_fast_matches_reference(ref):
+    gb = ref.gbufs[False]
+    want = n(JSh.ibl_ambient_fast(gb, ref.params["eye_pos"], ref.ibl))
+    got = n(Sh.ibl_ambient_fast(_port_gbuf(gb), ref.port_params["eye_pos"],
+                                ref.port_ibl))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("h,w,seed,kind", [
+    (64, 128, 5, "synthetic"), (64, 256, 1, "scene"), (96, 384, 2, "scene"),
+])
+def test_ssao_pass_matches_reference(h, w, seed, kind):
+    """ssao_pass (ssao_pallas=False) against the reference's jitted
+    ssao_pass on the same depth."""
+    depth = (_synthetic_depth if kind == "synthetic" else _scene_depth)(
+        h, w, seed
+    )
+    want = n(jax.jit(JS.ssao_pass)(jnp.asarray(depth)))
+    got = n(SS.ssao_pass(t(depth)))
+    assert want.min() < 0.99
+    _assert_ssao_bar(got, want, f"ssao_pass {kind} {h}x{w}")
+
+
+def test_ssao_pass_exact_matches_reference():
+    """The tap-for-tap oracle against the reference's, and the
+    radius-quantized pass against the oracle: both within the
+    quantization's own error on the reference's side."""
+    depth = _scene_depth(64, 256, 3)
+    want = n(jax.jit(JS.ssao_pass_exact)(jnp.asarray(depth)))
+    got = n(SS.ssao_pass_exact(t(depth)))
+    _assert_ssao_bar(got, want, "ssao_pass_exact")
+    ref_gap = np.abs(n(jax.jit(JS.ssao_pass)(jnp.asarray(depth))) - want)
+    gap = np.abs(n(SS.ssao_pass(t(depth))) - got)
+    print(f"quantized vs exact: mean {gap.mean() * 255:.3f}/255 "
+          f"(reference {ref_gap.mean() * 255:.3f}/255)")
+    assert abs(gap.mean() - ref_gap.mean()) < 0.1 / 255
+
+
+def test_sample_mipcube_quad_lod_matches_reference(ref):
+    rng = np.random.default_rng(3)
+    dirs = rng.normal(size=(32, 64, 3)).astype(np.float32)
+    lod = rng.uniform(-0.5, 3.5, size=(32, 64)).astype(np.float32)
+    want = n(JSm.sample_mipcube_quad_lod(ref.ibl.specular_quad,
+                                         jnp.asarray(dirs), jnp.asarray(lod)))
+    got = n(S.sample_mipcube_quad_lod(ref.port_ibl.specular_quad, t(dirs),
+                                      t(lod)))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)

@@ -52,9 +52,10 @@ def _check(frame, ref, what):
     assert (diff > 16).mean() < 0.005
 
 
-def _port_frame(uv1=False, with_renderer=False, **overrides):
+def _port_frame(uv1=False, with_renderer=False, all_slots=False,
+                **overrides):
     cfg = scenes.tiny_config(**overrides)
-    world = scenes.tiny_world(uv1=uv1)
+    world = scenes.tiny_world(uv1=uv1, all_slots=all_slots)
     world.insert_resource(scenes.camera(cfg))
     r = Renderer(cfg, "cpu")
     r.prepare(world)
@@ -62,12 +63,16 @@ def _port_frame(uv1=False, with_renderer=False, **overrides):
     return (frame, r) if with_renderer else frame
 
 
-def _jax_frame(uv1=False, with_renderer=False, **overrides):
+def _jax_frame(uv1=False, with_renderer=False, all_slots=False,
+               **overrides):
     cfg = dataclasses.replace(graft._tiny_config(), **overrides)
     world = graft._tiny_world()
     if uv1:
         # the same change scenes.tiny_world(uv1=True) makes
         scenes.use_uv1(next(iter(world.query(JModel))))
+    if all_slots:
+        # the same change scenes.tiny_world(all_slots=True) makes
+        scenes.use_all_slots(next(iter(world.query(JModel))))
     world.insert_resource(graft._camera(cfg))
     r = JRenderer(cfg)
     r.prepare(world)
@@ -199,13 +204,18 @@ def test_app_runs_the_port_and_memoizes_the_shadow():
             Renderer(cfg)
 
 
-@pytest.mark.parametrize("overrides", [
-    dict(stack_plane_kernel=True), dict(ssao_pallas=False),
-    dict(pcf_half_anchor=False), dict(spec_merged_trilinear=False),
-])
-def test_unported_options_raise(overrides):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_options_raise():
+    """Every EngineConfig option is ported: the options that used to
+    raise construct a Renderer; only extra render passes still raise."""
+    for overrides in (dict(stack_plane_kernel=True), dict(ssao_pallas=False),
+                      dict(pcf_u16=False), dict(pcf_half_anchor=False),
+                      dict(spec_parent_mip_half_res=False),
+                      dict(spec_mirror_half_res=False),
+                      dict(spec_merged_trilinear=False),
+                      dict(attrs_plane_kernel=False)):
         Renderer(scenes.tiny_config(**overrides), "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Renderer(scenes.tiny_config(), "cpu", extra_passes=[object()])
 
 
 def test_extra_passes_and_uv1_raise():
@@ -233,17 +243,24 @@ def _run_python(code, env=None):
 def test_port_renders_without_jax():
     """A CUDA machine may have no jax at all: with jax made unimportable,
     the package imports and renders a 256x128 frame on the CPU on each of
-    its three paths, and no module of the JAX package is ever loaded."""
+    its four paths and under each fast-path option, and no module of the
+    JAX package is ever loaded."""
     out = _run_python("""
         import sys
         sys.modules["jax"] = None
         import mo_renderer_tpu_torch as port
         from mo_renderer_tpu_torch import scenes
+        stacks = {"attrs_plane_kernel": False, "stack_plane_kernel": True}
         for kw in ({}, {"fast_sampling": False},
-                   {"raster_interp_attrs": True, "ssao_res_divisor": 1}):
+                   {"raster_interp_attrs": True, "ssao_res_divisor": 1},
+                   stacks, {"pcf_u16": False}, {"pcf_half_anchor": False},
+                   {"spec_parent_mip_half_res": False},
+                   {"spec_merged_trilinear": False},
+                   {"spec_mirror_half_res": False, "checkerboard": False},
+                   {"ssao_pallas": False}):
             cfg = scenes.tiny_config(**kw)
             app = port.App.new(config=cfg, device="cpu")
-            app.world = scenes.tiny_world()
+            app.world = scenes.tiny_world(all_slots=kw is stacks)
             app.insert_resource(scenes.camera(cfg))
             frame = app.run(num_frames=1)
             assert frame.shape == (128, 256, 4), frame.shape
