@@ -18,7 +18,16 @@ Phases (each raises on failure; the script then exits non-zero):
    call queued behind a sleep kernel so the host's issue time is not in
    the measurement.  Each kernel's bound is the larger of the bytes it
    must move over 3.35 TB/s and its FP32 operations over 67 TFLOP/s
-   (the H100 SXM data sheet), both counted from this run's inputs.
+   (the H100 SXM data sheet), both counted from this run's inputs: the
+   raster's candidates are the pixels of the binned triangles' boxes, and
+   SSAO's operations are counted per pipe (ssao_flop_equivalents), its
+   square roots only for the taps that occlude on this depth plane.
+   Then the same for the raster modes and SSAO on a second set of inputs
+   that loads them: one default-path and one reference-path frame of
+   scenes.grid_world(10) (the reference's ~52K-triangle stress scene) at
+   1920x1080, reported as ``raster_slim@grid`` etc. with the pair count
+   and the largest per-tile run (their launches are those of phase 4's
+   two paths on that scene).
 3. Frames at 256x128: the default frame, the reference-path frame
    (fast_sampling=False), the UV1 scene under default flags, the
    megakernel frame (raster_interp_attrs=True, ssao_res_divisor=1), the
@@ -38,7 +47,8 @@ Phases (each raises on failure; the script then exits non-zero):
    path and read just after; the reference path re-rasterizes the shadow
    map every frame).  Prints each path's steady-state ms/frame, then its
    kernel launches and device kernel time per frame from torch.profiler
-   over two more frames.
+   over two more frames.  Then the default and the reference path on
+   scenes.grid_world(10) in the same way, a few frames each.
 
 The last two lines are a JSON summary of the kernels and the contract
 line {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -48,6 +58,7 @@ checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -92,6 +103,15 @@ PATHS = {
                         "ssao", "interleave"), {"all_slots": True}),
 }
 
+# the dense inputs of phase 2: the frames of scenes.grid_world that give
+# them (EngineConfig overrides) and the kernels timed on them
+GRID_KERNELS = ("raster_slim", "raster_depth", "raster_full", "ssao")
+# and the two paths phase 4 drives on that scene
+GRID_PATHS = {
+    "default@grid": PATHS["default"][:2],
+    "reference@grid": PATHS["reference"][:2],
+}
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12  # outside the tensor cores
 
@@ -102,9 +122,34 @@ RASTER_FLOPS_PER_CANDIDATE = 16  # 3 edges x 4 + the fused depth plane
 FULL_FLOPS_PER_PIXEL = 8  # two fused edges and two products, per pixel
 ATTRS_FLOPS_PER_PIXEL = 95  # q, qs, 1/qs, 14 channels x 5
 ATTR_PLANES_FLOPS_PER_PIXEL = 50
-SSAO_FLOPS_PER_TAP = 10
+# SSAO in machine operations per pipe, from csrc/ssao.cu: an IEEE square
+# root or division is one special-function operation (MUFU) and its FP32
+# fix-up
+SSAO_FP32_PER_TAP = 2  # the depth difference and its compare
+SSAO_FP32_PER_OCCLUDING_TAP = 9 + 6  # both factors, fade, sum; root fix-up
+SSAO_MUFU_PER_OCCLUDING_TAP = 1
+SSAO_FP32_PER_PIXEL = 14 + 2 * 8  # noise, radius, quantization; 2 divisions
+SSAO_MUFU_PER_PIXEL = 2  # the linearization's and the radius's division
+SSAO_FP64_PER_PIXEL = 40  # sin in double: reduction and polynomial
 STACK_FLOPS_PER_PIXEL = 6  # the four bilinear weights
 STACK_FLOPS_PER_PLANE = 11  # 4 scales by 1/255, 4 weights, 3 adds
+
+
+def ssao_flop_equivalents(n_pixels, n_taps, n_occluding):
+    """SSAO's arithmetic on ``n_pixels`` pixels of ``n_taps`` taps, of
+    which ``n_occluding`` (pixel, tap) pairs occlude on this run's data,
+    in FP32 FLOP at the 67 TFLOP/s peak.  That peak is one FMA (2 FLOP)
+    per lane and clock on 128 lanes an SM, and these operations are not
+    FMAs, so each costs 2 FLOP of it.  Per SM and clock the card starts
+    128 lane-operations in all, 16 on the special-function pipe (1/8 of
+    the FP32 rate) and 64 in FP64 (1/2): the slowest of the total and the
+    two pipes bounds the kernel."""
+    fp32 = (n_pixels * (SSAO_FP32_PER_TAP * n_taps + SSAO_FP32_PER_PIXEL)
+            + n_occluding * SSAO_FP32_PER_OCCLUDING_TAP)
+    mufu = (n_pixels * SSAO_MUFU_PER_PIXEL
+            + n_occluding * SSAO_MUFU_PER_OCCLUDING_TAP)
+    fp64 = n_pixels * SSAO_FP64_PER_PIXEL
+    return 2 * max(fp32 + mufu + fp64, 8 * mufu, 2 * fp64)
 
 
 def card_line() -> str:
@@ -145,12 +190,14 @@ def bound(n_bytes, n_flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def capture_inputs(cfg, device):
-    """Run one frame on each path and record what each kernel wrapper got
-    (the first call per kernel).  Returns {kernel: (args, kwargs)}."""
+def capture_inputs(cfg, device, frames, want):
+    """Render one frame per entry of ``frames`` -- (EngineConfig
+    overrides, world factory, camera factory) -- and record what each
+    kernel wrapper got (the first call per kernel).  Returns {kernel:
+    (args, kwargs)}; raises unless every kernel of ``want`` was called."""
     import mo_renderer_tpu_torch.passes.frame_graph as FG
     import mo_renderer_tpu_torch.passes.gbuffer as GB
-    from mo_renderer_tpu_torch import Renderer, scenes
+    from mo_renderer_tpu_torch import Renderer
 
     seen = {}
     originals = {
@@ -183,33 +230,36 @@ def capture_inputs(cfg, device):
     GB.stack_planes = recorder(
         "stack_planes", originals[(GB, "stack_planes")])
     try:
-        for overrides, _, scene_kw in PATHS.values():
+        for overrides, make_world, make_camera in frames:
             pcfg = dataclasses.replace(cfg, **overrides)
-            world = scenes.tiny_world(**scene_kw)
-            world.insert_resource(scenes.camera(pcfg))
+            world = make_world()
+            world.insert_resource(make_camera(pcfg))
             renderer = Renderer(pcfg, device)
             renderer.prepare(world)
             renderer.render(world)
     finally:
         for (mod, attr), fn in originals.items():
             setattr(mod, attr, fn)
-    missing = set(KERNELS) - set(seen)
+    missing = set(want) - set(seen)
     if missing:
         raise RuntimeError(f"the frames never called {sorted(missing)}")
     return seen
 
 
 def check_kernels(cfg, device):
-    """Phase 2: each CUDA kernel against its plain version on the card."""
+    """Phase 2: each CUDA kernel against its plain version on the card, on
+    the inputs of the four paths' frames of the tiny scene and, for the
+    raster modes and SSAO, of the stress scene."""
     import torch
 
+    from mo_renderer_tpu_torch import scenes
     from mo_renderer_tpu_torch.kernels import attr_planes as AP
+    from mo_renderer_tpu_torch.kernels import raster_setup as RS
     from mo_renderer_tpu_torch.kernels import rasterizer as R
     from mo_renderer_tpu_torch.kernels import stack_planes as SP
     from mo_renderer_tpu_torch.passes import checkerboard as CB
     from mo_renderer_tpu_torch.passes import ssao as S
 
-    seen = capture_inputs(cfg, device)
     results = {}
 
     def bytes_of(x):
@@ -223,17 +273,28 @@ def check_kernels(cfg, device):
 
     def raster_inputs(binned):
         return nbytes(binned.tri_data, binned.pair_tri, binned.tile_start,
-                      binned.tile_count)
+                      binned.tile_count, binned.bbox)
 
     def candidates(binned):
-        return binned.pair_tri.shape[0] * binned.tile_h * binned.tile_w
+        """(triangle, pixel) tests this run's data needs: the pixels of
+        every binned triangle's bounding box."""
+        bb = binned.bbox.to(torch.int64)
+        live = (binned.tri_data[:, RS.COL_VALID] > 0) & (bb[:, 0] <= bb[:, 2])
+        area = (bb[:, 2] - bb[:, 0] + 1) * (bb[:, 3] - bb[:, 1] + 1)
+        return int(torch.where(live, area, 0).sum())
 
-    # each case: (kernel, plain, comparison -> (max_abs_err, ok, bar),
-    # shape, bytes moved, FP32 operations)
-    def raster(mode):
+    def run_stats(binned):
+        return {"pairs": binned.pair_tri.shape[0],
+                "max_tile_count": int(binned.tile_count.max())}
+
+    # each case: kernel, plain, cmp -> (max_abs_err, ok, bar), shape,
+    # bytes moved, FP32 operations, and what else to report
+    def raster(seen, mode):
         (binned,), kw = seen[f"raster_{mode}"]
         w, h = kw["width"], kw["height"]
-        shape = f"{h}x{w}, {binned.pair_tri.shape[0]} pairs"
+        stats = run_stats(binned)
+        shape = (f"{h}x{w}, {stats['pairs']} pairs, largest run "
+                 f"{stats['max_tile_count']}")
         n_out = {"depth": 1, "slim": 2, "full": 4}[mode]
         flops = candidates(binned) * RASTER_FLOPS_PER_CANDIDATE
         if mode == "full":
@@ -250,13 +311,15 @@ def check_kernels(cfg, device):
             bar = {"depth": "depth exact", "slim": "ids and depth exact",
                    "full": "ids and depth exact, b0/b1 atol 1e-6"}[mode]
             return err, ok, bar
-        return (
-            lambda: R._raster_cuda(binned, w, h, mode),
-            lambda: R._raster_plain(binned, w, h, mode),
-            cmp, shape, raster_inputs(binned) + n_out * 4 * w * h, flops,
+        return dict(
+            kernel=lambda: R._raster_cuda(binned, w, h, mode),
+            plain=lambda: R._raster_plain(binned, w, h, mode),
+            cmp=cmp, shape=shape,
+            bytes=raster_inputs(binned) + n_out * 4 * w * h, flops=flops,
+            extra=stats,
         )
 
-    def raster_attrs():
+    def raster_attrs(seen):
         (binned,), kw = seen["raster_attrs"]
         w, h = kw["width"], kw["height"]
 
@@ -279,15 +342,19 @@ def check_kernels(cfg, device):
         out = plain()
         flops = (candidates(binned) * RASTER_FLOPS_PER_CANDIDATE
                  + ATTRS_FLOPS_PER_PIXEL * covered)
-        return (
-            lambda: R._raster_attrs_cuda(binned, w, h), plain, cmp,
-            f"{h}x{w}, {binned.pair_tri.shape[0]} pairs, "
+        # the megakernel takes no boxes
+        n_in = raster_inputs(binned) - nbytes(binned.bbox)
+        return dict(
+            kernel=lambda: R._raster_attrs_cuda(binned, w, h), plain=plain,
+            cmp=cmp,
+            shape=f"{h}x{w}, {binned.pair_tri.shape[0]} pairs, "
             f"{binned.tri_data.shape[1]}-float rows -> {out[2].shape[0]} "
             "planes",
-            raster_inputs(binned) + (2 + out[2].shape[0]) * 4 * w * h, flops,
+            bytes=n_in + (2 + out[2].shape[0]) * 4 * w * h, flops=flops,
+            extra=run_stats(binned),
         )
 
-    def attr():
+    def attr(seen):
         (tri, attrs, pv), kw = seen["attr_planes"]
         args = (tri, attrs, pv, kw["n_mat"], kw["full_wh"], kw["cb"], 0)
         n_out = AP.n_planes(kw["n_mat"])
@@ -297,15 +364,33 @@ def check_kernels(cfg, device):
             ok = bool(torch.allclose(k, p, rtol=2e-3, atol=1e-4,
                                      equal_nan=True))
             return err, ok, "rtol 2e-3 / atol 1e-4"
-        return (
-            lambda: AP._attr_planes_cuda(*args),
-            lambda: AP._attr_planes_plain(*args),
-            cmp, f"{tuple(tri.shape)} -> {n_out} planes",
-            nbytes(tri, attrs, pv) + n_out * 4 * tri.numel(),
-            ATTR_PLANES_FLOPS_PER_PIXEL * tri.numel(),
+        return dict(
+            kernel=lambda: AP._attr_planes_cuda(*args),
+            plain=lambda: AP._attr_planes_plain(*args),
+            cmp=cmp, shape=f"{tuple(tri.shape)} -> {n_out} planes",
+            bytes=nbytes(tri, attrs, pv) + n_out * 4 * tri.numel(),
+            flops=ATTR_PLANES_FLOPS_PER_PIXEL * tri.numel(),
         )
 
-    def ssao():
+    def occluding_taps(depth, near, far):
+        """How many (pixel, tap) pairs occlude (centre more than 0.001 of
+        linear depth behind the tap, read as the plain version reads it):
+        the taps whose compare takes a square root."""
+        h, w = depth.shape
+        offs, _, edges = S._tables(w, S.NUM_LEVELS, depth.device)[:3]
+        d_lin = S._linear_depth(depth, near, far)
+        iy = torch.arange(h, device=depth.device)[:, None]
+        ix = torch.arange(w, device=depth.device)[None, :]
+        lvl = (S._radii(d_lin, w, h)[0][..., None] > edges).sum(-1)
+        n = 0
+        for t in range(offs.shape[1]):
+            o = offs[lvl, t].to(torch.int64)
+            tap = d_lin[torch.clamp(iy + o[..., 1], 0, h - 1),
+                        torch.clamp(ix + o[..., 0], 0, w - 1)]
+            n += int((d_lin - tap > 0.001).sum())
+        return n
+
+    def ssao(seen):
         (depth,), kw = seen["ssao"]
         args = (depth, S.NUM_LEVELS, 0, kw["near"], kw["far"])
         n_taps = max(len(t) for t in S._ssao_tap_table(
@@ -316,26 +401,31 @@ def check_kernels(cfg, device):
             frac = (k != p).float().mean().item()
             return err, err <= 1.01 / 255 and frac < 0.002, (
                 f"<= 1.01/255 on < 0.2% of pixels ({frac:.5%} differ)")
-        return (
-            lambda: S._ssao_cuda(*args), lambda: S._ssao_plain(*args),
-            cmp, f"{tuple(depth.shape)}", 2 * nbytes(depth),
-            SSAO_FLOPS_PER_TAP * n_taps * depth.numel(),
+        n_occluding = occluding_taps(depth, kw["near"], kw["far"])
+        return dict(
+            kernel=lambda: S._ssao_cuda(*args),
+            plain=lambda: S._ssao_plain(*args),
+            cmp=cmp, shape=f"{tuple(depth.shape)}, "
+            f"{n_occluding / (n_taps * depth.numel()):.1%} of taps occlude",
+            bytes=2 * nbytes(depth),
+            flops=ssao_flop_equivalents(depth.numel(), n_taps, n_occluding),
+            extra={"occluding_taps": n_occluding},
         )
 
-    def interleave():
+    def interleave(seen):
         (cb, tri), _ = seen["interleave"]
 
         def cmp(k, p):
             err = (bytes_of(k) - bytes_of(p)).abs().max().item()
             return err, err == 0, "exact"
-        return (
-            lambda: CB._reconstruct_cuda(cb, tri),
-            lambda: CB._reconstruct_plain(cb, tri),
-            cmp, f"{tuple(cb.shape)} -> {tuple(tri.shape)}",
-            nbytes(cb, tri, tri), 0,
+        return dict(
+            kernel=lambda: CB._reconstruct_cuda(cb, tri),
+            plain=lambda: CB._reconstruct_plain(cb, tri),
+            cmp=cmp, shape=f"{tuple(cb.shape)} -> {tuple(tri.shape)}",
+            bytes=nbytes(cb, tri, tri), flops=0,
         )
 
-    def stack():
+    def stack(seen):
         (idx, fx, fy, groups, spec), _ = seen["stack_planes"]
         args = (idx, fx, fy, groups, spec)
         widths = "/".join(str(g.shape[1]) for g in groups)
@@ -345,30 +435,56 @@ def check_kernels(cfg, device):
             return err, err <= 1e-6, "exact expected, atol 1e-6"
         # each input read once (the group tables whole), each plane
         # written once
-        return (
-            lambda: SP._stack_planes_cuda(*args),
-            lambda: SP._stack_planes_plain(*args),
-            cmp, f"{tuple(idx.shape)}, groups {widths} wide "
+        return dict(
+            kernel=lambda: SP._stack_planes_cuda(*args),
+            plain=lambda: SP._stack_planes_plain(*args),
+            cmp=cmp, shape=f"{tuple(idx.shape)}, groups {widths} wide "
             f"({groups[0].shape[0]} rows) -> {len(spec)} planes",
-            nbytes(idx, fx, fy, *groups) + len(spec) * 4 * idx.numel(),
-            (STACK_FLOPS_PER_PIXEL + STACK_FLOPS_PER_PLANE * len(spec))
+            bytes=nbytes(idx, fx, fy, *groups) + len(spec) * 4 * idx.numel(),
+            flops=(STACK_FLOPS_PER_PIXEL + STACK_FLOPS_PER_PLANE * len(spec))
             * idx.numel(),
         )
 
-    cases = {
-        "raster_slim": raster("slim"), "raster_depth": raster("depth"),
-        "attr_planes": attr(), "ssao": ssao(), "interleave": interleave(),
-        "raster_full": raster("full"), "raster_attrs": raster_attrs(),
-        "stack_planes": stack(),
+    case_of = {
+        "raster_slim": functools.partial(raster, mode="slim"),
+        "raster_depth": functools.partial(raster, mode="depth"),
+        "attr_planes": attr, "ssao": ssao, "interleave": interleave,
+        "raster_full": functools.partial(raster, mode="full"),
+        "raster_attrs": raster_attrs, "stack_planes": stack,
     }
-    for name, (kern, plain, cmp, shape, n_bytes, n_flops) in cases.items():
+    seen = capture_inputs(
+        cfg, device,
+        [(overrides, functools.partial(scenes.tiny_world, **scene_kw),
+          scenes.camera) for overrides, _, scene_kw in PATHS.values()],
+        KERNELS,
+    )
+    cases = {name: build(seen) for name, build in case_of.items()}
+    seen = capture_inputs(
+        cfg, device,
+        [(overrides, scenes.grid_world, scenes.grid_camera)
+         for overrides, _ in GRID_PATHS.values()],
+        GRID_KERNELS,
+    )
+    for name in GRID_KERNELS:
+        # the plain raster walks 4096 pairs x 4096 pixels at a time: a few
+        # timed calls are enough
+        cases[f"{name}@grid"] = {**case_of[name](seen), "plain_runs": 3}
+
+    # what the events read for a kernel that does next to nothing
+    one = torch.zeros(1, device=device)
+    print(f"[2] floor of the timing: a 1-element add reads "
+          f"{median_ms(lambda: one.add_(1.0)):.4f} ms", flush=True)
+    for name, case in cases.items():
+        kern, plain = case["kernel"], case["plain"]
         k_out, p_out = kern(), plain()
         torch.cuda.synchronize()
-        err, ok, bar = cmp(k_out, p_out)
+        err, ok, bar = case["cmp"](k_out, p_out)
+        del k_out, p_out
         ms = median_ms(kern)
-        plain_ms = median_ms(plain)
+        plain_ms = median_ms(plain, runs=case.get("plain_runs", 20))
+        n_bytes, n_flops = case["bytes"], case["flops"]
         bound_ms, bound_by = bound(n_bytes, n_flops)
-        print(f"[2] {name:13s} {shape}: max |err| {err:.3g} ({bar}) "
+        print(f"[2] {name:17s} {case['shape']}: max |err| {err:.3g} ({bar}) "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.2f} MB, "
               f"{n_flops / 1e6:.1f} MFLOP)", flush=True)
@@ -379,7 +495,7 @@ def check_kernels(cfg, device):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             # no single PyTorch call computes any of these functions
-            "library_ms": None,
+            "library_ms": None, **case.get("extra", {}),
         }
     return results
 
@@ -472,7 +588,8 @@ def profile_frames(app, n_frames=2):
 
 
 def run_full_frame(device, line, path, n_frames, warmup=3):
-    """Phase 4: one path's 1080p frame through App.run."""
+    """Phase 4: one path's 1080p frame through App.run, on the tiny scene
+    or (the ``...@grid`` paths) on the stress scene."""
     import numpy as np
     import torch
 
@@ -480,11 +597,17 @@ def run_full_frame(device, line, path, n_frames, warmup=3):
     from mo_renderer_tpu_torch.config import EngineConfig
     from mo_renderer_tpu_torch.kernels import _build
 
-    overrides, kernels, scene_kw = PATHS[path]
+    if path in GRID_PATHS:
+        overrides, kernels = GRID_PATHS[path]
+        make_world, make_camera = scenes.grid_world, scenes.grid_camera
+    else:
+        overrides, kernels, scene_kw = PATHS[path]
+        make_world = functools.partial(scenes.tiny_world, **scene_kw)
+        make_camera = scenes.camera
     cfg = EngineConfig(width=1920, height=1080, **overrides)
     app = App.new(config=cfg, device=device)
-    app.world = scenes.tiny_world(**scene_kw)
-    app.insert_resource(scenes.camera(cfg))
+    app.world = make_world()
+    app.insert_resource(make_camera(cfg))
     app.add_runtime_system(scenes.orbit_system(warmup + n_frames))
     app.resumed()
 
@@ -525,7 +648,8 @@ def run_full_frame(device, line, path, n_frames, warmup=3):
     if stray:
         raise AssertionError(f"{path}: launched kernels of other paths: "
                              f"{stray}")
-    if path == "reference" and counts["raster_depth"] != warmup + n_frames:
+    if (overrides.get("fast_sampling") is False
+            and counts["raster_depth"] != warmup + n_frames):
         raise AssertionError("the reference path must re-raster the shadow "
                              "map every frame")
     return counts, ms
@@ -581,20 +705,31 @@ def main() -> int:
 
     kernels = check_kernels(EngineConfig(width=1920, height=1080), device)
     check_small_frames(device)
-    launches = {name: {} for name in KERNELS}
+    # kernel (or kernel@grid) -> {path: launches during that path's run}
+    launches = {name: {} for name in kernels}
     for path, n_frames in (("default", 16), ("reference", 8),
-                           ("megakernel", 8), ("stacks", 8)):
+                           ("megakernel", 8), ("stacks", 8),
+                           ("default@grid", 4), ("reference@grid", 4)):
         counts, _ = run_full_frame(device, line, path, n_frames)
-        for name in PATHS[path][1]:
-            launches[name][path] = counts[name]
+        if path in GRID_PATHS:
+            for name in set(GRID_PATHS[path][1]) & set(GRID_KERNELS):
+                launches[f"{name}@grid"][path] = counts[name]
+        else:
+            for name in PATHS[path][1]:
+                launches[name][path] = counts[name]
 
+    # each kernel on the tiny scene's inputs, then the raster modes and
+    # SSAO on the stress scene's; launches are those of the paths that ran
+    # on the same scene
     summary = {"kernels": [
         {
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "name": name, "route": "cuda",
+            "source": KERNELS[name.split("@")[0]][0],
+            "replaces": KERNELS[name.split("@")[0]][1],
             "launches": sum(launches[name].values()),
-            "launches_by_path": launches[name], **kernels[name],
+            "launches_by_path": launches[name], **result,
         }
-        for name, (src, rep) in KERNELS.items()
+        for name, result in kernels.items()
     ]}
     print(json.dumps(summary))
     print(line)

@@ -38,6 +38,15 @@ COL_TRI_ID = 14
 COL_VALID = 15
 TRI_STRIDE = 16
 
+# An edge function (a*px + b*py) + c rounds in float32, and its error in
+# pixels grows with the triangle's screen coordinates: about 1e-7 of them.
+# While every edge spans at most this many pixels the error stays some
+# hundredths of a pixel, far inside the full pixel between a triangle's
+# corners and the first pixel centre outside its box.  A triangle with a
+# corner just behind the ``w_eps`` cut (screen coordinates of 1e6 and more)
+# can cover pixels outside its box.
+MAX_EXACT_EXTENT = 65536.0
+
 
 @dataclasses.dataclass
 class TriangleSetup:
@@ -51,9 +60,15 @@ class BinnedTriangles:
 
     ``pair_tri[tile_start[k] : tile_start[k] + tile_count[k]]`` are the
     ids of the triangles whose bbox touches tile k (row-major tiles of
-    ``tile_h`` x ``tile_w`` pixels); their rows are ``tri_data[id]``."""
+    ``tile_h`` x ``tile_w`` pixels); their rows are ``tri_data[id]``.
+    ``bbox[id]`` is an inclusive pixel box a rasterizer may skip by: inside
+    the tiles of its run a triangle covers no pixel outside it.  It is
+    ``TriangleSetup.bbox``, except for a binned triangle with an edge
+    longer than ``MAX_EXACT_EXTENT`` pixels, whose box is the whole of the
+    tiles it is binned to."""
 
     tri_data: torch.Tensor  # (T, 16) f32
+    bbox: torch.Tensor  # (T, 4) int32
     pair_tri: torch.Tensor  # (P,) int32
     tile_start: torch.Tensor  # (n_tiles,) int32
     tile_count: torch.Tensor  # (n_tiles,) int32
@@ -230,6 +245,13 @@ def bin_triangles(
     ty1 = bb[:, 3] // tile_h
     span_x = tx1 - tx0 + 1
     pairs = torch.where(live, span_x * (ty1 - ty0 + 1), 0)
+    # columns 0..5 are the edges' extents in pixels (a = -+dy, b = +-dx)
+    huge = live & ~(tri_data[:, :COL_C0].abs().amax(1) <= MAX_EXACT_EXTENT)
+    tiles_box = torch.stack(
+        [tx0 * tile_w, ty0 * tile_h, (tx1 + 1) * tile_w - 1,
+         (ty1 + 1) * tile_h - 1], dim=-1,
+    ).to(torch.int32)
+    bbox = torch.where(huge[:, None], tiles_box, bbox)
     total = int(pairs.sum())  # the pass's host sync
 
     tri_rep = torch.repeat_interleave(
@@ -258,6 +280,7 @@ def bin_triangles(
     )
     return BinnedTriangles(
         tri_data=tri_data.contiguous(),
+        bbox=bbox.contiguous(),
         pair_tri=pair_tri.contiguous(),
         tile_start=tile_start.to(torch.int32),
         tile_count=(tile_end - tile_start).to(torch.int32),

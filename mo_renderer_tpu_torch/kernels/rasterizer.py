@@ -6,8 +6,11 @@ Port of ``mo_renderer_tpu/kernels/rasterizer.py``: ``rasterize`` with
 ``slim=True`` (K1), in full mode (K6) and with ``depth_only=True`` (K2)
 becomes one CUDA kernel with a compile-time mode, ``csrc/raster.cu``;
 ``rasterize_attrs`` (K8) is ``csrc/raster_attrs.cu``.  The CUDA kernels
-bin at ``BIN_H`` x ``BIN_W`` pixel tiles (one thread block per tile), so
-the frame bins at that size; the output does not depend on the tiling.
+take ``BIN_H`` x ``BIN_W`` pixel bins, so the frame bins at that size; the
+output does not depend on the tiling.  ``raster.cu`` also takes the
+triangles' pixel boxes (``BinnedTriangles.bbox``) and skips what a box
+cannot touch, which changes no result: inside its tiles a triangle covers
+no pixel outside that box.
 
 Semantics, identical in the kernels and in the plain versions below:
 
@@ -44,7 +47,7 @@ from .raster_setup import (
 )
 
 FAR_DEPTH = 1.0
-BIN_H = 32  # the CUDA kernel's tile: one thread block per 32 x 128 pixels
+BIN_H = 32  # the CUDA kernels' bin: 32 x 128 pixels
 BIN_W = 128
 N_INTERP = 14  # RA_N_INTERP of passes/vertex_stage.py
 ATTR_ROW = TRI_STRIDE + 3 + 3 * N_INTERP + 2  # 63 columns per megakernel row
@@ -240,8 +243,9 @@ def _check_bins(name, binned, width, height):
         raise ValueError("the bins do not cover the raster target")
     _build.require_cuda(
         name, binned.tri_data, binned.pair_tri, binned.tile_start,
-        binned.tile_count,
-        dtypes=(torch.float32, torch.int32, torch.int32, torch.int32),
+        binned.tile_count, binned.bbox,
+        dtypes=(torch.float32, torch.int32, torch.int32, torch.int32,
+                torch.int32),
     )
 
 
@@ -250,7 +254,17 @@ _MODES = {"depth": 0, "slim": 1, "full": 2}
 
 def _raster_cuda(binned, width, height, mode):
     _check_bins("rasterize", binned, width, height)
-    dev = binned.tri_data.device
+    tri_data, bbox = binned.tri_data, binned.bbox
+    if (tri_data.shape[1] != TRI_STRIDE
+            or bbox.shape != (tri_data.shape[0], 4)):
+        raise ValueError(
+            f"rasterize takes {TRI_STRIDE}-column rows and one box per row, "
+            f"got {tuple(tri_data.shape)} and {tuple(bbox.shape)}"
+        )
+    if tri_data.data_ptr() % 16 or bbox.data_ptr() % 16:
+        raise ValueError("rasterize: rows and boxes must be 16-byte aligned "
+                         "(the kernel copies them 16 bytes at a time)")
+    dev = tri_data.device
 
     def plane(dtype=torch.float32):
         return torch.empty((height, width), dtype=dtype, device=dev)
@@ -264,10 +278,10 @@ def _raster_cuda(binned, width, height, mode):
 
     fn = _build.function(
         "mo_raster",
-        [_build.P] * 8 + [_build.I] * 5 + [_build.P],
+        [_build.P] * 9 + [_build.I] * 5 + [_build.P],
     )
     err = fn(
-        binned.tri_data.data_ptr(), binned.pair_tri.data_ptr(),
+        tri_data.data_ptr(), bbox.data_ptr(), binned.pair_tri.data_ptr(),
         binned.tile_start.data_ptr(), binned.tile_count.data_ptr(),
         z.data_ptr(), ptr(tri), ptr(b0), ptr(b1),
         width, height, binned.n_tiles_x, binned.n_tiles_y, _MODES[mode],

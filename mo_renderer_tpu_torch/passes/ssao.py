@@ -30,6 +30,7 @@ divisions (by the depth) are true divisions in the plain version too
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -39,6 +40,11 @@ from ..kernels import _build
 NEAR = 0.1
 FAR = 100.0
 NUM_LEVELS = 16
+
+# The CUDA kernel's output tile is TILE_H x TILE_W pixels (csrc/ssao.cu
+# kTileH, kTileW): ``_tables`` builds the tap offsets for a window that wide.
+TILE_H = 32
+TILE_W = 32
 
 NUM_RINGS = 3
 NUM_SAMPLES = 6
@@ -136,11 +142,22 @@ def _ssao_tap_table(w: int, num_levels: int = NUM_LEVELS):
     return edges, level_taps, max_off
 
 
+class _Tables(NamedTuple):
+    offs: torch.Tensor  # (levels, taps, 2) int32: ox, oy
+    fades: torch.Tensor  # (taps,) f32
+    edges: torch.Tensor  # (levels - 1,) f32, the inner level edges
+    max_off: int  # the halo: max |offset|
+    win_offs: torch.Tensor  # (levels, taps) int32: oy * win_w + ox
+    win_w: int  # TILE_W + 2 * max_off, the kernel's window width
+
+
 @functools.lru_cache(maxsize=16)
 def _tables(w, num_levels, device):
     """Tap offsets, fades and level edges as tensors on ``device``, made
     once per (width, levels, device): a host-to-device copy per call
-    would stall the launch queue every frame."""
+    would stall the launch queue every frame.  ``win_offs`` are
+    the same offsets as flat steps inside the kernel's shared window of
+    linear depth, ``win_w`` values wide."""
     edges, level_taps, max_off = _ssao_tap_table(w, num_levels)
     offs = torch.tensor(
         [[(ox, oy) for ox, oy, _ in lt] for lt in level_taps],
@@ -152,7 +169,9 @@ def _tables(w, num_levels, device):
     edges_in = torch.tensor(
         edges[1:-1].astype(np.float32), dtype=torch.float32, device=device
     )
-    return offs, fades, edges_in, max_off
+    win_w = TILE_W + 2 * max_off
+    win_offs = (offs[..., 1] * win_w + offs[..., 0]).contiguous()
+    return _Tables(offs, fades, edges_in, max_off, win_offs, win_w)
 
 
 def ssao_pass_tiles(depth, num_levels: int = NUM_LEVELS, row_offset: int = 0,
@@ -168,7 +187,7 @@ def ssao_pass_tiles(depth, num_levels: int = NUM_LEVELS, row_offset: int = 0,
 def _ssao_plain(depth, num_levels, row_offset, near, far):
     h, w = depth.shape
     dev = depth.device
-    offs, fades, edges, _ = _tables(w, num_levels, dev)
+    offs, fades, edges = _tables(w, num_levels, dev)[:3]
     d_lin = _linear_depth(depth, near, far)
     iy = torch.arange(h, device=dev)[:, None].expand(h, w)
     ix = torch.arange(w, device=dev)[None, :].expand(h, w)
@@ -202,7 +221,8 @@ def ssao_pass(depth, num_levels: int = NUM_LEVELS, near=NEAR, far=FAR):
     d_lin = _linear_depth(depth, near, far)
     rw, _ = _radii(d_lin, w, h)
     _, level_taps, _ = _ssao_tap_table(w, num_levels)
-    lvl = torch.searchsorted(_tables(w, num_levels, dev)[2], rw.contiguous())
+    lvl = torch.searchsorted(_tables(w, num_levels, dev).edges,
+                             rw.contiguous())
     ys = torch.arange(h, device=dev)
     xs = torch.arange(w, device=dev)
     cache = {}
@@ -250,7 +270,11 @@ def _ssao_cuda(depth, num_levels, row_offset, near, far):
     depth = depth.contiguous()
     _build.require_cuda("ssao", depth, dtypes=(torch.float32,))
     h, w = depth.shape
-    offs, fades, edges, max_off = _tables(w, num_levels, depth.device)
+    if not 1 <= num_levels <= 32:
+        raise ValueError(
+            f"ssao: the kernel takes 1..32 levels, got {num_levels}"
+        )
+    tab = _tables(w, num_levels, depth.device)
     out = torch.empty_like(depth)
     if h * w == 0:
         return out
@@ -260,8 +284,9 @@ def _ssao_cuda(depth, num_levels, row_offset, near, far):
         + [_build.P],
     )
     err = fn(
-        depth.data_ptr(), out.data_ptr(), offs.data_ptr(), fades.data_ptr(),
-        edges.data_ptr(), h, w, max_off, num_levels, offs.shape[1],
+        depth.data_ptr(), out.data_ptr(), tab.win_offs.data_ptr(),
+        tab.fades.data_ptr(), tab.edges.data_ptr(), h, w, tab.max_off,
+        num_levels, tab.win_offs.shape[1],
         2.0 * near, far + near, far - near, 1.0 / w, w / 2.0,
         _recip(60.0 / (far - near)), _recip(_TOTAL), _recip(255.0),
         row_offset, _build.stream_of(out),

@@ -7,6 +7,12 @@ samples the cube's base colour with UV set 1, which sends the frame down
 the reference sampling path; its all-slots variant gives the cube
 textures in all five material slots (and tangents), so the fast path
 samples every slot of the texture stacks.
+
+``grid_world`` is the second asset-free scene, the reference's
+"sponza-class" stress scene (``examples/sponza_scale.py``): a grid of
+cubes and spheres with distinct materials on a textured plane, about 52K
+triangles at the default 10 x 10 grid, which loads the rasterizer and the
+binning where the tiny scene does not.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ from .config import EngineConfig
 from .math import quat
 from .math.transform import Transform
 from .scene.camera import Camera
-from .scene.components import DirectionalLight
+from .scene.components import DirectionalLight, PointLight
 from .scene.world import World
 
 
@@ -152,6 +158,65 @@ def tiny_world(device=None, uv1=False, all_slots=False):
     ),))
     world.insert_resource(tiny_ibl(device))
     return world
+
+
+def grid_world(n_grid: int = 10, device=None):
+    """The reference's stress scene (``examples/sponza_scale.py``
+    ``build_app``): a 40-unit textured plane, an ``n_grid`` x ``n_grid``
+    grid of alternating cubes and spheres whose colours, heights and
+    roughness come from ``default_rng(42)`` in the reference's draw order,
+    one shadow-casting sun over a 40 x 40 half-extent and four point
+    lights.  The IBL is the synthetic sky (the reference falls back to no
+    IBL when its HDR asset is absent)."""
+    world = World()
+    world.spawn((
+        Transform.from_xyz(0.0, 0.0, 0.0),
+        procedural_model("plane", size=40.0, textured=True, roughness=0.8),
+    ))
+    rng = np.random.default_rng(42)
+    for i in range(n_grid):
+        for j in range(n_grid):
+            x = (i - (n_grid - 1) / 2) * 2.4
+            z = (j - (n_grid - 1) / 2) * 2.4
+            kind = "cube" if (i + j) % 2 == 0 else "sphere"
+            color = tuple(rng.uniform(0.2, 1.0, 3)) + (1.0,)
+            model = procedural_model(
+                kind,
+                base_color=color,
+                metallic=float((i * n_grid + j) % 3 == 0),
+                roughness=float(0.1 + 0.8 * rng.random()),
+                textured=(i + j) % 5 == 0,
+            )
+            world.spawn((
+                Transform.from_xyz(x, 0.5 + 0.8 * rng.random(), z), model,
+            ))
+    world.spawn((DirectionalLight(
+        Transform.from_xyz(20.0, 30.0, 10.0).looking_at((0.0, 0.0, 0.0)),
+        (1.0, 0.98, 0.9), 3.0, True, shadow_width=40.0, shadow_height=40.0,
+    ),))
+    for k in range(4):
+        ang = k * np.pi / 2 + 0.4
+        world.spawn((PointLight(
+            Transform.from_xyz(8 * np.cos(ang), 3.0, 8 * np.sin(ang)),
+            color=[(1, .3, .2), (.2, 1, .3), (.3, .4, 1), (1, 1, .5)][k],
+            intensity=8.0,
+        ),))
+    world.insert_resource(tiny_ibl(device))
+    return world
+
+
+def grid_camera(cfg):
+    """The stress scene's camera: 14 units back and 4 up, pitched down by
+    0.2 rad (``examples/sponza_scale.py``)."""
+    yaw = np.pi * 0.8
+    d = np.array([np.sin(yaw), 0.0, np.cos(yaw)])
+    cam = Camera(
+        position=tuple(-14.0 * d + np.array([0.0, 4.0, 0.0])),
+        rotation=quat.mul(quat.from_rotation_y(yaw),
+                          quat.from_rotation_x(-0.2)),
+    )
+    cam.resize((cfg.width, cfg.height))
+    return cam
 
 
 def camera(cfg, angle: float = 0.0):

@@ -9,7 +9,11 @@ the conftest:
 
 ``python3 chip_smoke.py`` runs the same checks at 1920x1080.  The
 random soups below hold the full-mode raster (K6) and the megakernel (K8)
-to their plain versions away from the frame's own inputs.
+to their plain versions away from the frame's own inputs; the cases after
+them aim at the seams of the raster kernel's design (a run that ends on,
+before or after a staged chunk, boxes that end on a warp's rows or on a
+region or bin border, equal depths, ragged targets) and of the SSAO
+kernel's (ragged planes, a row offset, three widths).
 """
 
 import os
@@ -30,13 +34,14 @@ def cuda():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_the_card(cuda):
-    """Every kernel against its plain version on the 256x128 frame's own
+    """Every kernel against its plain version on the 256x128 frames' own
     inputs (chip_smoke's phase 2 at the small size)."""
     import chip_smoke
     from mo_renderer_tpu_torch import scenes
 
     results = chip_smoke.check_kernels(scenes.tiny_config(), cuda)
-    assert set(results) == set(chip_smoke.KERNELS)
+    assert set(results) == set(chip_smoke.KERNELS) | {
+        f"{name}@grid" for name in chip_smoke.GRID_KERNELS}
 
 
 @pytest.mark.cuda
@@ -107,6 +112,195 @@ def test_raster_attrs_kernel_matches_plain(cuda, seed):
     assert torch.equal(tri_k, tri_p) and torch.equal(z_k, z_p)
     assert torch.equal(planes_k[R.N_INTERP:], planes_p[R.N_INTERP:])
     assert torch.allclose(planes_k, planes_p, rtol=2e-3, atol=1e-4)
+
+
+def _binned_from_points(pts, z, width, height, device):
+    """Triangles from pixel-space corners ``pts`` (3n, 2) and depths ``z``
+    (3n,), through the port's own setup and binning."""
+    import numpy as np
+
+    from mo_renderer_tpu_torch.kernels import raster_setup as RS
+    from mo_renderer_tpu_torch.kernels import rasterizer as R
+
+    n_tri = len(pts) // 3
+    clip = np.stack([pts[:, 0] / width * 2 - 1, pts[:, 1] / height * 2 - 1,
+                     z, np.ones(len(pts))], -1).astype(np.float32)
+    idx = torch.arange(n_tri * 3, dtype=torch.int32).reshape(n_tri, 3)
+    setup = RS.triangle_setup(torch.from_numpy(clip), idx,
+                              torch.ones(n_tri, dtype=torch.bool), width,
+                              height, cull_backface=False)
+    setup.tri_data = setup.tri_data.to(device)
+    setup.bbox = setup.bbox.to(device)
+    return RS.bin_triangles(
+        setup, tile_h=R.BIN_H, tile_w=R.BIN_W,
+        n_tiles_x=-(-width // R.BIN_W), n_tiles_y=-(-height // R.BIN_H),
+    )
+
+
+def _assert_raster_modes_exact(binned, width, height):
+    """All three modes of raster.cu against the plain version: ids and
+    depth equal, b0/b1 within 1e-6.  Returns the slim ids."""
+    from mo_renderer_tpu_torch.kernels import rasterizer as R
+
+    for mode in ("slim", "depth", "full"):
+        k = R._raster_cuda(binned, width, height, mode)
+        p = R._raster_plain(binned, width, height, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(k[1], p[1]), mode
+        if mode != "depth":
+            assert torch.equal(k[0], p[0]), mode
+        if mode == "full":
+            for a, b in zip(k[2:], p[2:]):
+                assert (a - b).abs().max().item() <= 1e-6
+        if mode == "slim":
+            tri = k[0]
+    return tri
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tri", [0, 1, 63, 64, 65, 129, 255, 256, 257,
+                                   511, 512, 513, 1000])
+def test_raster_run_lengths_in_one_tile(cuda, n_tri):
+    """A run of n triangles in ONE bin tile (the kernel stages 256 pairs
+    at a time), overlapping at random depths, the other tiles empty.  The
+    run of 0 is one triangle without area, which setup drops."""
+    import numpy as np
+
+    width, height = 384, 96
+    rng = np.random.default_rng(n_tri)
+    # corners stay inside the tile at x 128..255, y 32..63
+    c = rng.uniform([143, 46], [241, 50], size=(max(n_tri, 1), 1, 2))
+    spread = np.array([14.0, 13.0]) if n_tri else 0.0
+    pts = c + rng.uniform(-1, 1, size=(max(n_tri, 1), 3, 2)) * spread
+    pts = pts.reshape(-1, 2)
+    binned = _binned_from_points(pts, rng.uniform(0.05, 0.95, len(pts)),
+                                 width, height, cuda)
+    counts = binned.tile_count.cpu()
+    # one tile holds them all
+    assert int(counts.sum()) == int(counts.max()) == n_tri
+    tri = _assert_raster_modes_exact(binned, width, height)
+    assert (n_tri == 0) == bool((tri < 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_raster_boxes_on_the_seams(cuda, seed):
+    """Corners on multiples of half a pixel around the borders of a bin
+    tile (x = 128, y = 32), a region (x = 32k) and a warp's rows (y = 4k):
+    edges through pixel centres, boxes that end exactly on a seam."""
+    import numpy as np
+
+    width, height = 384, 96
+    rng = np.random.default_rng(seed)
+    n_tri = 400
+    seam = np.stack([rng.choice([32, 64, 96, 128, 160, 256], n_tri),
+                     rng.choice([4, 8, 28, 32, 36, 60, 64], n_tri)], -1)
+    pts = seam[:, None, :] + rng.integers(-16, 17, size=(n_tri, 3, 2)) / 2.0
+    pts = np.clip(pts.reshape(-1, 2), 0, [width, height])
+    binned = _binned_from_points(pts, rng.uniform(0.05, 0.95, n_tri * 3),
+                                 width, height, cuda)
+    tri = _assert_raster_modes_exact(binned, width, height)
+    assert (tri >= 0).float().mean().item() > 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,n_near", [(0, 1), (1, 2)])
+def test_raster_near_plane_triangles(cuda, seed, n_near):
+    """Triangles with corners right in front of the eye plane (w from
+    1.1e-6 up, screen coordinates of 1e8 pixels and more), whose float
+    edge functions can cover pixels outside the setup's box: binning gives
+    them the box of their tiles, and the kernel equals the plain version."""
+    import numpy as np
+
+    from mo_renderer_tpu_torch.kernels import raster_setup as RS
+    from mo_renderer_tpu_torch.kernels import rasterizer as R
+
+    width, height, n_tri = 384, 96, 400
+    rng = np.random.default_rng(seed)
+    ndc = rng.uniform(-1.2, 1.2, size=(n_tri, 3, 2))
+    w = np.ones((n_tri, 3))
+    w[:, :n_near] = np.exp(rng.uniform(np.log(1.1e-6), np.log(0.1),
+                                       size=(n_tri, n_near)))
+    xy = ndc.copy()
+    xy[:, n_near:] *= w[:, n_near:, None]
+    z = rng.uniform(0.05, 0.95, size=(n_tri, 3)) * w
+    clip = np.concatenate([xy, z[..., None], w[..., None]], -1)
+    clip = torch.from_numpy(clip.reshape(-1, 4).astype(np.float32))
+    idx = torch.arange(n_tri * 3, dtype=torch.int32).reshape(n_tri, 3)
+    setup = RS.triangle_setup(clip, idx, torch.ones(n_tri, dtype=torch.bool),
+                              width, height, cull_backface=False)
+    setup.tri_data = setup.tri_data.to(cuda)
+    setup.bbox = setup.bbox.to(cuda)
+    binned = RS.bin_triangles(
+        setup, tile_h=R.BIN_H, tile_w=R.BIN_W,
+        n_tiles_x=-(-width // R.BIN_W), n_tiles_y=-(-height // R.BIN_H),
+    )
+    assert int((binned.bbox != setup.bbox).any(1).sum()) > 20
+    tri = _assert_raster_modes_exact(binned, width, height)
+    assert (tri >= 0).float().mean().item() > 0.05
+
+
+@pytest.mark.cuda
+def test_raster_coplanar_duplicates_keep_the_later(cuda):
+    """The same 300 triangles drawn twice: equal depths everywhere, so the
+    second copy's ids win every covered pixel."""
+    import numpy as np
+
+    width, height = 384, 96
+    rng = np.random.default_rng(5)
+    n_tri = 300
+    pts = rng.uniform([0, 0], [width, height], size=(n_tri * 3, 2))
+    z = rng.uniform(0.05, 0.95, n_tri * 3)
+    binned = _binned_from_points(np.concatenate([pts, pts]),
+                                 np.concatenate([z, z]), width, height, cuda)
+    tri = _assert_raster_modes_exact(binned, width, height)
+    covered = tri[tri >= 0]
+    assert covered.numel() > 1000 and bool((covered >= n_tri).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,height", [(200, 77), (333, 45), (129, 33),
+                                          (31, 3)])
+def test_raster_ragged_targets(cuda, width, height):
+    """Width and height that are no multiple of the bin, the region or a
+    warp's rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(width)
+    n_tri = 250
+    pts = rng.uniform([-8, -8], [width + 8, height + 8], size=(n_tri * 3, 2))
+    binned = _binned_from_points(pts, rng.uniform(0.05, 0.95, n_tri * 3),
+                                 width, height, cuda)
+    tri = _assert_raster_modes_exact(binned, width, height)
+    assert tri.shape == (height, width) and bool((tri >= 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,row_offset", [
+    (37, 128, 48), (50, 1024, 7), (45, 1920, 1043), (64, 1000, 0),
+])
+def test_ssao_kernel_ragged_planes_and_row_offset(cuda, h, w, row_offset):
+    """K4 at sizes that are no multiple of its tile, with a row offset:
+    exact against the plain version."""
+    import numpy as np
+
+    from mo_renderer_tpu_torch.passes import ssao as S
+
+    rng = np.random.default_rng(h * w)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    d = 0.985 + 0.01 * yy / h
+    for _ in range(8):
+        cx, cy, r = rng.uniform(0, w), rng.uniform(0, h), rng.uniform(6, 24)
+        d = np.where((xx - cx) ** 2 + (yy - cy) ** 2 < r * r,
+                     d - rng.uniform(0.002, 0.02), d)
+    d[: h // 8] = 1.0
+    depth = torch.from_numpy(np.clip(d, 0.0, 1.0).astype(np.float32)).to(cuda)
+    args = (depth, S.NUM_LEVELS, row_offset, S.NEAR, S.FAR)
+    plain = S._ssao_plain(*args)
+    assert plain.min().item() < 0.99
+    out = S._ssao_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
 
 
 @pytest.mark.cuda

@@ -254,3 +254,273 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
         jnp.asarray(clip), jnp.asarray(idx), jnp.ones(20, bool), W, H,
     )
     _port_raster(setup.tri_data, setup.bbox, W, H)
+
+
+def _covered_outside_box(tri_data, bbox, width, height, chunk=256):
+    """Count the (triangle, pixel) candidates the raster rule covers
+    (edges accepted and z >= 0, the plain version's arithmetic) that lie
+    outside the triangle's inclusive pixel box, over ALL live triangles
+    and ALL pixels of the target -- not only the winners."""
+    live = (tri_data[:, RS.COL_VALID] > 0) & (bbox[:, 0] <= bbox[:, 2])
+    rows, boxes = tri_data[live], bbox[live].to(torch.int64)
+    ys, xs = torch.meshgrid(torch.arange(height), torch.arange(width),
+                            indexing="ij")
+    px = (xs.to(torch.float32) + 0.5)[None]
+    py = (ys.to(torch.float32) + 0.5)[None]
+    outside_covered, covered = 0, 0
+    for lo in range(0, rows.shape[0], chunk):
+        r = rows[lo : lo + chunk]
+        b = boxes[lo : lo + chunk, :, None, None]
+
+        def col(j):
+            return r[:, j, None, None]
+
+        tb = r[:, RS.COL_TIE].to(torch.int32)[:, None, None]
+        cover = torch.ones((r.shape[0], height, width), dtype=torch.bool)
+        for i, bit in enumerate((1, 2, 4)):
+            w = R._edge(col(i), col(3 + i), col(6 + i), px, py)
+            cover &= (w > 0) | (((tb & bit) > 0) & (w == 0))
+        cover &= R._fused(col(9), col(10), col(11), px, py) >= 0.0
+        inside = ((xs >= b[:, 0]) & (xs <= b[:, 2])
+                  & (ys >= b[:, 1]) & (ys <= b[:, 3]))
+        covered += int(cover.sum())
+        outside_covered += int((cover & ~inside).sum())
+    return outside_covered, covered
+
+
+@pytest.mark.parametrize("seed,n_tri,cull", [
+    (42, 50, False), (7, 300, False), (3, 300, True), (11, 200, False),
+])
+def test_soup_coverage_stays_inside_the_boxes(seed, n_tri, cull):
+    """What the CUDA rasterizer's skip by box relies on: no triangle
+    covers a pixel outside its box (the port's own setup)."""
+    clip, idx = _soup(seed, n_tri, W, H)
+    setup = RS.triangle_setup(
+        torch.from_numpy(clip), torch.from_numpy(idx),
+        torch.ones(n_tri, dtype=torch.bool), W, H, cull_backface=cull,
+    )
+    outside, covered = _covered_outside_box(setup.tri_data, setup.bbox, W, H)
+    assert covered > 1000 and outside == 0
+
+
+def _near_plane_soup(seed, n_tri, n_near, width, height):
+    """Triangles with ``n_near`` corners each just in front of the eye
+    plane (w from 1.1e-6, right behind the setup's cut, to 0.1; clip x, y
+    of order 1, so screen coordinates reach 1e8 pixels and more) and the
+    other corners on or around the target."""
+    rng = np.random.default_rng(seed)
+    ndc = rng.uniform(-1.2, 1.2, size=(n_tri, 3, 2))
+    w = np.ones((n_tri, 3))
+    w[:, :n_near] = np.exp(rng.uniform(np.log(1.1e-6), np.log(0.1),
+                                       size=(n_tri, n_near)))
+    xy = ndc.copy()
+    xy[:, n_near:] *= w[:, n_near:, None]
+    z = rng.uniform(0.05, 0.95, size=(n_tri, 3)) * w
+    clip = np.concatenate([xy, z[..., None], w[..., None]], -1)
+    return (clip.reshape(-1, 4).astype(np.float32),
+            np.arange(n_tri * 3, dtype=np.int32).reshape(n_tri, 3))
+
+
+@pytest.mark.parametrize("seed,n_near", [(0, 1), (1, 2), (2, 1)])
+def test_near_plane_triangles_get_the_box_of_their_tiles(seed, n_near):
+    """A corner right in front of the eye plane throws an edge over
+    millions of pixels; there the float edge functions can cover pixels
+    outside the setup's box.  Binning hands such triangles (an edge longer
+    than MAX_EXACT_EXTENT) the box of the tiles they are binned to, where
+    every rasterizer tests them anyway, and all others keep their own box
+    and cover nothing outside it."""
+    n_tri = 300
+    clip, idx = _near_plane_soup(seed, n_tri, n_near, W, H)
+    setup = RS.triangle_setup(
+        torch.from_numpy(clip), torch.from_numpy(idx),
+        torch.ones(n_tri, dtype=torch.bool), W, H, cull_backface=False,
+    )
+    binned = RS.bin_triangles(
+        setup, tile_h=R.BIN_H, tile_w=R.BIN_W,
+        n_tiles_x=-(-W // R.BIN_W), n_tiles_y=-(-H // R.BIN_H),
+    )
+    live = (setup.tri_data[:, RS.COL_VALID] > 0) & (
+        setup.bbox[:, 0] <= setup.bbox[:, 2])
+    extent = setup.tri_data[:, :RS.COL_C0].abs().amax(1)
+    huge = live & (extent > RS.MAX_EXACT_EXTENT)
+    assert int(huge.sum()) > 20 and int((live & ~huge).sum()) > 20
+    assert torch.equal(binned.bbox[~huge], setup.bbox[~huge])
+    bb = setup.bbox[huge].to(torch.int64)
+    tiles = torch.stack([
+        bb[:, 0] // R.BIN_W * R.BIN_W, bb[:, 1] // R.BIN_H * R.BIN_H,
+        bb[:, 2] // R.BIN_W * R.BIN_W + R.BIN_W - 1,
+        bb[:, 3] // R.BIN_H * R.BIN_H + R.BIN_H - 1,
+    ], -1)
+    assert torch.equal(binned.bbox[huge].to(torch.int64), tiles)
+    keep = live & ~huge
+    outside, covered = _covered_outside_box(
+        setup.tri_data[keep], setup.bbox[keep], W, H)
+    assert covered > 1000 and outside == 0
+
+
+def _jax_grid_world(n_grid):
+    """scenes.grid_world built from the JAX package's classes (the scene
+    of examples/sponza_scale.py, with the synthetic-sky IBL)."""
+    from mo_renderer_tpu.assets.procedural import procedural_model
+    from mo_renderer_tpu.math.transform import Transform
+    from mo_renderer_tpu.scene.components import DirectionalLight, PointLight
+    from mo_renderer_tpu.scene.world import World
+
+    world = World()
+    world.spawn((
+        Transform.from_xyz(0.0, 0.0, 0.0),
+        procedural_model("plane", size=40.0, textured=True, roughness=0.8),
+    ))
+    rng = np.random.default_rng(42)
+    for i in range(n_grid):
+        for j in range(n_grid):
+            x = (i - (n_grid - 1) / 2) * 2.4
+            z = (j - (n_grid - 1) / 2) * 2.4
+            color = tuple(rng.uniform(0.2, 1.0, 3)) + (1.0,)
+            model = procedural_model(
+                "cube" if (i + j) % 2 == 0 else "sphere",
+                base_color=color,
+                metallic=float((i * n_grid + j) % 3 == 0),
+                roughness=float(0.1 + 0.8 * rng.random()),
+                textured=(i + j) % 5 == 0,
+            )
+            world.spawn((
+                Transform.from_xyz(x, 0.5 + 0.8 * rng.random(), z), model,
+            ))
+    world.spawn((DirectionalLight(
+        Transform.from_xyz(20.0, 30.0, 10.0).looking_at((0.0, 0.0, 0.0)),
+        (1.0, 0.98, 0.9), 3.0, True, shadow_width=40.0, shadow_height=40.0,
+    ),))
+    for k in range(4):
+        ang = k * np.pi / 2 + 0.4
+        world.spawn((PointLight(
+            Transform.from_xyz(8 * np.cos(ang), 3.0, 8 * np.sin(ang)),
+            color=[(1, .3, .2), (.2, 1, .3), (.3, .4, 1), (1, 1, .5)][k],
+            intensity=8.0,
+        ),))
+    world.insert_resource(graft._tiny_ibl())
+    return world
+
+
+def _jax_grid_camera(cfg):
+    from mo_renderer_tpu.math import quat
+    from mo_renderer_tpu.scene.camera import Camera
+
+    yaw = np.pi * 0.8
+    d = np.array([np.sin(yaw), 0.0, np.cos(yaw)])
+    cam = Camera(
+        position=tuple(-14.0 * d + np.array([0.0, 4.0, 0.0])),
+        rotation=quat.mul(quat.from_rotation_y(yaw),
+                          quat.from_rotation_x(-0.2)),
+    )
+    cam.resize((cfg.width, cfg.height))
+    return cam
+
+
+@pytest.fixture(scope="module")
+def grid_scene():
+    """grid_world(3) at 256x128 in both packages: the renderers, prepared,
+    and the JAX camera parameters."""
+    from mo_renderer_tpu_torch import Renderer, scenes
+
+    jcfg = graft._tiny_config()
+    jworld = _jax_grid_world(3)
+    jcam = _jax_grid_camera(jcfg)
+    jworld.insert_resource(jcam)
+    jr = JRenderer(jcfg)
+    jr.prepare(jworld)
+    light_pv, _ = find_shadow_light(jworld)
+    cfg = scenes.tiny_config()
+    world = scenes.grid_world(3)
+    world.insert_resource(scenes.grid_camera(cfg))
+    r = Renderer(cfg, "cpu")
+    r.prepare(world)
+    return dict(jcfg=jcfg, jr=jr, jworld=jworld,
+                jparams=j_camera_params(jcam, light_pv), r=r, world=world)
+
+
+def test_grid_scene_is_the_reference_scene(grid_scene):
+    """The port's grid_world packs the triangles the JAX classes pack, and
+    its camera and light give the same matrices."""
+    jr, r = grid_scene["jr"], grid_scene["r"]
+    params, _ = r.frame_params(grid_scene["world"])
+    np.testing.assert_array_equal(r.scene.tri_valid.numpy(),
+                                  np.asarray(jr.scene.tri_valid))
+    np.testing.assert_allclose(r.scene.tri_attrs.numpy(),
+                               np.asarray(jr.scene.tri_attrs), atol=1e-6)
+    assert int(r.scene.tri_valid.sum()) == 4 * 1024 + 5 * 12 + 2
+    for key in ("proj_view", "light_proj_view"):
+        np.testing.assert_allclose(
+            params[key].numpy(), np.asarray(grid_scene["jparams"][key]),
+            atol=1e-6)
+
+
+@pytest.mark.parametrize("target", ["camera", "light"])
+def test_grid_scene_raster_matches_reference(grid_scene, target):
+    """grid_world(3): visibility ids exact and depth within 1e-6 against
+    the JAX rasterizer on the same setup rows, from the camera and (depth
+    only) from the light; and no coverage outside the boxes."""
+    jcfg, jr, params = (grid_scene[k] for k in ("jcfg", "jr", "jparams"))
+    if target == "camera":
+        w, h, depth_only = jr.pad_w, jr.pad_h, False
+        setup = JRS.triangle_setup_from_attrs(
+            jr.scene.tri_attrs, jr.scene.tri_valid, params["proj_view"],
+            w, h, cull_backface=True,
+        )
+    else:
+        w = h = jcfg.shadow_map_size
+        depth_only = True
+        setup = JRS.triangle_setup_from_attrs(
+            jr.scene.tri_attrs, jr.scene.tri_valid,
+            params["light_proj_view"], w, h, cull_backface=False,
+            depth_bias_const=jcfg.shadow_depth_bias_const,
+            depth_bias_slope=jcfg.shadow_depth_bias_slope,
+        )
+    ref = _jax_raster(setup, w, h, jcfg.tile_h, depth_only=depth_only)
+    port = _port_raster(setup.tri_data, setup.bbox, w, h,
+                        depth_only=depth_only)
+    assert (ref[1] < 1.0).mean() > 0.05
+    _assert_raster_equal(port, ref, f"grid {target}")
+    outside, covered = _covered_outside_box(
+        torch.tensor(np.asarray(setup.tri_data)),
+        torch.tensor(np.asarray(setup.bbox)), w, h,
+    )
+    assert covered > 1000 and outside == 0
+
+
+def test_grid_scene_default_frame_matches_reference(grid_scene):
+    """The default frame of grid_world(3) at 256x128 within the golden bar
+    of tests/test_golden.py:99-107 (mean |diff| < 2/255, fewer than 0.5%
+    of channels above 16/255) against the JAX frame."""
+    frame = grid_scene["r"].render(grid_scene["world"]).astype(np.int32)
+    ref = np.asarray(
+        grid_scene["jr"].render(grid_scene["jworld"])).astype(np.int32)
+    assert frame.shape == ref.shape == (128, 256, 4)
+    diff = np.abs(frame - ref)[..., :3]
+    print(f"grid frame: max |diff| {diff.max()} LSB, mean {diff.mean():.4f}, "
+          f"{(diff > 16).mean():.4%} > 16")
+    assert diff.mean() < 2.0
+    assert (diff > 16).mean() < 0.005
+
+
+def test_grid_world_default_is_the_stress_scene():
+    """grid_world() is the reference's 10 x 10 stress scene: 50 spheres of
+    1024 triangles, 50 cubes of 12 and the plane, a fifth of the objects
+    textured, one shadow-casting sun and four point lights."""
+    from mo_renderer_tpu_torch import scenes
+    from mo_renderer_tpu_torch.assets.model import Model
+    from mo_renderer_tpu_torch.scene.components import (
+        DirectionalLight,
+        PointLight,
+    )
+
+    world = scenes.grid_world()
+    models = list(world.query(Model))
+    n_tri = sum(m.primitive.indices.size // 3
+                for model in models for m in model.meshes)
+    assert len(models) == 101 and n_tri == 50 * 1024 + 50 * 12 + 2
+    assert sum(bool(model.textures) for model in models) == 1 + 20
+    suns = list(world.query(DirectionalLight))
+    assert len(suns) == 1 and suns[0].is_shadow_caster
+    assert suns[0].shadow_width == suns[0].shadow_height == 40.0
+    assert len(list(world.query(PointLight))) == 4

@@ -134,3 +134,40 @@ def test_tap_table_is_the_reference_table():
         e, taps, m = S._ssao_tap_table(w, 16)
         np.testing.assert_array_equal(e, e_r)
         assert taps == taps_r and m == m_r
+
+
+@pytest.mark.parametrize("w", [128, 1024, 1920])
+def test_window_offsets_reproduce_the_plain_taps(w):
+    """The CUDA kernel reads its taps at ``center + win_offs[level, tap]``
+    inside a shared window of edge-clamped linear depth, ``win_w`` wide.
+    Rebuilt here with torch indexing, that read returns, tap for tap, the
+    sample ``_ssao_plain`` takes at (y + oy, x + ox) clamped to the image:
+    on the first, a middle and the last (ragged) tile of a 48-row plane."""
+    h = 48
+    tile_h, tile_w = S.TILE_H, S.TILE_W
+    tab = S._tables(w, S.NUM_LEVELS, torch.device("cpu"))
+    halo = tab.max_off
+    assert tab.win_w == tile_w + 2 * halo
+    assert tab.win_offs.shape == (S.NUM_LEVELS, len(S._TAPS))
+    d_lin = S._linear_depth(torch.from_numpy(_scene_depth(h, w, 9)))
+    rw, _ = S._radii(d_lin, w, h)
+    lvl = (rw[..., None] > tab.edges).sum(-1)
+    assert lvl.unique().numel() > 1
+    last_x = (w - 1) // tile_w * tile_w
+    for y0, x0 in ((0, 0), (0, last_x // 2 // tile_w * tile_w),
+                   (tile_h, last_x)):
+        rows = torch.clamp(torch.arange(y0 - halo, y0 + tile_h + halo),
+                           0, h - 1)
+        cols = torch.clamp(torch.arange(x0 - halo, x0 + tile_w + halo),
+                           0, w - 1)
+        win = d_lin[rows][:, cols].reshape(-1)
+        ys = torch.arange(y0, min(y0 + tile_h, h))[:, None]
+        xs = torch.arange(x0, min(x0 + tile_w, w))[None, :]
+        center = (ys - y0 + halo) * tab.win_w + (xs - x0 + halo)
+        level = lvl[ys, xs]
+        for t in range(len(S._TAPS)):
+            got = win[center + tab.win_offs[level, t]]
+            o = tab.offs[level, t].to(torch.int64)
+            want = d_lin[torch.clamp(ys + o[..., 1], 0, h - 1),
+                         torch.clamp(xs + o[..., 0], 0, w - 1)]
+            assert torch.equal(got, want), (w, y0, x0, t)
