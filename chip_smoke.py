@@ -13,7 +13,12 @@ Phases (each raises on failure; the script then exits non-zero):
    asset-free scene on each of the port's four paths (default, reference
    sampling, megakernel, and the texture-stack path on the scene's
    all-slots variant), then hold every CUDA kernel against its plain
-   PyTorch version on those same card tensors, and time both: the median
+   PyTorch version on those same card tensors (the checkerboard
+   reconstruct through both of its entries: ``interleave`` takes the
+   packed rgba8 frame, ``interleave_present`` the float colour, as the
+   frame calls it, and also reports what ``present_pass``'s torch ops
+   cost on that colour; each entry has its own launch count, and no
+   1080p path launches the packed one), and time both: the median
    over 20 calls of the device time between two CUDA events, with each
    call queued behind a sleep kernel so the host's issue time is not in
    the measurement.  Each kernel's bound is the larger of the bytes it
@@ -22,12 +27,12 @@ Phases (each raises on failure; the script then exits non-zero):
    raster's candidates are the pixels of the binned triangles' boxes, and
    SSAO's operations are counted per pipe (ssao_flop_equivalents), its
    square roots only for the taps that occlude on this depth plane.
-   Then the same for the raster modes and SSAO on a second set of inputs
-   that loads them: one default-path and one reference-path frame of
-   scenes.grid_world(10) (the reference's ~52K-triangle stress scene) at
-   1920x1080, reported as ``raster_slim@grid`` etc. with the pair count
-   and the largest per-tile run (their launches are those of phase 4's
-   two paths on that scene).
+   Then the same for the raster modes, the megakernel and SSAO on a second
+   set of inputs that loads them: one default-path, one reference-path and
+   one megakernel-path frame of scenes.grid_world(10) (the reference's
+   ~52K-triangle stress scene) at 1920x1080, reported as
+   ``raster_slim@grid`` etc. with the pair count and the largest per-tile
+   run (their launches are those of phase 4's three paths on that scene).
 3. Frames at 256x128: the default frame, the reference-path frame
    (fast_sampling=False), the UV1 scene under default flags, the
    megakernel frame (raster_interp_attrs=True, ssao_res_divisor=1), the
@@ -45,10 +50,12 @@ Phases (each raises on failure; the script then exits non-zero):
    and geometry both present, no bin overflow, and every kernel of the
    path launched during its run (the counts are set to 0 just before each
    path and read just after; the reference path re-rasterizes the shadow
-   map every frame).  Prints each path's steady-state ms/frame, then its
-   kernel launches and device kernel time per frame from torch.profiler
-   over two more frames.  Then the default and the reference path on
-   scenes.grid_world(10) in the same way, a few frames each.
+   map every frame; a checkerboard frame takes one reconstruct launch and
+   never ``present_pass``).  Prints each path's steady-state ms/frame, then
+   its kernel launches and device kernel time per frame from
+   torch.profiler over two more frames.  Then the default, the reference
+   and the megakernel path on scenes.grid_world(10) in the same way, a few
+   frames each.
 
 The last two lines are a JSON summary of the kernels and the contract
 line {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -80,6 +87,8 @@ KERNELS = {
              "mo_renderer_tpu/passes/ssao.py:171"),
     "interleave": ("mo_renderer_tpu_torch/csrc/interleave.cu",
                    "mo_renderer_tpu/kernels/decimate.py:98"),
+    "interleave_present": ("mo_renderer_tpu_torch/csrc/interleave.cu",
+                           "mo_renderer_tpu/kernels/decimate.py:98"),
     "raster_full": ("mo_renderer_tpu_torch/csrc/raster.cu",
                     "mo_renderer_tpu/kernels/rasterizer.py:549"),
     "raster_attrs": ("mo_renderer_tpu_torch/csrc/raster_attrs.cu",
@@ -94,22 +103,24 @@ STACKS = {"attrs_plane_kernel": False, "stack_plane_kernel": True}
 # and the scene variant (scenes.tiny_world keywords)
 PATHS = {
     "default": ({}, ("raster_slim", "raster_depth", "attr_planes", "ssao",
-                     "interleave"), {}),
+                     "interleave_present"), {}),
     "reference": ({"fast_sampling": False},
                   ("raster_full", "raster_depth", "ssao"), {}),
     "megakernel": ({"raster_interp_attrs": True},
                    ("raster_attrs", "raster_depth", "ssao"), {}),
     "stacks": (STACKS, ("raster_slim", "raster_depth", "stack_planes",
-                        "ssao", "interleave"), {"all_slots": True}),
+                        "ssao", "interleave_present"), {"all_slots": True}),
 }
 
 # the dense inputs of phase 2: the frames of scenes.grid_world that give
 # them (EngineConfig overrides) and the kernels timed on them
-GRID_KERNELS = ("raster_slim", "raster_depth", "raster_full", "ssao")
-# and the two paths phase 4 drives on that scene
+GRID_KERNELS = ("raster_slim", "raster_depth", "raster_full", "ssao",
+                "raster_attrs")
+# and the three paths phase 4 drives on that scene
 GRID_PATHS = {
     "default@grid": PATHS["default"][:2],
     "reference@grid": PATHS["reference"][:2],
+    "megakernel@grid": PATHS["megakernel"][:2],
 }
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -205,7 +216,7 @@ def capture_inputs(cfg, device, frames, want):
         (FG, "rasterize_attrs"): FG.rasterize_attrs,
         (GB, "attr_planes"): GB.attr_planes,
         (FG, "ssao_pass_tiles"): FG.ssao_pass_tiles,
-        (FG, "reconstruct_full"): FG.reconstruct_full,
+        (FG, "reconstruct_present"): FG.reconstruct_present,
         (GB, "stack_planes"): GB.stack_planes,
     }
 
@@ -225,8 +236,8 @@ def capture_inputs(cfg, device, frames, want):
     GB.attr_planes = recorder("attr_planes", originals[(GB, "attr_planes")])
     FG.ssao_pass_tiles = recorder(
         "ssao", originals[(FG, "ssao_pass_tiles")])
-    FG.reconstruct_full = recorder(
-        "interleave", originals[(FG, "reconstruct_full")])
+    FG.reconstruct_present = recorder(
+        "interleave_present", originals[(FG, "reconstruct_present")])
     GB.stack_planes = recorder(
         "stack_planes", originals[(GB, "stack_planes")])
     try:
@@ -249,7 +260,7 @@ def capture_inputs(cfg, device, frames, want):
 def check_kernels(cfg, device):
     """Phase 2: each CUDA kernel against its plain version on the card, on
     the inputs of the four paths' frames of the tiny scene and, for the
-    raster modes and SSAO, of the stress scene."""
+    raster modes, the megakernel and SSAO, of the stress scene."""
     import torch
 
     from mo_renderer_tpu_torch import scenes
@@ -258,6 +269,7 @@ def check_kernels(cfg, device):
     from mo_renderer_tpu_torch.kernels import rasterizer as R
     from mo_renderer_tpu_torch.kernels import stack_planes as SP
     from mo_renderer_tpu_torch.passes import checkerboard as CB
+    from mo_renderer_tpu_torch.passes import present as P
     from mo_renderer_tpu_torch.passes import ssao as S
 
     results = {}
@@ -321,7 +333,7 @@ def check_kernels(cfg, device):
 
     def raster_attrs(seen):
         (binned,), kw = seen["raster_attrs"]
-        w, h = kw["width"], kw["height"]
+        w, h, attr_rows = kw["width"], kw["height"], kw["attr_rows"]
 
         def cmp(k, p):
             ids = torch.equal(k[0], p[0])
@@ -336,20 +348,19 @@ def check_kernels(cfg, device):
 
         def plain():
             nonlocal covered
-            out = R._raster_attrs_plain(binned, w, h)
+            out = R._raster_attrs_plain(binned, attr_rows, w, h)
             covered = int((out[0] >= 0).sum())
             return out
         out = plain()
         flops = (candidates(binned) * RASTER_FLOPS_PER_CANDIDATE
                  + ATTRS_FLOPS_PER_PIXEL * covered)
-        # the megakernel takes no boxes
-        n_in = raster_inputs(binned) - nbytes(binned.bbox)
+        n_in = raster_inputs(binned) + nbytes(attr_rows)
         return dict(
-            kernel=lambda: R._raster_attrs_cuda(binned, w, h), plain=plain,
-            cmp=cmp,
+            kernel=lambda: R._raster_attrs_cuda(binned, attr_rows, w, h),
+            plain=plain, cmp=cmp,
             shape=f"{h}x{w}, {binned.pair_tri.shape[0]} pairs, "
-            f"{binned.tri_data.shape[1]}-float rows -> {out[2].shape[0]} "
-            "planes",
+            f"{binned.tri_data.shape[1]} + {attr_rows.shape[1]}-float rows "
+            f"-> {out[2].shape[0]} planes",
             bytes=n_in + (2 + out[2].shape[0]) * 4 * w * h, flops=flops,
             extra=run_stats(binned),
         )
@@ -412,17 +423,29 @@ def check_kernels(cfg, device):
             extra={"occluding_taps": n_occluding},
         )
 
-    def interleave(seen):
-        (cb, tri), _ = seen["interleave"]
+    def interleave(seen, fused):
+        """K5's two entries on the frame's shaded colour: the fused one as
+        the frame calls it, the packed one on ``present_pass`` of it."""
+        (color, tri), _ = seen["interleave_present"]
+        cb = color if fused else P.present_pass(color)
+        extra = {}
+        if fused:
+            # what the fused entry took in: present_pass's torch launches
+            extra["present_pass_ms"] = median_ms(
+                lambda: P.present_pass(color))
 
         def cmp(k, p):
             err = (bytes_of(k) - bytes_of(p)).abs().max().item()
             return err, err == 0, "exact"
+
+        def plain():
+            return CB._reconstruct_plain(
+                P.present_pass(color) if fused else cb, tri)
         return dict(
-            kernel=lambda: CB._reconstruct_cuda(cb, tri),
-            plain=lambda: CB._reconstruct_plain(cb, tri),
-            cmp=cmp, shape=f"{tuple(cb.shape)} -> {tuple(tri.shape)}",
-            bytes=nbytes(cb, tri, tri), flops=0,
+            kernel=lambda: CB._reconstruct_cuda(cb, tri), plain=plain,
+            cmp=cmp, shape=f"{tuple(cb.shape)} {cb.dtype} -> "
+            f"{tuple(tri.shape)}",
+            bytes=nbytes(cb, tri, tri), flops=0, extra=extra,
         )
 
     def stack(seen):
@@ -448,7 +471,9 @@ def check_kernels(cfg, device):
     case_of = {
         "raster_slim": functools.partial(raster, mode="slim"),
         "raster_depth": functools.partial(raster, mode="depth"),
-        "attr_planes": attr, "ssao": ssao, "interleave": interleave,
+        "attr_planes": attr, "ssao": ssao,
+        "interleave": functools.partial(interleave, fused=False),
+        "interleave_present": functools.partial(interleave, fused=True),
         "raster_full": functools.partial(raster, mode="full"),
         "raster_attrs": raster_attrs, "stack_planes": stack,
     }
@@ -456,7 +481,7 @@ def check_kernels(cfg, device):
         cfg, device,
         [(overrides, functools.partial(scenes.tiny_world, **scene_kw),
           scenes.camera) for overrides, _, scene_kw in PATHS.values()],
-        KERNELS,
+        set(KERNELS) - {"interleave"},
     )
     cases = {name: build(seen) for name, build in case_of.items()}
     seen = capture_inputs(
@@ -487,7 +512,8 @@ def check_kernels(cfg, device):
         print(f"[2] {name:17s} {case['shape']}: max |err| {err:.3g} ({bar}) "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.2f} MB, "
-              f"{n_flops / 1e6:.1f} MFLOP)", flush=True)
+              f"{n_flops / 1e6:.1f} MFLOP) {case.get('extra', '')}",
+              flush=True)
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
                                  f"version (max |err| {err}, bar: {bar})")
@@ -593,6 +619,7 @@ def run_full_frame(device, line, path, n_frames, warmup=3):
     import numpy as np
     import torch
 
+    import mo_renderer_tpu_torch.passes.frame_graph as FG
     from mo_renderer_tpu_torch import App, scenes
     from mo_renderer_tpu_torch.config import EngineConfig
     from mo_renderer_tpu_torch.kernels import _build
@@ -611,13 +638,27 @@ def run_full_frame(device, line, path, n_frames, warmup=3):
     app.add_runtime_system(scenes.orbit_system(warmup + n_frames))
     app.resumed()
 
+    # a checkerboard frame is quantised inside the reconstruct kernel: it
+    # must not go through present_pass's torch ops as well
+    present_calls = 0
+    present_pass = FG.present_pass
+
+    def counted_present_pass(color):
+        nonlocal present_calls
+        present_calls += 1
+        return present_pass(color)
+
     _build.reset_launches()
-    app.run(num_frames=warmup)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    frame = app.run(num_frames=n_frames)  # render() syncs every frame
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / n_frames
+    FG.present_pass = counted_present_pass
+    try:
+        app.run(num_frames=warmup)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = app.run(num_frames=n_frames)  # render() syncs every frame
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n_frames
+    finally:
+        FG.present_pass = present_pass
     counts = dict(_build.LAUNCHES)
     app.renderer.check_overflow()
     launches, device_ms = profile_frames(app)
@@ -648,6 +689,14 @@ def run_full_frame(device, line, path, n_frames, warmup=3):
     if stray:
         raise AssertionError(f"{path}: launched kernels of other paths: "
                              f"{stray}")
+    if "interleave_present" in kernels and (
+            counts["interleave_present"] != warmup + n_frames
+            or present_calls):
+        raise AssertionError(
+            f"{path}: a checkerboard frame takes one reconstruct launch and "
+            f"no present_pass, got {counts['interleave_present']} launches "
+            f"and {present_calls} present_pass calls over {warmup + n_frames} "
+            "frames")
     if (overrides.get("fast_sampling") is False
             and counts["raster_depth"] != warmup + n_frames):
         raise AssertionError("the reference path must re-raster the shadow "
@@ -709,14 +758,16 @@ def main() -> int:
     launches = {name: {} for name in kernels}
     for path, n_frames in (("default", 16), ("reference", 8),
                            ("megakernel", 8), ("stacks", 8),
-                           ("default@grid", 4), ("reference@grid", 4)):
+                           ("default@grid", 4), ("reference@grid", 4),
+                           ("megakernel@grid", 4)):
         counts, _ = run_full_frame(device, line, path, n_frames)
         if path in GRID_PATHS:
             for name in set(GRID_PATHS[path][1]) & set(GRID_KERNELS):
                 launches[f"{name}@grid"][path] = counts[name]
         else:
-            for name in PATHS[path][1]:
-                launches[name][path] = counts[name]
+            for name in set(kernels) & set(KERNELS):
+                if name in PATHS[path][1]:
+                    launches[name][path] = counts[name]
 
     # each kernel on the tiny scene's inputs, then the raster modes and
     # SSAO on the stress scene's; launches are those of the paths that ran

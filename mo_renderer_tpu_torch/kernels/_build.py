@@ -50,6 +50,7 @@ LAUNCHES: dict[str, int] = {
     "attr_planes": 0,
     "ssao": 0,
     "interleave": 0,
+    "interleave_present": 0,
     "raster_full": 0,
     "raster_attrs": 0,
     "stack_planes": 0,

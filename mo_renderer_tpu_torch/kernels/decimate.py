@@ -5,7 +5,8 @@ cb pixel (y, j) <-> full pixel (y, 2j + (y&1)).  Decimation is plain
 strided slicing.  The interleave that the reference ran as a TPU kernel
 (K5, ``interleave_cols_pallas``) has a single caller,
 ``passes/checkerboard.reconstruct_full``; its CUDA kernel lives there,
-fused with the neighbour fill.  ``interleave_cols`` here is the plain
+fused with the neighbour fill and, in ``reconstruct_present``, with the
+present pass.  ``interleave_cols`` here is the plain
 form of the interleave alone.
 """
 

@@ -5,12 +5,16 @@ also interpolates the winner's attributes.
 Port of ``mo_renderer_tpu/kernels/rasterizer.py``: ``rasterize`` with
 ``slim=True`` (K1), in full mode (K6) and with ``depth_only=True`` (K2)
 becomes one CUDA kernel with a compile-time mode, ``csrc/raster.cu``;
-``rasterize_attrs`` (K8) is ``csrc/raster_attrs.cu``.  The CUDA kernels
-take ``BIN_H`` x ``BIN_W`` pixel bins, so the frame bins at that size; the
-output does not depend on the tiling.  ``raster.cu`` also takes the
-triangles' pixel boxes (``BinnedTriangles.bbox``) and skips what a box
-cannot touch, which changes no result: inside its tiles a triangle covers
-no pixel outside that box.
+``rasterize_attrs`` (K8) is ``csrc/raster_attrs.cu``.  Both sources share
+one walk (``csrc/raster_common.cuh``): a block per 32 x 32 region of a
+``BIN_H`` x ``BIN_W`` pixel bin, so the frame bins at that size; the
+output does not depend on the tiling.  The walk takes the triangles' pixel
+boxes (``BinnedTriangles.bbox``) and skips what a box cannot touch, which
+changes no result: inside its tiles a triangle covers no pixel outside
+that box.  The megakernel takes its rows as two 16-byte aligned tensors,
+the (T, 16) raster rows and the (T, 48) attribute rows
+(``vertex_stage.pack_raster_attr_rows``); ``split_attr_rows`` makes them
+from the reference's (T, 63) rows.
 
 Semantics, identical in the kernels and in the plain versions below:
 
@@ -30,11 +34,13 @@ Semantics, identical in the kernels and in the plain versions below:
   (column 12) with w_i in the fused form fma(a, px, b*py) + c, as the
   reference computes them (0 where nothing covers);
 - the megakernel interpolates the winner's 14 channels perspective-
-  correctly from the 47 extra row columns (``pack_raster_attr_columns``)
+  correctly from the 47 attribute columns (``pack_raster_attr_rows``)
   and passes its material id and has_tangent flag through.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -50,7 +56,8 @@ FAR_DEPTH = 1.0
 BIN_H = 32  # the CUDA kernels' bin: 32 x 128 pixels
 BIN_W = 128
 N_INTERP = 14  # RA_N_INTERP of passes/vertex_stage.py
-ATTR_ROW = TRI_STRIDE + 3 + 3 * N_INTERP + 2  # 63 columns per megakernel row
+ATTR_COLS = 3 + 3 * N_INTERP + 2  # RA_EXTRA_COLS of passes/vertex_stage.py
+ATTR_ROW = 48  # ATTR_COLS padded to 16-byte aligned rows
 
 
 def rasterize(binned: BinnedTriangles, *, width: int, height: int,
@@ -68,25 +75,46 @@ def rasterize(binned: BinnedTriangles, *, width: int, height: int,
     return _raster_plain(binned, width, height, mode)
 
 
-def rasterize_attrs(binned: BinnedTriangles, *, width: int, height: int):
+def rasterize_attrs(binned: BinnedTriangles, *, width: int, height: int,
+                    attr_rows):
     """Rasterize and interpolate attributes (the megakernel).
 
-    ``binned.tri_data`` rows are (T, 63): the 16 raster columns, then
-    ``vertex_stage.pack_raster_attr_columns``.  Returns (tri int32 (H, W)
-    with -1 for background, z (H, W), tuple of 14 (H, W) f32 planes
-    ordered wp.xyz, n.xyz, t.xyz, bt.xyz, uv0.uv, material id (H, W) f32,
-    has_tangent (H, W) f32).
+    ``binned.tri_data`` rows are the (T, 16) raster columns and
+    ``attr_rows`` (T, 48) is ``vertex_stage.pack_raster_attr_rows``.
+    Returns (tri int32 (H, W) with -1 for background, z (H, W), tuple of
+    14 (H, W) f32 planes ordered wp.xyz, n.xyz, t.xyz, bt.xyz, uv0.uv,
+    material id (H, W) f32, has_tangent (H, W) f32).
     """
-    if binned.tri_data.shape[1] != ATTR_ROW:
+    n_tri = binned.tri_data.shape[0]
+    if (binned.tri_data.shape[1] != TRI_STRIDE
+            or tuple(attr_rows.shape) != (n_tri, ATTR_ROW)):
         raise ValueError(
-            f"rasterize_attrs takes {ATTR_ROW}-column rows, got "
-            f"{binned.tri_data.shape[1]}"
+            f"rasterize_attrs takes (T, {TRI_STRIDE}) raster rows and (T, "
+            f"{ATTR_ROW}) attribute rows, got "
+            f"{tuple(binned.tri_data.shape)} and {tuple(attr_rows.shape)}"
         )
     if binned.tri_data.is_cuda:
-        tri, z, planes = _raster_attrs_cuda(binned, width, height)
+        tri, z, planes = _raster_attrs_cuda(binned, attr_rows, width, height)
     else:
-        tri, z, planes = _raster_attrs_plain(binned, width, height)
+        tri, z, planes = _raster_attrs_plain(binned, attr_rows, width, height)
     return tri, z, tuple(planes[:N_INTERP]), planes[N_INTERP], planes[-1]
+
+
+def split_attr_rows(binned: BinnedTriangles):
+    """Binned triangles with the reference's (T, 63) rows (the 16 raster
+    columns, then the 47 attribute columns) -> (the same with (T, 16)
+    raster rows, the (T, 48) attribute rows)."""
+    rows = binned.tri_data
+    if rows.shape[1] != TRI_STRIDE + ATTR_COLS:
+        raise ValueError(
+            f"split_attr_rows takes {TRI_STRIDE + ATTR_COLS}-column rows, "
+            f"got {rows.shape[1]}"
+        )
+    attr_rows = torch.nn.functional.pad(
+        rows[:, TRI_STRIDE:], (0, ATTR_ROW - ATTR_COLS))
+    raster = dataclasses.replace(
+        binned, tri_data=rows[:, :TRI_STRIDE].contiguous())
+    return raster, attr_rows
 
 
 def _edge(a, b, c, px, py):
@@ -203,27 +231,27 @@ def _raster_plain(binned, width, height, mode):
     return tri, z, b[0], b[1]
 
 
-def _raster_attrs_plain(binned, width, height):
+def _raster_attrs_plain(binned, attr_rows, width, height):
     """Winner per pixel as in ``_raster_plain``, then one interpolation of
-    the winner's row (the kernel's arithmetic, see csrc/raster_attrs.cu)."""
+    the winner's rows (the kernel's arithmetic, see csrc/raster_attrs.cu)."""
     zbuf, win, canvas_w = _winners(binned)
     z = _canvas(zbuf, binned, canvas_w, width, height)
     tri = _canvas(win, binned, canvas_w, width, height).to(torch.int32)
     tri = torch.where(z < FAR_DEPTH, tri, -1)
     rows, px, py = _winner_rows(binned, win, canvas_w)
+    attrs = attr_rows[win.clamp(min=0)]
     q = []
     for i in range(3):
         w = _fused(rows[:, i], rows[:, 3 + i], rows[:, 6 + i], px, py)
-        q.append(w * rows[:, COL_INV_AREA] * rows[:, TRI_STRIDE + i])
+        q.append(w * rows[:, COL_INV_AREA] * attrs[:, i])
     qs = (q[0] + q[1]) + q[2]
     rs = 1.0 / torch.where(qs.abs() > 1e-20, qs, 1.0)
     ob = [qi * rs for qi in q]
-    base = TRI_STRIDE + 3
     planes = []
     for c in range(N_INTERP):
-        a = rows[:, base + 3 * c : base + 3 * c + 3]
+        a = attrs[:, 3 + 3 * c : 6 + 3 * c]
         planes.append((ob[0] * a[:, 0] + ob[1] * a[:, 1]) + ob[2] * a[:, 2])
-    planes += [rows[:, base + 3 * N_INTERP], rows[:, base + 3 * N_INTERP + 1]]
+    planes += [attrs[:, ATTR_COLS - 2], attrs[:, ATTR_COLS - 1]]
     has = win >= 0
     planes = torch.stack(
         [_canvas(torch.where(has, p, 0.0), binned, canvas_w, width, height)
@@ -233,6 +261,8 @@ def _raster_attrs_plain(binned, width, height):
 
 
 def _check_bins(name, binned, width, height):
+    """What the region walk takes: 32 x 128 bins that cover the target,
+    16-column rows and one box per row, 16-byte aligned."""
     if (binned.tile_h, binned.tile_w) != (BIN_H, BIN_W):
         raise ValueError(
             f"the CUDA rasterizer takes {BIN_H}x{BIN_W} bins, got "
@@ -247,6 +277,16 @@ def _check_bins(name, binned, width, height):
         dtypes=(torch.float32, torch.int32, torch.int32, torch.int32,
                 torch.int32),
     )
+    tri_data, bbox = binned.tri_data, binned.bbox
+    if (tri_data.shape[1] != TRI_STRIDE
+            or bbox.shape != (tri_data.shape[0], 4)):
+        raise ValueError(
+            f"{name} takes {TRI_STRIDE}-column rows and one box per row, "
+            f"got {tuple(tri_data.shape)} and {tuple(bbox.shape)}"
+        )
+    if tri_data.data_ptr() % 16 or bbox.data_ptr() % 16:
+        raise ValueError(f"{name}: rows and boxes must be 16-byte aligned "
+                         "(the kernel copies them 16 bytes at a time)")
 
 
 _MODES = {"depth": 0, "slim": 1, "full": 2}
@@ -255,15 +295,6 @@ _MODES = {"depth": 0, "slim": 1, "full": 2}
 def _raster_cuda(binned, width, height, mode):
     _check_bins("rasterize", binned, width, height)
     tri_data, bbox = binned.tri_data, binned.bbox
-    if (tri_data.shape[1] != TRI_STRIDE
-            or bbox.shape != (tri_data.shape[0], 4)):
-        raise ValueError(
-            f"rasterize takes {TRI_STRIDE}-column rows and one box per row, "
-            f"got {tuple(tri_data.shape)} and {tuple(bbox.shape)}"
-        )
-    if tri_data.data_ptr() % 16 or bbox.data_ptr() % 16:
-        raise ValueError("rasterize: rows and boxes must be 16-byte aligned "
-                         "(the kernel copies them 16 bytes at a time)")
     dev = tri_data.device
 
     def plane(dtype=torch.float32):
@@ -292,18 +323,24 @@ def _raster_cuda(binned, width, height, mode):
     return tri, z, b0, b1
 
 
-def _raster_attrs_cuda(binned, width, height):
+def _raster_attrs_cuda(binned, attr_rows, width, height):
     _check_bins("rasterize_attrs", binned, width, height)
+    _build.require_cuda("rasterize_attrs", binned.tri_data, attr_rows,
+                        dtypes=(torch.float32, torch.float32))
+    if attr_rows.data_ptr() % 16:
+        raise ValueError("rasterize_attrs: attribute rows must be 16-byte "
+                         "aligned (the kernel reads them 16 bytes at a time)")
     dev = binned.tri_data.device
     z = torch.empty((height, width), dtype=torch.float32, device=dev)
     tri = torch.empty((height, width), dtype=torch.int32, device=dev)
     planes = torch.empty((N_INTERP + 2, height, width), dtype=torch.float32,
                          device=dev)
     fn = _build.function(
-        "mo_raster_attrs", [_build.P] * 7 + [_build.I] * 4 + [_build.P],
+        "mo_raster_attrs", [_build.P] * 9 + [_build.I] * 4 + [_build.P],
     )
     err = fn(
-        binned.tri_data.data_ptr(), binned.pair_tri.data_ptr(),
+        binned.tri_data.data_ptr(), attr_rows.data_ptr(),
+        binned.bbox.data_ptr(), binned.pair_tri.data_ptr(),
         binned.tile_start.data_ptr(), binned.tile_count.data_ptr(),
         z.data_ptr(), tri.data_ptr(), planes.data_ptr(),
         width, height, binned.n_tiles_x, binned.n_tiles_y,

@@ -13,6 +13,12 @@ On a CUDA tensor ``reconstruct_full`` is one kernel, ``csrc/interleave.cu``
 on the CPU it is the plain version below, which the kernel matches
 exactly (all arithmetic is on 8-bit channel values, exact in float32).
 Frames are packed rgba8 held as int32 bit patterns.
+
+``reconstruct_present`` is what the frame calls: the same kernel's second
+entry, which takes the shaded float colour and quantises it on the way in
+as ``present_pass`` does, so the checkerboard frame reaches the screen
+format in one launch.  On the CPU it is ``present_pass`` followed by the
+plain reconstruction, and the kernel equals that bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 
 from ..kernels import _build
 from ..kernels.decimate import decimate_cols, interleave_cols
+from .present import present_pass
 
 ALPHA_BITS = -16777216  # 0xFF000000 as an int32 bit pattern
 
@@ -54,6 +61,15 @@ def reconstruct_full(rgba_cb, tri_full):
     return _reconstruct_plain(rgba_cb, tri_full)
 
 
+def reconstruct_present(color_cb, tri_full):
+    """(H, W/2, 3) float colour of the cb frame + (H, W) full-res triangle
+    ids -> (H, W) packed frame: ``reconstruct_full(present_pass(color_cb),
+    tri_full)``, one kernel on a CUDA tensor."""
+    if color_cb.is_cuda:
+        return _reconstruct_cuda(color_cb, tri_full)
+    return _reconstruct_plain(present_pass(color_cb), tri_full)
+
+
 def _reconstruct_plain(rgba_cb, tri_full):
     h, wc = rgba_cb.shape
     odd = (torch.arange(h, device=rgba_cb.device) & 1).to(torch.bool)[:, None]
@@ -85,26 +101,30 @@ def _reconstruct_plain(rgba_cb, tri_full):
     return interleave_cols(even_plane, odd_plane)
 
 
-def _reconstruct_cuda(rgba_cb, tri_full):
+def _reconstruct_cuda(cb, tri_full):
+    """Both entries of csrc/interleave.cu: ``cb`` is the packed (H, W/2)
+    int32 frame or the (H, W/2, 3) float32 colour."""
+    fused = cb.dtype == torch.float32
     _build.require_cuda(
-        "reconstruct_full", rgba_cb, tri_full,
-        dtypes=(torch.int32, torch.int32),
+        "reconstruct_full", cb, tri_full,
+        dtypes=(torch.float32 if fused else torch.int32, torch.int32),
     )
-    h, wc = rgba_cb.shape
-    if tuple(tri_full.shape) != (h, 2 * wc):
+    h, wc = cb.shape[:2]
+    if (tuple(cb.shape) != ((h, wc, 3) if fused else (h, wc))
+            or tuple(tri_full.shape) != (h, 2 * wc)):
         raise ValueError(
             f"reconstruct_full: ids {tuple(tri_full.shape)} do not match "
-            f"the cb frame {(h, wc)}"
+            f"the cb frame {tuple(cb.shape)}"
         )
-    out = torch.empty((h, 2 * wc), dtype=torch.int32, device=rgba_cb.device)
+    out = torch.empty((h, 2 * wc), dtype=torch.int32, device=cb.device)
     if h * wc == 0:
         return out
     fn = _build.function(
-        "mo_reconstruct_interleave", [_build.P] * 3 + [_build.I] * 2
-        + [_build.P],
+        "mo_reconstruct_present" if fused else "mo_reconstruct_interleave",
+        [_build.P] * 3 + [_build.I] * 2 + [_build.P],
     )
-    err = fn(rgba_cb.data_ptr(), tri_full.data_ptr(), out.data_ptr(), h, wc,
+    err = fn(cb.data_ptr(), tri_full.data_ptr(), out.data_ptr(), h, wc,
              _build.stream_of(out))
     _build.check("reconstruct_full", err)
-    _build.count("interleave")
+    _build.count("interleave_present" if fused else "interleave")
     return out

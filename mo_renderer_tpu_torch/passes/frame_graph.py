@@ -4,13 +4,13 @@
 - Default (fast sampling, checkerboard): shadow raster (memoized while the
   light and the scene stay the same) -> visibility raster from the packed
   per-triangle corners -> checkerboard decimation -> G-buffer
-  (attr_planes) -> half-rate SSAO -> fast shading + skybox -> present ->
-  checkerboard reconstruction -> crop.  Its options all run as in the
-  reference: the attribute planes as torch ops (``attrs_plane_kernel``
-  off), the texture stacks through the ``stack_planes`` kernel
-  (``stack_plane_kernel``), the three PCF table layouts, the specular
-  branches (``spec_*``) and SSAO as whole-image torch ops
-  (``ssao_pallas`` off).
+  (attr_planes) -> half-rate SSAO -> fast shading + skybox -> present and
+  checkerboard reconstruction in one kernel -> crop.  Its options all run
+  as in the reference: the attribute planes as torch ops
+  (``attrs_plane_kernel`` off), the texture stacks through the
+  ``stack_planes`` kernel (``stack_plane_kernel``), the three PCF table
+  layouts, the specular branches (``spec_*``) and SSAO as whole-image
+  torch ops (``ssao_pallas`` off).
 - Reference sampling path (``fast_sampling=False``, or any material that
   samples UV set 1): the per-vertex stage, the shadow map re-rasterized
   from its light clip positions every frame, the full-mode raster with
@@ -55,13 +55,13 @@ from ..scene.scene_buffers import (
     pack_scene,
     refresh_transforms,
 )
-from .checkerboard import reconstruct_full
+from .checkerboard import reconstruct_present
 from .gbuffer import gbuffer_pass, gbuffer_pass_fast, gbuffer_pass_from_planes
 from .present import present_pass, unpack_rgba8
 from .shading import _even_grid, _upsample_pow2, _upsample_to_cb
 from .shading import shading_pass, shading_pass_fast
 from .ssao import ssao_pass, ssao_pass_tiles
-from .vertex_stage import pack_raster_attr_columns, run_vertex_stage
+from .vertex_stage import pack_raster_attr_rows, run_vertex_stage
 
 logger = logging.getLogger("mo_renderer_tpu_torch")
 
@@ -232,13 +232,12 @@ def frame_program(scene, ibl, params, *, cfg, pad_w, pad_h, binned_cap,
             vs.clip, scene.indices, scene.tri_valid, pad_w, pad_h,
             cull_backface=True,
         )
-    if megakernel:
-        extra = pack_raster_attr_columns(scene.tri_attrs, params["proj_view"])
-        setup.tri_data = torch.cat([setup.tri_data, extra], dim=1)
     binned = _bin(setup, pad_w, pad_h, binned_cap)
     if megakernel:
         tri, z, attrs, mat_plane, ht_plane = rasterize_attrs(
-            binned, width=pad_w, height=pad_h
+            binned, width=pad_w, height=pad_h,
+            attr_rows=pack_raster_attr_rows(scene.tri_attrs,
+                                            params["proj_view"]),
         )
         gbuf = gbuffer_pass_from_planes(tri, z, attrs, mat_plane, ht_plane,
                                         scene, params, slot_map)
@@ -294,9 +293,10 @@ def frame_program(scene, ibl, params, *, cfg, pad_w, pad_h, binned_cap,
     else:
         color = shading_pass(gbuf, ssao, shadow_map, scene.lights, n_lights,
                              params, ibl=ibl)
-    rgba = present_pass(color)
     if use_cb:
-        rgba = reconstruct_full(rgba, tri)
+        rgba = reconstruct_present(color, tri)
+    else:
+        rgba = present_pass(color)
     return rgba[: cfg.height, : cfg.width], (binned.overflow, shadow_overflow)
 
 

@@ -1,6 +1,13 @@
 """Present pass (port of ``mo_renderer_tpu/passes/present.py``): quantize
 the tonemapped colour to rgba8, one packed word per pixel
-(R | G<<8 | B<<16 | A<<24, held as int32 bits on the device)."""
+(R | G<<8 | B<<16 | A<<24, held as int32 bits on the device).
+
+The frames that are not checkerboarded call ``present_pass``.  A
+checkerboard frame is quantised inside the reconstruct kernel instead
+(``checkerboard.reconstruct_present``, ``csrc/interleave.cu``), with this
+function's arithmetic: clamp to [0, 1], one rounding for the product with
+255, round half to even, alpha 0xFF; there ``present_pass`` is the plain
+version the kernel is held to."""
 
 from __future__ import annotations
 

@@ -33,8 +33,10 @@ TRI_MAT = 33         # material id (1)
 TRI_HANDED = 34      # 0 = no tangent; +-1 = tangent.w handedness sign
 TRI_STRIDE = 35      # geometry columns; materials.fast_used_cols follow
 
-# Channel-major columns appended to the 16 raster-setup columns for the
-# megakernel (kernels/rasterizer.rasterize_attrs):
+# Channel-major attribute columns the megakernel
+# (kernels/rasterizer.rasterize_attrs) reads beside the 16 raster-setup
+# columns; the reference appends them to those, the port keeps them in rows
+# of their own, padded to RA_ROW floats (16-byte aligned):
 #   0..2   per-corner 1/clip_w (perspective correction)
 #   3..44  14 interpolated channels x 3 corners (a0, a1, a2 adjacent):
 #          wp.xyz, n.xyz, t.xyz, bt.xyz, uv0.uv
@@ -42,6 +44,7 @@ TRI_STRIDE = 35      # geometry columns; materials.fast_used_cols follow
 #   46     has_tangent (flat)
 RA_N_INTERP = 14
 RA_EXTRA_COLS = 3 + 3 * RA_N_INTERP + 2  # 47
+RA_ROW = 48
 
 
 @dataclasses.dataclass
@@ -128,11 +131,19 @@ def run_vertex_stage(scene, proj_view, prev_proj_view,
     )
 
 
-def pack_raster_attr_columns(tri_attrs, proj_view) -> torch.Tensor:
-    """(T, 35+) tri_attrs + proj_view -> (T, 47) extra raster columns
-    (vertex_stage.py:132): per-corner 1/w, then the corner-major rows
+def pack_raster_attr_rows(tri_attrs, proj_view) -> torch.Tensor:
+    """(T, 35+) tri_attrs + proj_view -> the (T, 48) rows the megakernel
+    reads 16 bytes at a time: the reference's 47 extra raster columns
+    (``pack_raster_attr_columns``, vertex_stage.py:132) and one of zeros.
+    The columns are the per-corner 1/w, then the corner-major rows
     reordered into channel-major triplets, with corner bitangents
     synthesized as cross(N, T) * handed."""
+    cols = _raster_attr_columns(tri_attrs, proj_view)
+    cols += [torch.zeros_like(cols[0])] * (RA_ROW - RA_EXTRA_COLS)
+    return torch.stack(cols, dim=-1)
+
+
+def _raster_attr_columns(tri_attrs, proj_view) -> list:
     pv3 = proj_view[3]
 
     def corner_iw(k):
@@ -158,7 +169,7 @@ def pack_raster_attr_columns(tri_attrs, proj_view) -> torch.Tensor:
     for j in range(2):
         cols += [tri_attrs[:, TRI_UV0 + 2 * k + j] for k in range(3)]
     cols += [tri_attrs[:, TRI_MAT], handed.abs()]
-    return torch.stack(cols, dim=-1)
+    return cols
 
 
 def pack_triangle_attributes(scene, vs, used_cols: tuple = ()) -> torch.Tensor:

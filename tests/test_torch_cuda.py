@@ -10,10 +10,13 @@ the conftest:
 ``python3 chip_smoke.py`` runs the same checks at 1920x1080.  The
 random soups below hold the full-mode raster (K6) and the megakernel (K8)
 to their plain versions away from the frame's own inputs; the cases after
-them aim at the seams of the raster kernel's design (a run that ends on,
-before or after a staged chunk, boxes that end on a warp's rows or on a
-region or bin border, equal depths, ragged targets) and of the SSAO
-kernel's (ragged planes, a row offset, three widths).
+them aim at the seams of the region walk that raster.cu and
+raster_attrs.cu share (a run that ends on, before or after a staged chunk,
+boxes that end on a warp's rows or on a region or bin border, equal
+depths, ragged targets), each for both sources; of the SSAO kernel's
+(ragged planes, a row offset, three widths); and of the reconstruct
+kernel's two entries (planes of odd or unaligned width, strips that end
+inside a warp, one row).
 """
 
 import os
@@ -106,9 +109,11 @@ def test_raster_attrs_kernel_matches_plain(cuda, seed):
     from mo_renderer_tpu_torch.kernels import rasterizer as R
     from mo_renderer_tpu_torch.passes.vertex_stage import RA_EXTRA_COLS
 
-    binned = _soup_binned(seed, 400, 640, 200, RA_EXTRA_COLS, device=cuda)
-    tri_k, z_k, planes_k = R._raster_attrs_cuda(binned, 640, 200)
-    tri_p, z_p, planes_p = R._raster_attrs_plain(binned, 640, 200)
+    binned, attr_rows = R.split_attr_rows(
+        _soup_binned(seed, 400, 640, 200, RA_EXTRA_COLS, device=cuda))
+    assert binned.tri_data.shape[1] == 16 and attr_rows.shape[1] == 48
+    tri_k, z_k, planes_k = R._raster_attrs_cuda(binned, attr_rows, 640, 200)
+    tri_p, z_p, planes_p = R._raster_attrs_plain(binned, attr_rows, 640, 200)
     assert torch.equal(tri_k, tri_p) and torch.equal(z_k, z_p)
     assert torch.equal(planes_k[R.N_INTERP:], planes_p[R.N_INTERP:])
     assert torch.allclose(planes_k, planes_p, rtol=2e-3, atol=1e-4)
@@ -137,11 +142,39 @@ def _binned_from_points(pts, z, width, height, device):
     )
 
 
-def _assert_raster_modes_exact(binned, width, height):
-    """All three modes of raster.cu against the plain version: ids and
-    depth equal, b0/b1 within 1e-6.  Returns the slim ids."""
+KERNELS = ["raster", "raster_attrs"]  # the sources that share the walk
+
+
+def _assert_raster_modes_exact(binned, width, height, kernel="raster"):
+    """``raster``: all three modes of raster.cu against the plain version,
+    ids and depth equal, b0/b1 within 1e-6.  ``raster_attrs``: the
+    megakernel on the same triangles with random attribute rows, ids,
+    depth, material and handedness equal, the 14 planes within rtol 2e-3 /
+    atol 1e-4.  Returns the visibility ids."""
+    import numpy as np
+
     from mo_renderer_tpu_torch.kernels import rasterizer as R
 
+    if kernel == "raster_attrs":
+        n_tri = binned.tri_data.shape[0]
+        rng = np.random.default_rng(n_tri)
+        rows = rng.normal(size=(n_tri, R.ATTR_ROW)).astype(np.float32)
+        rows[:, :3] = rng.uniform(0.2, 2.0, size=(n_tri, 3))
+        rows[:, R.ATTR_COLS - 2] = rng.integers(0, 7, n_tri)
+        rows[:, R.ATTR_COLS - 1] = rng.integers(0, 2, n_tri)
+        rows[:, R.ATTR_COLS:] = 0.0
+        attr_rows = torch.from_numpy(rows).to(binned.tri_data.device)
+        tri, z, planes = R._raster_attrs_cuda(binned, attr_rows, width,
+                                              height)
+        tri_p, z_p, planes_p = R._raster_attrs_plain(binned, attr_rows,
+                                                     width, height)
+        torch.cuda.synchronize()
+        assert torch.equal(tri, tri_p) and torch.equal(z, z_p)
+        assert torch.equal(planes[R.N_INTERP:], planes_p[R.N_INTERP:])
+        assert torch.allclose(planes, planes_p, rtol=2e-3, atol=1e-4)
+        # zero planes where no triangle covers, also where z stayed 1
+        assert bool((planes[:, z >= 1.0] == 0).all())
+        return tri
     for mode in ("slim", "depth", "full"):
         k = R._raster_cuda(binned, width, height, mode)
         p = R._raster_plain(binned, width, height, mode)
@@ -158,9 +191,10 @@ def _assert_raster_modes_exact(binned, width, height):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", KERNELS)
 @pytest.mark.parametrize("n_tri", [0, 1, 63, 64, 65, 129, 255, 256, 257,
                                    511, 512, 513, 1000])
-def test_raster_run_lengths_in_one_tile(cuda, n_tri):
+def test_raster_run_lengths_in_one_tile(cuda, n_tri, kernel):
     """A run of n triangles in ONE bin tile (the kernel stages 256 pairs
     at a time), overlapping at random depths, the other tiles empty.  The
     run of 0 is one triangle without area, which setup drops."""
@@ -178,13 +212,14 @@ def test_raster_run_lengths_in_one_tile(cuda, n_tri):
     counts = binned.tile_count.cpu()
     # one tile holds them all
     assert int(counts.sum()) == int(counts.max()) == n_tri
-    tri = _assert_raster_modes_exact(binned, width, height)
+    tri = _assert_raster_modes_exact(binned, width, height, kernel)
     assert (n_tri == 0) == bool((tri < 0).all())
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", KERNELS)
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_raster_boxes_on_the_seams(cuda, seed):
+def test_raster_boxes_on_the_seams(cuda, seed, kernel):
     """Corners on multiples of half a pixel around the borders of a bin
     tile (x = 128, y = 32), a region (x = 32k) and a warp's rows (y = 4k):
     edges through pixel centres, boxes that end exactly on a seam."""
@@ -199,13 +234,14 @@ def test_raster_boxes_on_the_seams(cuda, seed):
     pts = np.clip(pts.reshape(-1, 2), 0, [width, height])
     binned = _binned_from_points(pts, rng.uniform(0.05, 0.95, n_tri * 3),
                                  width, height, cuda)
-    tri = _assert_raster_modes_exact(binned, width, height)
+    tri = _assert_raster_modes_exact(binned, width, height, kernel)
     assert (tri >= 0).float().mean().item() > 0.05
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", KERNELS)
 @pytest.mark.parametrize("seed,n_near", [(0, 1), (1, 2)])
-def test_raster_near_plane_triangles(cuda, seed, n_near):
+def test_raster_near_plane_triangles(cuda, seed, n_near, kernel):
     """Triangles with corners right in front of the eye plane (w from
     1.1e-6 up, screen coordinates of 1e8 pixels and more), whose float
     edge functions can cover pixels outside the setup's box: binning gives
@@ -236,12 +272,13 @@ def test_raster_near_plane_triangles(cuda, seed, n_near):
         n_tiles_x=-(-width // R.BIN_W), n_tiles_y=-(-height // R.BIN_H),
     )
     assert int((binned.bbox != setup.bbox).any(1).sum()) > 20
-    tri = _assert_raster_modes_exact(binned, width, height)
+    tri = _assert_raster_modes_exact(binned, width, height, kernel)
     assert (tri >= 0).float().mean().item() > 0.05
 
 
 @pytest.mark.cuda
-def test_raster_coplanar_duplicates_keep_the_later(cuda):
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_raster_coplanar_duplicates_keep_the_later(cuda, kernel):
     """The same 300 triangles drawn twice: equal depths everywhere, so the
     second copy's ids win every covered pixel."""
     import numpy as np
@@ -253,15 +290,16 @@ def test_raster_coplanar_duplicates_keep_the_later(cuda):
     z = rng.uniform(0.05, 0.95, n_tri * 3)
     binned = _binned_from_points(np.concatenate([pts, pts]),
                                  np.concatenate([z, z]), width, height, cuda)
-    tri = _assert_raster_modes_exact(binned, width, height)
+    tri = _assert_raster_modes_exact(binned, width, height, kernel)
     covered = tri[tri >= 0]
     assert covered.numel() > 1000 and bool((covered >= n_tri).all())
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", KERNELS)
 @pytest.mark.parametrize("width,height", [(200, 77), (333, 45), (129, 33),
                                           (31, 3)])
-def test_raster_ragged_targets(cuda, width, height):
+def test_raster_ragged_targets(cuda, width, height, kernel):
     """Width and height that are no multiple of the bin, the region or a
     warp's rows."""
     import numpy as np
@@ -271,7 +309,7 @@ def test_raster_ragged_targets(cuda, width, height):
     pts = rng.uniform([-8, -8], [width + 8, height + 8], size=(n_tri * 3, 2))
     binned = _binned_from_points(pts, rng.uniform(0.05, 0.95, n_tri * 3),
                                  width, height, cuda)
-    tri = _assert_raster_modes_exact(binned, width, height)
+    tri = _assert_raster_modes_exact(binned, width, height, kernel)
     assert tri.shape == (height, width) and bool((tri >= 0).any())
 
 
@@ -333,6 +371,70 @@ def test_stack_planes_kernel_matches_plain(cuda, widths, slot_map, hw):
     torch.cuda.synchronize()
     assert k.shape == (len(spec), *hw)
     assert torch.equal(k, p)
+
+
+def _cb_case(h, wc, seed):
+    """A shaded cb colour plane with out-of-range values and exact halves
+    of an 8-bit step, and blocky full-resolution ids with speckle."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    color = rng.uniform(-0.2, 1.2, (h, wc, 3)).astype(np.float32)
+    halves = (rng.integers(0, 255, (h, wc, 3)) + 0.5) / 255.0
+    color = np.where(rng.random((h, wc, 3)) < 0.2, halves, color)
+    ids = rng.integers(-1, 5, (h // 4 + 1, wc // 8 + 1)).astype(np.int32)
+    tri = np.repeat(np.repeat(ids, 4, 0), 16, 1)[:h, : 2 * wc]
+    tri = np.where(rng.random((h, 2 * wc)) < 0.05, 12, tri).astype(np.int32)
+    return torch.from_numpy(color.astype(np.float32)), torch.from_numpy(tri)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("h,wc", [(1, 1), (2, 1), (9, 33), (17, 130),
+                                  (1088, 960)])
+def test_reconstruct_kernel_matches_plain(cuda, h, wc, fused):
+    """K5, the packed entry and the one that takes the float colour, on
+    planes of odd width, one row, a last strip of one lane, and the frame's
+    own size: exact against the plain version."""
+    from mo_renderer_tpu_torch.passes import checkerboard as CB
+    from mo_renderer_tpu_torch.passes.present import present_pass
+
+    color, tri = (a.to(cuda) for a in _cb_case(h, wc, h * wc))
+    packed = present_pass(color)
+    want = CB._reconstruct_plain(packed, tri)
+    got = CB._reconstruct_cuda(color if fused else packed, tri)
+    torch.cuda.synchronize()
+    assert got.shape == (h, 2 * wc) and torch.equal(got, want)
+    # the public entries take the same route
+    public = (CB.reconstruct_present(color, tri) if fused
+              else CB.reconstruct_full(packed, tri))
+    assert torch.equal(public, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_reconstruct_kernel_unaligned_planes(cuda, fused):
+    """An even width whose planes start 4 bytes off a 16-byte boundary:
+    the kernel's element-wise path."""
+    from mo_renderer_tpu_torch.passes import checkerboard as CB
+    from mo_renderer_tpu_torch.passes.present import present_pass
+
+    h, wc = 19, 70
+    color, tri = (a.to(cuda) for a in _cb_case(h, wc, 3))
+
+    def shifted(a):
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=cuda)
+        buf[1:] = a.reshape(-1)
+        return buf[1:].view(a.shape)
+
+    packed = present_pass(color)
+    want = CB._reconstruct_plain(packed, tri)
+    cb = shifted(color if fused else packed)
+    assert cb.data_ptr() % 16 == 4 and cb.is_contiguous()
+    for tri_in in (tri, shifted(tri)):
+        got = CB._reconstruct_cuda(cb, tri_in)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

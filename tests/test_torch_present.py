@@ -1,6 +1,6 @@
 """The port's checkerboard decimation, reconstruction + interleave (the
-plain version of csrc/interleave.cu) and present pass against the JAX
-reference: all exact.  The JAX interleave runs its Pallas kernel
+plain version of csrc/interleave.cu, both entries) and present pass
+against the JAX reference: all exact.  The JAX interleave runs its Pallas kernel
 (interleave_cols_pallas) in interpret mode."""
 
 import os
@@ -62,6 +62,29 @@ def test_reconstruct_full_matches_reference(h, wc, n_ids):
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
 
 
+@pytest.mark.parametrize("h,wc,n_ids", [(16, 64, 3), (32, 128, 40), (9, 33, 2)])
+def test_reconstruct_present_matches_reference(h, wc, n_ids):
+    """The fused entry (float colour in, quantised as the present pass
+    does) against the reference's present pass followed by its
+    reconstruction: exact."""
+    rng = np.random.default_rng(h * wc + 1)
+    color = rng.uniform(-0.2, 1.2, (h, wc, 3)).astype(np.float32)
+    halves = ((rng.integers(0, 255, (h, wc, 3)) + 0.5) / 255).astype(
+        np.float32)
+    color = np.where(rng.random((h, wc, 3)) < 0.2, halves, color)
+    ids = rng.integers(-1, n_ids, (h // 4 + 1, wc // 8 + 1)).astype(np.int32)
+    tri = np.repeat(np.repeat(ids, 4, 0), 16, 1)[:h, : 2 * wc]
+    tri = np.where(rng.random((h, 2 * wc)) < 0.05, n_ids + 7, tri)
+    want = np.asarray(JCB.reconstruct_full(
+        JP.present_pass(jnp.asarray(color)), jnp.asarray(tri)))
+    got = CB.reconstruct_present(torch.from_numpy(color),
+                                 torch.from_numpy(tri))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    packed = CB.reconstruct_full(P.present_pass(torch.from_numpy(color)),
+                                 torch.from_numpy(tri))
+    assert torch.equal(got, packed)
+
+
 def test_present_pass_matches_reference():
     rng = np.random.default_rng(5)
     color = rng.uniform(-0.2, 1.2, (24, 40, 3)).astype(np.float32)
@@ -80,5 +103,8 @@ def test_cpu_tensor_reconstruct_never_touches_the_kernel(monkeypatch):
 
     monkeypatch.setattr(_build, "library", boom)
     cb = torch.full((4, 8), -16777216, dtype=torch.int32)
-    out = CB.reconstruct_full(cb, torch.zeros((4, 16), dtype=torch.int32))
+    tri = torch.zeros((4, 16), dtype=torch.int32)
+    out = CB.reconstruct_full(cb, tri)
     assert out.shape == (4, 16)
+    fused = CB.reconstruct_present(torch.ones((4, 8, 3)), tri)
+    assert torch.equal(fused, torch.full((4, 16), -1, dtype=torch.int32))

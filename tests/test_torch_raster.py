@@ -23,6 +23,10 @@ import torch  # noqa: E402
 import __graft_entry__ as graft  # noqa: E402
 from mo_renderer_tpu.kernels import raster_setup as JRS  # noqa: E402
 from mo_renderer_tpu.kernels.rasterizer import rasterize as j_rasterize  # noqa: E402
+from mo_renderer_tpu.kernels.rasterizer import (  # noqa: E402
+    rasterize_attrs as j_rasterize_attrs,
+)
+from mo_renderer_tpu.passes import vertex_stage as JV  # noqa: E402
 from mo_renderer_tpu.passes.frame_graph import (  # noqa: E402
     Renderer as JRenderer,
     build_camera_params as j_camera_params,
@@ -30,6 +34,7 @@ from mo_renderer_tpu.passes.frame_graph import (  # noqa: E402
 from mo_renderer_tpu.scene.scene_buffers import find_shadow_light  # noqa: E402
 from mo_renderer_tpu_torch.kernels import raster_setup as RS  # noqa: E402
 from mo_renderer_tpu_torch.kernels import rasterizer as R  # noqa: E402
+from mo_renderer_tpu_torch.passes import vertex_stage as V  # noqa: E402
 
 W, H = 256, 64
 
@@ -486,6 +491,110 @@ def test_grid_scene_raster_matches_reference(grid_scene, target):
         torch.tensor(np.asarray(setup.bbox)), w, h,
     )
     assert covered > 1000 and outside == 0
+
+
+def test_grid_scene_rasterize_attrs_matches_reference(grid_scene):
+    """The megakernel on grid_world(3), rows built as the JAX megakernel
+    branch builds them (frame_graph.py:320-343): ids, material and
+    handedness planes exact, depth atol 1e-6, the 14 interpolated planes
+    rtol 2e-3 / atol 1e-4 against the JAX kernel in interpret mode."""
+    jcfg, jr, params = (grid_scene[k] for k in ("jcfg", "jr", "jparams"))
+    w, h = jr.pad_w, jr.pad_h
+    vs = JV.run_vertex_stage(jr.scene, params["proj_view"],
+                             params["prev_proj_view"],
+                             params["light_proj_view"])
+    setup = JRS.triangle_setup(vs.clip, jr.scene.indices, jr.scene.tri_valid,
+                               w, h, cull_backface=True)
+    extra = JV.pack_raster_attr_columns(jr.scene.tri_attrs,
+                                        params["proj_view"])
+    rows = jnp.concatenate([setup.tri_data, extra], axis=1)
+    binned = JRS.bin_triangles(
+        JRS.TriangleSetup(tri_data=rows, bbox=setup.bbox),
+        tile_h=jcfg.tile_h, tile_w=jcfg.tile_w, n_tiles_x=w // jcfg.tile_w,
+        n_tiles_y=h // jcfg.tile_h, max_tiles_per_tri=8,
+        binned_cap=1 << 16, global_cap=64,
+    )
+    assert int(binned.overflow) == 0
+    tri_w, z_w, planes_w, mat_w, ht_w = j_rasterize_attrs(
+        binned, width=w, height=h, tile_h=jcfg.tile_h, tile_w=jcfg.tile_w)
+    port_binned, attr_rows = R.split_attr_rows(RS.bin_triangles(
+        RS.TriangleSetup(torch.tensor(np.asarray(rows)),
+                         torch.tensor(np.asarray(setup.bbox))),
+        tile_h=R.BIN_H, tile_w=R.BIN_W, n_tiles_x=-(-w // R.BIN_W),
+        n_tiles_y=-(-h // R.BIN_H),
+    ))
+    tri_g, z_g, planes_g, mat_g, ht_g = R.rasterize_attrs(
+        port_binned, width=w, height=h, attr_rows=attr_rows)
+    assert (np.asarray(tri_w) >= 0).mean() > 0.05
+    np.testing.assert_array_equal(tri_g.numpy(), np.asarray(tri_w))
+    np.testing.assert_array_equal(mat_g.numpy(), np.asarray(mat_w))
+    np.testing.assert_array_equal(ht_g.numpy(), np.asarray(ht_w))
+    np.testing.assert_allclose(z_g.numpy(), np.asarray(z_w), atol=1e-6,
+                               rtol=0)
+    assert len(planes_g) == len(planes_w) == V.RA_N_INTERP
+    for i, (a, b) in enumerate(zip(planes_g, planes_w)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-3,
+                                   atol=1e-4, err_msg=f"plane {i}")
+
+
+def _port_megakernel_setup(grid_scene):
+    """The port's own megakernel inputs on grid_world(3): the setup from
+    its vertex stage's clip positions, and the attribute columns."""
+    r = grid_scene["r"]
+    params, _ = r.frame_params(grid_scene["world"])
+    vs = V.run_vertex_stage(r.scene, params["proj_view"],
+                            params["prev_proj_view"],
+                            params["light_proj_view"])
+    setup = RS.triangle_setup(vs.clip, r.scene.indices, r.scene.tri_valid,
+                              r.pad_w, r.pad_h, cull_backface=True)
+    return r, setup, params["proj_view"]
+
+
+def test_grid_scene_megakernel_coverage_stays_inside_the_boxes(grid_scene):
+    """What the megakernel's skip by box relies on: its setup (from
+    per-vertex clip positions, not the packed corners) covers no pixel
+    outside a triangle's box either."""
+    r, setup, _ = _port_megakernel_setup(grid_scene)
+    outside, covered = _covered_outside_box(setup.tri_data, setup.bbox,
+                                            r.pad_w, r.pad_h)
+    assert covered > 1000 and outside == 0
+
+
+def test_split_attr_rows_give_the_same_planes(grid_scene):
+    """The megakernel's two aligned tensors, (T, 16) raster rows and
+    (T, 48) attribute rows, against the reference's (T, 63) rows split
+    on the way in: the same columns, and every output equal."""
+    r, setup, proj_view = _port_megakernel_setup(grid_scene)
+    attr_rows = V.pack_raster_attr_rows(r.scene.tri_attrs, proj_view)
+    assert attr_rows.shape == (setup.tri_data.shape[0], R.ATTR_ROW)
+    assert attr_rows.is_contiguous()
+    assert bool((attr_rows[:, R.ATTR_COLS:] == 0).all())
+    cols = attr_rows[:, : R.ATTR_COLS]
+
+    def bin_(tri_data):
+        return RS.bin_triangles(
+            RS.TriangleSetup(tri_data, setup.bbox), tile_h=R.BIN_H,
+            tile_w=R.BIN_W, n_tiles_x=-(-r.pad_w // R.BIN_W),
+            n_tiles_y=-(-r.pad_h // R.BIN_H),
+        )
+
+    binned, from_joined = R.split_attr_rows(
+        bin_(torch.cat([setup.tri_data, cols], dim=1)))
+    assert binned.tri_data.shape[1] == 16 and binned.tri_data.is_contiguous()
+    assert torch.equal(from_joined, attr_rows)
+    joined = R.rasterize_attrs(binned, width=r.pad_w, height=r.pad_h,
+                               attr_rows=from_joined)
+    split = R.rasterize_attrs(bin_(setup.tri_data), width=r.pad_w,
+                              height=r.pad_h, attr_rows=attr_rows)
+    assert bool((split[0] >= 0).any())
+    for a, b in zip(joined[:2] + joined[2] + joined[3:],
+                    split[:2] + split[2] + split[3:]):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        R.split_attr_rows(bin_(setup.tri_data))
+    with pytest.raises(ValueError):
+        R.rasterize_attrs(bin_(setup.tri_data), width=r.pad_w,
+                          height=r.pad_h, attr_rows=cols)
 
 
 def test_grid_scene_default_frame_matches_reference(grid_scene):

@@ -440,7 +440,10 @@ def test_pack_raster_attr_columns_matches_reference():
     pv = rng.normal(size=(4, 4)).astype(np.float32)
     want = n(JV.pack_raster_attr_columns(jnp.asarray(tri_attrs),
                                          jnp.asarray(pv)))
-    got = n(V.pack_raster_attr_columns(t(tri_attrs), t(pv)))
+    rows = n(V.pack_raster_attr_rows(t(tri_attrs), t(pv)))
+    assert rows.shape == (300, V.RA_ROW)
+    assert (rows[:, V.RA_EXTRA_COLS:] == 0).all()
+    got = rows[:, : V.RA_EXTRA_COLS]
     assert got.shape == want.shape == (300, V.RA_EXTRA_COLS)
     np.testing.assert_array_equal(got[:, 3:], want[:, 3:])
     np.testing.assert_allclose(got[:, :3], want[:, :3], rtol=1e-5, atol=0)
@@ -463,8 +466,10 @@ def _megakernel_inputs(tiny_):
     )
     want = j_rasterize_attrs(binned, width=r.pad_w, height=r.pad_h,
                              tile_h=cfg.tile_h, tile_w=cfg.tile_w)
-    got = R.rasterize_attrs(_port_bin(setup.tri_data, setup.bbox, r.pad_w,
-                                      r.pad_h), width=r.pad_w, height=r.pad_h)
+    port_binned, attr_rows = R.split_attr_rows(
+        _port_bin(setup.tri_data, setup.bbox, r.pad_w, r.pad_h))
+    got = R.rasterize_attrs(port_binned, width=r.pad_w, height=r.pad_h,
+                            attr_rows=attr_rows)
     return want, got
 
 
@@ -508,8 +513,10 @@ def test_rasterize_attrs_matches_reference_on_a_soup():
     )
     want = j_rasterize_attrs(binned, width=W, height=H, tile_h=16,
                              tile_w=128)
-    got = R.rasterize_attrs(_port_bin(setup.tri_data, setup.bbox, W, H),
-                            width=W, height=H)
+    port_binned, attr_rows = R.split_attr_rows(
+        _port_bin(setup.tri_data, setup.bbox, W, H))
+    got = R.rasterize_attrs(port_binned, width=W, height=H,
+                            attr_rows=attr_rows)
     _assert_attrs_equal(got, want, "megakernel, soup")
 
 
