@@ -33,6 +33,15 @@ Phases (each raises on failure; the script then exits non-zero):
    ~52K-triangle stress scene) at 1920x1080, reported as
    ``raster_slim@grid`` etc. with the pair count and the largest per-tile
    run (their launches are those of phase 4's three paths on that scene).
+   Then the band forms of the row-sharded frame, each on the same inputs
+   cut into 4 bands as ``TileShardedRenderer`` cuts them (the 1088-row
+   frame into 4 x 320 rows, the 2048^2 shadow map into 4 x 512):
+   ``raster_slim_band`` and ``raster_depth_band`` (K1b/K2b, also
+   ``...@grid``) and ``ssao_halo`` (K4b, on the bands' full-rate depth
+   with their neighbours' rows as halos).  Each band must equal its plain
+   version exactly, and the 4 bands together the whole-frame kernel's
+   output bit for bit, from the whole frame's bins and from band-local
+   bins; the time is that of the 4 band launches, with each band's own.
 3. Frames at 256x128: the default frame, the reference-path frame
    (fast_sampling=False), the UV1 scene under default flags, the
    megakernel frame (raster_interp_attrs=True, ssao_res_divisor=1), the
@@ -44,6 +53,11 @@ Phases (each raises on failure; the script then exits non-zero):
    |diff| < 2/255, < 0.5% of channels > 16/255).  The stack kernel must
    launch on the texture-stack frames and nowhere else, also when the
    reference and megakernel paths are given stack_plane_kernel=True.
+   Then the row-sharded frame: ``TileShardedRenderer`` at 256x256 (SSAO
+   at full rate, checkerboard on and off) on a world of one, its process
+   group NCCL, initialised in this process on 127.0.0.1, against the same
+   renderer on the CPU (a gloo group of the same world), within the same
+   bar.
 4. Frames at 1920x1080 through the port's App.run along the reference
    benchmark's small camera orbit, on each of the four paths (the
    texture-stack path on the all-slots scene): finite, not black, sky
@@ -55,7 +69,11 @@ Phases (each raises on failure; the script then exits non-zero):
    its kernel launches and device kernel time per frame from
    torch.profiler over two more frames.  Then the default, the reference
    and the megakernel path on scenes.grid_world(10) in the same way, a few
-   frames each.
+   frames each.  Then the ``rows`` path: the 1080p row-sharded frame
+   (``TileShardedRenderer``, world of one, ``ssao_res_divisor=1``) along
+   the same orbit, and ``rows@grid`` on the stress scene, timed and
+   profiled the same way; they launch the band kernels and no
+   whole-frame raster or SSAO kernel.
 
 The last two lines are a JSON summary of the kernels and the contract
 line {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -95,7 +113,16 @@ KERNELS = {
                      "mo_renderer_tpu/kernels/rasterizer.py:288"),
     "stack_planes": ("mo_renderer_tpu_torch/csrc/stack_planes.cu",
                      "mo_renderer_tpu/kernels/stack_planes.py:66"),
+    "raster_slim_band": ("mo_renderer_tpu_torch/csrc/raster.cu",
+                         "mo_renderer_tpu/kernels/rasterizer.py:560"),
+    "raster_depth_band": ("mo_renderer_tpu_torch/csrc/raster.cu",
+                          "mo_renderer_tpu/kernels/rasterizer.py:560"),
+    "ssao_halo": ("mo_renderer_tpu_torch/csrc/ssao.cu",
+                  "mo_renderer_tpu/passes/ssao.py:176"),
 }
+# the band forms: built from the other kernels' captured inputs
+BAND_KERNELS = ("raster_slim_band", "raster_depth_band", "ssao_halo")
+N_BANDS = 4  # the bands phase 2 cuts the 1080p inputs into
 
 STACKS = {"attrs_plane_kernel": False, "stack_plane_kernel": True}
 
@@ -116,12 +143,19 @@ PATHS = {
 # them (EngineConfig overrides) and the kernels timed on them
 GRID_KERNELS = ("raster_slim", "raster_depth", "raster_full", "ssao",
                 "raster_attrs")
+BAND_GRID_KERNELS = ("raster_slim_band", "raster_depth_band")
 # and the three paths phase 4 drives on that scene
 GRID_PATHS = {
     "default@grid": PATHS["default"][:2],
     "reference@grid": PATHS["reference"][:2],
     "megakernel@grid": PATHS["megakernel"][:2],
 }
+# the row-sharded frame (TileShardedRenderer on a world of one): the
+# kernels it runs, and the scene of each of its phase-4 paths
+ROWS_OVERRIDES = {"ssao_res_divisor": 1}
+ROWS_KERNELS = ("raster_slim_band", "raster_depth_band", "attr_planes",
+                "ssao_halo", "interleave_present")
+ROWS_PATHS = {"rows": "tiny", "rows@grid": "grid"}
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12  # outside the tensor cores
@@ -268,6 +302,7 @@ def check_kernels(cfg, device):
     from mo_renderer_tpu_torch.kernels import raster_setup as RS
     from mo_renderer_tpu_torch.kernels import rasterizer as R
     from mo_renderer_tpu_torch.kernels import stack_planes as SP
+    from mo_renderer_tpu_torch.parallel import tile_sharding as TS
     from mo_renderer_tpu_torch.passes import checkerboard as CB
     from mo_renderer_tpu_torch.passes import present as P
     from mo_renderer_tpu_torch.passes import ssao as S
@@ -468,6 +503,140 @@ def check_kernels(cfg, device):
             * idx.numel(),
         )
 
+    def band_inputs(binned, n_rows):
+        """Bytes a band launch must read: the rows and boxes of the
+        triangles in its runs, its pairs, its bin rows' run entries."""
+        n_tri = int(torch.unique(binned.pair_tri).numel())
+        return (n_tri * (4 * RS.TRI_STRIDE + 16) + nbytes(binned.pair_tri)
+                + 8 * n_rows * binned.n_tiles_x)
+
+    def band_candidates(binned, y0, y1):
+        """(triangle, pixel) tests of a band: the pixels of the boxes of
+        the triangles in its runs, inside its rows."""
+        ids = torch.unique(binned.pair_tri.to(torch.int64))
+        bb = binned.bbox[ids].to(torch.int64)
+        rows = (bb[:, 3].clamp(max=y1 - 1) - bb[:, 1].clamp(min=y0) + 1)
+        cols = bb[:, 2] - bb[:, 0] + 1
+        return int((rows.clamp(min=0) * cols.clamp(min=0)).sum())
+
+    split_depth = {}  # the 4 slim bands' depth, SSAO's input in bands
+
+    def raster_band(seen, mode):
+        """K1b/K2b: the captured frame's raster cut into N_BANDS bands as
+        TileShardedRenderer cuts it (the shadow map into whole bin rows)."""
+        (binned,), kw = seen[f"raster_{mode}"]
+        w, h = kw["width"], kw["height"]
+        if mode == "slim":
+            step = TS.band_rows(cfg, N_BANDS)
+        elif TS.shadow_bands_divisible(cfg, N_BANDS):
+            step = N_BANDS * R.BIN_H
+        else:
+            raise AssertionError(f"a {h}^2 shadow map does not split into "
+                                 f"{N_BANDS} bands of whole bin rows")
+        split = -(-h // step) * step
+        rows = split // N_BANDS // R.BIN_H  # bin rows of a band
+        hb = rows * R.BIN_H
+        setup = RS.TriangleSetup(binned.tri_data, binned.bbox)
+        grid = dict(tile_h=R.BIN_H, tile_w=R.BIN_W,
+                    n_tiles_x=binned.n_tiles_x, n_tiles_y=split // R.BIN_H)
+        local = [RS.bin_triangles(setup, **grid, band_row0=b * rows,
+                                  band_tile_rows=rows)
+                 for b in range(N_BANDS)]
+
+        def launch(fn, bins_list):
+            return [fn(bins, w, hb, mode, b * rows)
+                    for b, bins in enumerate(bins_list)]
+
+        # the bands together are the whole-frame kernel's output, from the
+        # whole frame's bins (over the split canvas) and from band-local
+        # bins; rows past the frame are background
+        whole = R._raster_cuda(binned, w, h, mode)
+        whole_bins = RS.bin_triangles(setup, **grid)
+        for what, bins_list in (("whole-frame", [whole_bins] * N_BANDS),
+                                ("band-local", local)):
+            out = launch(R._raster_band_cuda, bins_list)
+            z = torch.cat([o[1] for o in out])
+            same = torch.equal(z[:h], whole[1]) and bool((z[h:] == 1).all())
+            if mode == "slim":
+                tri = torch.cat([o[0] for o in out])
+                same = (same and torch.equal(tri[:h], whole[0])
+                        and bool((tri[h:] == -1).all()))
+            if not same:
+                raise AssertionError(
+                    f"raster_{mode}_band: {N_BANDS} bands from {what} bins "
+                    "differ from the whole-frame kernel")
+        if mode == "slim":
+            split_depth["z"] = z
+
+        def cmp(k, p):
+            err = max(exact(a[1], b[1]) for a, b in zip(k, p))
+            ok = err == 0.0 and (mode == "depth" or all(
+                torch.equal(a[0], b[0]) for a, b in zip(k, p)))
+            return err, ok, (f"ids and depth exact in each band; the "
+                             f"{N_BANDS} bands = the whole-frame kernel")
+        n_out = 1 if mode == "depth" else 2
+        band_ms = [median_ms(functools.partial(
+            R._raster_band_cuda, bins, w, hb, mode, b * rows))
+            for b, bins in enumerate(local)]
+        return dict(
+            kernel=lambda: launch(R._raster_band_cuda, local),
+            plain=lambda: launch(R._raster_plain, local), cmp=cmp,
+            shape=f"{N_BANDS} x {hb}x{w} of {h}x{w}",
+            bytes=sum(band_inputs(bins, rows) for bins in local)
+            + N_BANDS * n_out * 4 * w * hb,
+            flops=RASTER_FLOPS_PER_CANDIDATE * sum(
+                band_candidates(bins, b * hb, (b + 1) * hb)
+                for b, bins in enumerate(local)),
+            extra={"pairs": sum(b.pair_tri.shape[0] for b in local),
+                   "band_rows": hb, "band_ms": band_ms},
+        )
+
+    def ssao_halo(seen):
+        """K4b: SSAO of the 4 slim bands' full-rate depth, each band with
+        its neighbours' rows as halos (edge rows replicated outside)."""
+        z = split_depth["z"]
+        near, far = seen["ssao"][1]["near"], seen["ssao"][1]["far"]
+        n_rows, w = z.shape
+        hb, hr = n_rows // N_BANDS, S.ssao_halo_rows(w)
+        ext = torch.cat([z[:1].expand(hr, w), z, z[-1:].expand(hr, w)])
+        bands = [(z[b * hb: (b + 1) * hb],
+                  (ext[b * hb: b * hb + hr].contiguous(),
+                   ext[(b + 1) * hb + hr: (b + 1) * hb + 2 * hr]
+                   .contiguous()))
+                 for b in range(N_BANDS)]
+
+        def kernel():
+            return [S._ssao_halo_cuda(band, halo, S.NUM_LEVELS, b * hb, near,
+                                      far)
+                    for b, (band, halo) in enumerate(bands)]
+
+        def plain():
+            return [S._ssao_plain(band, S.NUM_LEVELS, b * hb, near, far, halo)
+                    for b, (band, halo) in enumerate(bands)]
+        whole = S._ssao_cuda(z, S.NUM_LEVELS, 0, near, far)
+        if not torch.equal(torch.cat(kernel()), whole):
+            raise AssertionError(f"ssao_halo: {N_BANDS} bands differ from "
+                                 "the whole-image kernel")
+
+        def cmp(k, p):
+            err = max(exact(a, b) for a, b in zip(k, p))
+            return err, err == 0.0, (f"exact in each band; the {N_BANDS} "
+                                     "bands = the whole-image kernel")
+        n_taps = max(len(t) for t in S._ssao_tap_table(w, S.NUM_LEVELS)[1])
+        n_occluding = occluding_taps(z, near, far)
+        return dict(
+            kernel=kernel, plain=plain, cmp=cmp,
+            shape=f"{N_BANDS} x ({hb}+2x{hr})x{w}, "
+            f"{n_occluding / (n_taps * z.numel()):.1%} of taps occlude",
+            bytes=N_BANDS * 4 * w * (2 * hb + 2 * hr),
+            flops=ssao_flop_equivalents(z.numel(), n_taps, n_occluding),
+            extra={"occluding_taps": n_occluding, "band_rows": hb,
+                   "halo_rows": hr,
+                   # the whole-image kernel on the same plane, one launch
+                   "whole_image_ms": median_ms(functools.partial(
+                       S._ssao_cuda, z, S.NUM_LEVELS, 0, near, far))},
+        )
+
     case_of = {
         "raster_slim": functools.partial(raster, mode="slim"),
         "raster_depth": functools.partial(raster, mode="depth"),
@@ -476,12 +645,15 @@ def check_kernels(cfg, device):
         "interleave_present": functools.partial(interleave, fused=True),
         "raster_full": functools.partial(raster, mode="full"),
         "raster_attrs": raster_attrs, "stack_planes": stack,
+        "raster_slim_band": functools.partial(raster_band, mode="slim"),
+        "raster_depth_band": functools.partial(raster_band, mode="depth"),
+        "ssao_halo": ssao_halo,  # after raster_slim_band: its depth
     }
     seen = capture_inputs(
         cfg, device,
         [(overrides, functools.partial(scenes.tiny_world, **scene_kw),
           scenes.camera) for overrides, _, scene_kw in PATHS.values()],
-        set(KERNELS) - {"interleave"},
+        set(KERNELS) - {"interleave", *BAND_KERNELS},
     )
     cases = {name: build(seen) for name, build in case_of.items()}
     seen = capture_inputs(
@@ -490,7 +662,7 @@ def check_kernels(cfg, device):
          for overrides, _ in GRID_PATHS.values()],
         GRID_KERNELS,
     )
-    for name in GRID_KERNELS:
+    for name in GRID_KERNELS + BAND_GRID_KERNELS:
         # the plain raster walks 4096 pairs x 4096 pixels at a time: a few
         # timed calls are enough
         cases[f"{name}@grid"] = {**case_of[name](seen), "plain_runs": 3}
@@ -591,15 +763,56 @@ def check_small_frames(device):
                                  "golden bar")
 
 
-def profile_frames(app, n_frames=2):
-    """torch.profiler over ``n_frames`` frames of ``app``: (kernel
-    launches per frame, device kernel ms per frame)."""
+def check_sharded_frames(device, group, cpu_group):
+    """Phase 3, the row-sharded frame: TileShardedRenderer at 256x256 on
+    the card (``group``, NCCL) against the same on the CPU (``cpu_group``,
+    gloo), checkerboard on and off; the band kernels launch on the
+    card."""
+    import numpy as np
+
+    from mo_renderer_tpu_torch import scenes
+    from mo_renderer_tpu_torch.kernels import _build
+    from mo_renderer_tpu_torch.parallel import TileShardedRenderer
+
+    for cb in (True, False):
+        frames = []
+        for dev, g in ((device, group), ("cpu", cpu_group)):
+            cfg = scenes.tiny_config(height=256, checkerboard=cb,
+                                     **ROWS_OVERRIDES)
+            world = scenes.tiny_world()
+            world.insert_resource(scenes.camera(cfg))
+            ts = TileShardedRenderer(cfg, g, dev)
+            ts.prepare(world)
+            _build.reset_launches()
+            frames.append(ts.render(world).astype(np.int32))
+            idle = [k for k in ("raster_slim_band", "raster_depth_band",
+                                "ssao_halo") if not _build.LAUNCHES[k]]
+            if dev == device and idle:
+                raise AssertionError(f"256x256 sharded frame: {idle} did "
+                                     "not launch")
+        gpu, cpu = frames
+        if gpu.shape != (256, 256, 4):
+            raise AssertionError(f"sharded frame has shape {gpu.shape}")
+        diff = np.abs(gpu - cpu)[..., :3]
+        mean, big = diff.mean(), (diff > 16).mean()
+        print(f"[3] 256x256 row-sharded frame (world of {group.size}, "
+              f"checkerboard {cb}), card vs CPU: max |diff| {diff.max()} "
+              f"LSB, mean {mean:.4f} LSB, {big:.4%} of channels > 16 (bar: "
+              "mean < 2, < 0.5%)", flush=True)
+        if not (mean < 2.0 and big < 0.005):
+            raise AssertionError("256x256 row-sharded card frame misses the "
+                                 "golden bar")
+
+
+def profile_frames(run, n_frames=2):
+    """torch.profiler over ``run(n_frames)`` (which renders that many
+    frames): (kernel launches per frame, device kernel ms per frame)."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        app.run(num_frames=n_frames)
+        run(n_frames)
         torch.cuda.synchronize()
     launches, device_us = 0, 0.0
     for row in prof.key_averages():
@@ -613,9 +826,11 @@ def profile_frames(app, n_frames=2):
     return launches / n_frames, device_us / 1e3 / n_frames
 
 
-def run_full_frame(device, line, path, n_frames, warmup=3):
+def run_full_frame(device, line, path, n_frames, group=None, warmup=3):
     """Phase 4: one path's 1080p frame through App.run, on the tiny scene
-    or (the ``...@grid`` paths) on the stress scene."""
+    or (the ``...@grid`` paths) on the stress scene; the ``rows`` paths
+    through TileShardedRenderer on ``group``, each frame fetched to the
+    host as App.run does."""
     import numpy as np
     import torch
 
@@ -623,25 +838,53 @@ def run_full_frame(device, line, path, n_frames, warmup=3):
     from mo_renderer_tpu_torch import App, scenes
     from mo_renderer_tpu_torch.config import EngineConfig
     from mo_renderer_tpu_torch.kernels import _build
+    from mo_renderer_tpu_torch.parallel import TileShardedRenderer
+    from mo_renderer_tpu_torch.parallel import tile_sharding as TS
 
-    if path in GRID_PATHS:
+    grid = path in GRID_PATHS or ROWS_PATHS.get(path) == "grid"
+    if path in ROWS_PATHS:
+        overrides, kernels = ROWS_OVERRIDES, ROWS_KERNELS
+    elif grid:
         overrides, kernels = GRID_PATHS[path]
-        make_world, make_camera = scenes.grid_world, scenes.grid_camera
     else:
         overrides, kernels, scene_kw = PATHS[path]
-        make_world = functools.partial(scenes.tiny_world, **scene_kw)
+    if grid:
+        make_world, make_camera = scenes.grid_world, scenes.grid_camera
+    else:
+        make_world = functools.partial(scenes.tiny_world,
+                                       **({} if path in ROWS_PATHS
+                                          else scene_kw))
         make_camera = scenes.camera
     cfg = EngineConfig(width=1920, height=1080, **overrides)
-    app = App.new(config=cfg, device=device)
-    app.world = make_world()
-    app.insert_resource(make_camera(cfg))
-    app.add_runtime_system(scenes.orbit_system(warmup + n_frames))
-    app.resumed()
+    if path in ROWS_PATHS:
+        world = make_world()
+        world.insert_resource(make_camera(cfg))
+        orbit = scenes.orbit_system(warmup + n_frames)
+        ts = TileShardedRenderer(cfg, group, device)
+        ts.prepare(world)
+        renderer, present_module = ts._inner, TS
+
+        def run(n):
+            frame = None
+            for _ in range(n):
+                orbit(world)
+                frame = ts.render(world)
+            return frame
+    else:
+        app = App.new(config=cfg, device=device)
+        app.world = make_world()
+        app.insert_resource(make_camera(cfg))
+        app.add_runtime_system(scenes.orbit_system(warmup + n_frames))
+        app.resumed()
+        world, renderer, present_module = app.world, app.renderer, FG
+
+        def run(n):
+            return app.run(num_frames=n)
 
     # a checkerboard frame is quantised inside the reconstruct kernel: it
     # must not go through present_pass's torch ops as well
     present_calls = 0
-    present_pass = FG.present_pass
+    present_pass = present_module.present_pass
 
     def counted_present_pass(color):
         nonlocal present_calls
@@ -649,28 +892,30 @@ def run_full_frame(device, line, path, n_frames, warmup=3):
         return present_pass(color)
 
     _build.reset_launches()
-    FG.present_pass = counted_present_pass
+    present_module.present_pass = counted_present_pass
     try:
-        app.run(num_frames=warmup)
+        run(warmup)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        frame = app.run(num_frames=n_frames)  # render() syncs every frame
+        frame = run(n_frames)  # render() syncs every frame
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / n_frames
     finally:
-        FG.present_pass = present_pass
+        present_module.present_pass = present_pass
     counts = dict(_build.LAUNCHES)
-    app.renderer.check_overflow()
-    launches, device_ms = profile_frames(app)
+    renderer.check_overflow()
+    launches, device_ms = profile_frames(run)
 
     rgb = frame[..., :3]
-    covered = _covered_fraction(app.renderer, app.world, cfg)
+    covered = _covered_fraction(renderer, world, cfg)
+    how = (f"TileShardedRenderer, world of {group.size}"
+           if path in ROWS_PATHS else "App.run")
     print(f"[4] {path} 1920x1080 frame: shape {frame.shape}, max "
           f"{rgb.max()}, mean {rgb.mean():.2f}, covered fraction "
           f"{covered:.4f}, launches over {warmup + n_frames} frames "
           f"{counts}", flush=True)
     print(f"[4] {path} steady state: {ms:.3f} ms/frame over {n_frames} "
-          f"frames (App.run, host fetch each frame) on {line}", flush=True)
+          f"frames ({how}, host fetch each frame) on {line}", flush=True)
     print(f"[4] {path} profile (2 frames, torch.profiler): {launches:.0f} "
           f"kernel launches/frame, {device_ms:.3f} ms/frame of device "
           f"kernel time ({device_ms / ms:.1%} of the unprofiled frame)",
@@ -724,6 +969,14 @@ def _covered_fraction(renderer, world, cfg):
     return (tri[: cfg.height, : cfg.width] >= 0).float().mean().item()
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "mo_renderer_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -754,20 +1007,39 @@ def main() -> int:
 
     kernels = check_kernels(EngineConfig(width=1920, height=1080), device)
     check_small_frames(device)
-    # kernel (or kernel@grid) -> {path: launches during that path's run}
-    launches = {name: {} for name in kernels}
-    for path, n_frames in (("default", 16), ("reference", 8),
-                           ("megakernel", 8), ("stacks", 8),
-                           ("default@grid", 4), ("reference@grid", 4),
-                           ("megakernel@grid", 4)):
-        counts, _ = run_full_frame(device, line, path, n_frames)
-        if path in GRID_PATHS:
-            for name in set(GRID_PATHS[path][1]) & set(GRID_KERNELS):
-                launches[f"{name}@grid"][path] = counts[name]
-        else:
-            for name in set(kernels) & set(KERNELS):
-                if name in PATHS[path][1]:
-                    launches[name][path] = counts[name]
+    # the row-sharded frame's process groups: a world of one, NCCL for the
+    # card, and a gloo group of the same world for the CPU comparison
+    import torch.distributed as dist
+
+    from mo_renderer_tpu_torch.parallel import make_rank_group
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        group = make_rank_group()
+        check_sharded_frames(device, group, make_rank_group(backend="gloo"))
+        # kernel (or kernel@grid) -> {path: launches during that path's run}
+        launches = {name: {} for name in kernels}
+        for path, n_frames in (("default", 16), ("reference", 8),
+                               ("megakernel", 8), ("stacks", 8),
+                               ("default@grid", 4), ("reference@grid", 4),
+                               ("megakernel@grid", 4), ("rows", 8),
+                               ("rows@grid", 4)):
+            counts, _ = run_full_frame(device, line, path, n_frames, group)
+            if path in ROWS_PATHS:
+                tag = "@grid" if path.endswith("@grid") else ""
+                for name in ROWS_KERNELS:
+                    if f"{name}{tag}" in launches:
+                        launches[f"{name}{tag}"][path] = counts[name]
+            elif path in GRID_PATHS:
+                for name in set(GRID_PATHS[path][1]) & set(GRID_KERNELS):
+                    launches[f"{name}@grid"][path] = counts[name]
+            else:
+                for name in set(kernels) & set(KERNELS):
+                    if name in PATHS[path][1]:
+                        launches[name][path] = counts[name]
+    finally:
+        dist.destroy_process_group()
 
     # each kernel on the tiny scene's inputs, then the raster modes and
     # SSAO on the stress scene's; launches are those of the paths that ran

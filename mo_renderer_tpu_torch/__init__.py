@@ -13,15 +13,17 @@ The entry points (``App.new``, ``Renderer``) run on the card
 (``device="cuda"``) unless the caller passes ``device="cpu"``.  Three
 frame paths: the default (fast sampling, checkerboard), the reference
 sampling path (``fast_sampling=False`` or a UV1 material) and the raster
-megakernel (``raster_interp_attrs=True``).
+megakernel (``raster_interp_attrs=True``).  ``parallel.TileShardedRenderer``
+splits one frame's rows over the ranks of a ``torch.distributed`` group.
 
 Their kernels, each written in CUDA C++ under ``csrc/`` and built with
 ``nvcc`` at first use (``kernels/_build.py``):
 
 - the tile rasterizer in its visibility, full (barycentrics) and
-  depth-only modes, and the megakernel that interpolates attributes,
+  depth-only modes (the first and the last also for one band of rows),
+  and the megakernel that interpolates attributes,
 - ``attr_planes`` (per-pixel attribute interpolation),
-- the SSAO tile kernel,
+- the SSAO tile kernel (also for one band with its neighbours' rows),
 - the checkerboard reconstruct-and-interleave kernel.
 
 Each has a plain PyTorch twin in the same module; the twin runs only for

@@ -97,10 +97,15 @@ struct Place {
   int tile, rx0, ry0, lane, wy0, x;
 };
 
-__device__ __forceinline__ Place place_of_thread(int n_tiles_x) {
+// tile0 is the first bin tile of the launch: a band raster starts at
+// a later tile row of the frame's bins, and every row it draws is a row of
+// the whole frame.
+__device__ __forceinline__ Place place_of_thread(int n_tiles_x,
+                                                 int tile0 = 0) {
   Place at;
-  at.tile = blockIdx.x / kRegionsPerTile;
-  const int region = blockIdx.x - at.tile * kRegionsPerTile;
+  const int local = blockIdx.x / kRegionsPerTile;
+  const int region = blockIdx.x - local * kRegionsPerTile;
+  at.tile = tile0 + local;
   const int ty = at.tile / n_tiles_x;
   const int tx = at.tile - ty * n_tiles_x;
   at.rx0 = tx * kBinW + region * kRegion;

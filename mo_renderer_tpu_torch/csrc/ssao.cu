@@ -41,6 +41,17 @@
 //   pixel's own level is evaluated (the TPU kernel evaluated all 16 and
 //   selected).
 //
+// The band form (K4b: ssao_pass_pallas(row_offset, y_halo=(top, bottom)),
+// ssao.py:176-177, :210-219, the row-sharded frame's SSAO) takes the rows
+// above and below the band from two more planes of raw depth, halo_rows
+// rows each, instead of clamping at the band's edge: the window's rows run
+// from -halo_rows to h + halo_rows - 1, clamped there, and each comes from
+// the top plane, the band or the bottom plane.  Two pointers, not one
+// taller plane: a taller plane is a copy of the whole band before every
+// launch (an extra read and write of it and a launch), while the choice of
+// pointer costs the fill a select per element, in the band form only
+// (kHalo false compiles to the whole-image kernel as it was).
+//
 // Arithmetic, unchanged: multiply-adds are fused (fmaf) at exactly the
 // three places where the reference's CPU evaluation fuses them, and its
 // divisions by constants are multiplies by float32 reciprocals as XLA folds
@@ -66,10 +77,13 @@ struct Params {
   int h, w, halo, levels, search;  // search: power of two >= levels
   float c2n, cfpn, cfmn, inv_w, half_w, inv_krange, inv_total, inv_255;
   int row_offset;
+  int halo_rows;  // rows of each halo plane (band form)
 };
 
+template <bool kHalo>
 __global__ void __launch_bounds__(kThreads)
-ssao_kernel(const float* __restrict__ depth, float* __restrict__ out,
+ssao_kernel(const float* __restrict__ depth, const float* __restrict__ top,
+            const float* __restrict__ bottom, float* __restrict__ out,
             const int* __restrict__ win_offs, const float* __restrict__ fades,
             const float* __restrict__ edges, Params p) {
   static_assert((kTileH * kTileW) % kThreads == 0 && kThreads % 32 == 0,
@@ -125,9 +139,19 @@ ssao_kernel(const float* __restrict__ depth, float* __restrict__ out,
           c -= ww;
           r += 1;
         }
-        const int gy = min(max(y0 - p.halo + r, 0), p.h - 1);
         const int gx = min(max(x0 - p.halo + c, 0), p.w - 1);
-        d[u] = depth[(size_t)gy * p.w + gx];
+        if (kHalo) {
+          const int gy =
+              min(max(y0 - p.halo + r, -p.halo_rows), p.h + p.halo_rows - 1);
+          const float* row =
+              gy < 0      ? top + (size_t)(gy + p.halo_rows) * p.w
+              : gy >= p.h ? bottom + (size_t)(gy - p.h) * p.w
+                          : depth + (size_t)gy * p.w;
+          d[u] = row[gx];
+        } else {
+          const int gy = min(max(y0 - p.halo + r, 0), p.h - 1);
+          d[u] = depth[(size_t)gy * p.w + gx];
+        }
       }
     }
   };
@@ -206,22 +230,39 @@ ssao_kernel(const float* __restrict__ depth, float* __restrict__ out,
   }
 }
 
-int launch(const float* depth, float* out, const int* win_offs,
-           const float* fades, const float* edges, const Params& p,
-           cudaStream_t s) {
+template <bool kHalo>
+int launch(const float* depth, const float* top, const float* bottom,
+           float* out, const int* win_offs, const float* fades,
+           const float* edges, const Params& p, cudaStream_t s) {
   const size_t smem =
       ((size_t)(kTileH + 2 * p.halo) * (size_t)(kTileW + 2 * p.halo) +
        (size_t)p.levels * kTaps + kTaps + p.search) *
       sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        ssao_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        ssao_kernel<kHalo>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((p.w + kTileW - 1) / kTileW, (p.h + kTileH - 1) / kTileH);
-  ssao_kernel<<<grid, kThreads, smem, s>>>(depth, out, win_offs, fades,
-                                           edges, p);
+  ssao_kernel<kHalo><<<grid, kThreads, smem, s>>>(depth, top, bottom, out,
+                                                  win_offs, fades, edges, p);
   return (int)cudaGetLastError();
+}
+
+int make_params(int h, int w, int halo, int levels, int ntaps, float c2n,
+                float cfpn, float cfmn, float inv_w, float half_w,
+                float inv_krange, float inv_total, float inv_255,
+                int row_offset, int halo_rows, Params* p) {
+  if (ntaps != kTaps || levels < 1 || levels > kMaxLevels) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int search = 1;
+  while (search < levels) search <<= 1;
+  *p = {h,      w,          halo,      levels,  search,     c2n,
+        cfpn,   cfmn,       inv_w,     half_w,  inv_krange, inv_total,
+        inv_255, row_offset, halo_rows};
+  return 0;
 }
 
 }  // namespace
@@ -236,15 +277,35 @@ extern "C" int mo_ssao(const void* depth, void* out, const void* win_offs,
                        float inv_krange, float inv_total, float inv_255,
                        int row_offset, void* stream) {
   if (h <= 0 || w <= 0) return (int)cudaGetLastError();
-  if (ntaps != kTaps || levels < 1 || levels > kMaxLevels) {
-    return (int)cudaErrorInvalidValue;
-  }
-  int search = 1;
-  while (search < levels) search <<= 1;
-  const Params p = {h,    w,     halo,   levels,     search,    c2n,      cfpn,
-                    cfmn, inv_w, half_w, inv_krange, inv_total, inv_255,
-                    row_offset};
-  return launch((const float*)depth, (float*)out, (const int*)win_offs,
-                (const float*)fades, (const float*)edges, p,
-                (cudaStream_t)stream);
+  Params p;
+  const int bad = make_params(h, w, halo, levels, ntaps, c2n, cfpn, cfmn,
+                              inv_w, half_w, inv_krange, inv_total, inv_255,
+                              row_offset, 0, &p);
+  if (bad) return bad;
+  return launch<false>((const float*)depth, nullptr, nullptr, (float*)out,
+                       (const int*)win_offs, (const float*)fades,
+                       (const float*)edges, p, (cudaStream_t)stream);
+}
+
+// The band form: top and bottom are (halo_rows, w) planes of raw
+// depth above and below the (h, w) band; halo_rows must be at least halo.
+extern "C" int mo_ssao_halo(const void* depth, const void* top,
+                            const void* bottom, void* out,
+                            const void* win_offs, const void* fades,
+                            const void* edges, int h, int w, int halo,
+                            int levels, int ntaps, float c2n, float cfpn,
+                            float cfmn, float inv_w, float half_w,
+                            float inv_krange, float inv_total, float inv_255,
+                            int row_offset, int halo_rows, void* stream) {
+  if (h <= 0 || w <= 0) return (int)cudaGetLastError();
+  if (halo_rows < halo) return (int)cudaErrorInvalidValue;
+  Params p;
+  const int bad = make_params(h, w, halo, levels, ntaps, c2n, cfpn, cfmn,
+                              inv_w, half_w, inv_krange, inv_total, inv_255,
+                              row_offset, halo_rows, &p);
+  if (bad) return bad;
+  return launch<true>((const float*)depth, (const float*)top,
+                      (const float*)bottom, (float*)out, (const int*)win_offs,
+                      (const float*)fades, (const float*)edges, p,
+                      (cudaStream_t)stream);
 }

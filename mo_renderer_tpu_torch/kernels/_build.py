@@ -54,6 +54,9 @@ LAUNCHES: dict[str, int] = {
     "raster_full": 0,
     "raster_attrs": 0,
     "stack_planes": 0,
+    "raster_slim_band": 0,
+    "raster_depth_band": 0,
+    "ssao_halo": 0,
 }
 
 _lock = threading.Lock()

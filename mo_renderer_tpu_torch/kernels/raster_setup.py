@@ -229,9 +229,19 @@ def bin_triangles(
     n_tiles_x: int,
     n_tiles_y: int,
     binned_cap: int | None = None,
+    band_row0: int | None = None,
+    band_tile_rows: int | None = None,
 ) -> BinnedTriangles:
     """Every (tile, triangle) pair of the triangles' bboxes, sorted by
-    (tile, draw order).  One host sync reads the pair count."""
+    (tile, draw order).  One host sync reads the pair count.
+
+    Band mode (raster_setup.py:350): with ``band_row0`` and
+    ``band_tile_rows``, only the pairs whose tile row lies in [band_row0,
+    band_row0 + band_tile_rows) are listed.  Tile ids stay global and the
+    run table covers all ``n_tiles_x * n_tiles_y`` tiles (empty outside
+    the band), so a band raster reads the same runs it would read from
+    the whole frame's bins; ``overflow`` counts the band's pairs only.
+    The enumeration is exact, so there is no per-band cap."""
     tri_data, bbox = setup.tri_data, setup.bbox
     dev = tri_data.device
     t = tri_data.shape[0]
@@ -244,7 +254,13 @@ def bin_triangles(
     ty0 = bb[:, 1] // tile_h
     ty1 = bb[:, 3] // tile_h
     span_x = tx1 - tx0 + 1
-    pairs = torch.where(live, span_x * (ty1 - ty0 + 1), 0)
+    # the tile rows listed: the box's, clipped to the band in band mode
+    ly0, ly1, listed = ty0, ty1, live
+    if band_tile_rows is not None:
+        ly0 = torch.clamp(ty0, min=band_row0)
+        ly1 = torch.clamp(ty1, max=band_row0 + band_tile_rows - 1)
+        listed = live & (ly1 >= ly0)
+    pairs = torch.where(listed, span_x * (ly1 - ly0 + 1), 0)
     # columns 0..5 are the edges' extents in pixels (a = -+dy, b = +-dx)
     huge = live & ~(tri_data[:, :COL_C0].abs().amax(1) <= MAX_EXACT_EXTENT)
     tiles_box = torch.stack(
@@ -262,7 +278,7 @@ def bin_triangles(
     sx = span_x[tri_rep]
     dy = torch.div(local, sx, rounding_mode="floor")
     dx = local - dy * sx
-    tile = (ty0[tri_rep] + dy) * n_tiles_x + tx0[tri_rep] + dx
+    tile = (ly0[tri_rep] + dy) * n_tiles_x + tx0[tri_rep] + dx
     stride = max(t, 1)
     key, _ = torch.sort(tile * stride + tri_rep)
 

@@ -61,18 +61,49 @@ ATTR_ROW = 48  # ATTR_COLS padded to 16-byte aligned rows
 
 
 def rasterize(binned: BinnedTriangles, *, width: int, height: int,
-              depth_only: bool = False, slim: bool = False):
+              depth_only: bool = False, slim: bool = False,
+              tile_row_offset: int | None = None):
     """Rasterize binned triangles.
 
     Returns (tri int32 (H, W) with -1 for background, z f32 (H, W), b0,
     b1) as the reference does: b0/b1 are the winner's screen-space
     barycentrics in full mode and None when ``slim``; ``depth_only``
     returns (None, z, None, None).
+
+    ``tile_row_offset`` (rasterizer.py:585-590; the row-sharded frame's
+    band raster, K1b/K2b, slim or depth-only): render the ``height``-tall
+    band that starts at pixel row ``tile_row_offset * binned.tile_h`` (bin
+    rows of ``BIN_H`` on the card) of bins laid out for the whole frame,
+    binned whole or band-locally (``bin_triangles(band_row0=...)``).  Every
+    pixel keeps its row in the frame, so the band equals the same rows of
+    the whole frame's raster bit for bit.  None, the default, is the whole
+    frame (the band kernel is a separate launch even at offset 0).
     """
     mode = "depth" if depth_only else ("slim" if slim else "full")
+    if tile_row_offset is not None:
+        _check_band(binned, height, mode, tile_row_offset)
+        if binned.tri_data.is_cuda:
+            return _raster_band_cuda(binned, width, height, mode,
+                                     tile_row_offset)
+        return _raster_plain(binned, width, height, mode, tile_row_offset)
     if binned.tri_data.is_cuda:
         return _raster_cuda(binned, width, height, mode)
     return _raster_plain(binned, width, height, mode)
+
+
+def _check_band(binned, height, mode, tile_row_offset):
+    if mode == "full":
+        raise ValueError("rasterize: the band raster takes slim or "
+                         "depth_only (no caller bands the full mode)")
+    if tile_row_offset < 0:
+        raise ValueError(f"rasterize: tile_row_offset {tile_row_offset} < 0")
+    if (tile_row_offset * binned.tile_h + height
+            > binned.n_tiles_y * binned.tile_h):
+        raise ValueError(
+            f"rasterize: the band of {height} rows at bin row "
+            f"{tile_row_offset} ends past the {binned.n_tiles_y} bin rows "
+            "of the run table (bin the frame's split height)"
+        )
 
 
 def rasterize_attrs(binned: BinnedTriangles, *, width: int, height: int,
@@ -129,22 +160,28 @@ def _fused(a, b, c, px, py):
     return fused + c
 
 
-def _winners(binned, with_winner=True, chunk=4096):
-    """Per pixel of the bin canvas: z = min(1, z of covering pairs), and
-    the winner id = the LAST pair in draw order with that z (what the
+def _winners(binned, with_winner=True, chunk=4096, row0=0, n_rows=None):
+    """Per pixel of the bin canvas from bin row ``row0`` on (``n_rows``
+    bin rows, all by default): z = min(1, z of covering pairs), and the
+    winner id = the LAST pair in draw order with that z (what the
     sequential ``zin <= acc`` walk keeps; -1 where nothing covers).
     Returns (z (n_pix,), win (n_pix,) int64 or None without
     ``with_winner``, canvas width)."""
     dev = binned.tri_data.device
     th, tw = binned.tile_h, binned.tile_w
     ntx, nty = binned.n_tiles_x, binned.n_tiles_y
+    if n_rows is None:
+        n_rows = nty - row0
     canvas_w = ntx * tw
-    n_pix = nty * th * canvas_w
+    n_pix = n_rows * th * canvas_w
     tiles = torch.repeat_interleave(
         torch.arange(ntx * nty, device=dev), binned.tile_count.to(torch.int64),
         output_size=binned.pair_tri.shape[0],
     )
     ids = binned.pair_tri.to(torch.int64)
+    if (row0, n_rows) != (0, nty):  # the pairs of the canvas's tiles
+        keep = (tiles >= row0 * ntx) & (tiles < (row0 + n_rows) * ntx)
+        tiles, ids = tiles[keep], ids[keep]
     iy = torch.arange(th, device=dev)
     ix = torch.arange(tw, device=dev)
 
@@ -172,7 +209,7 @@ def _winners(binned, with_winner=True, chunk=4096):
         )
         z = _fused(col(9), col(10), col(11), px, py)
         zin = torch.where(cover & (z >= 0.0), z, torch.inf)
-        flat = (gy * canvas_w + gx).expand(zin.shape)
+        flat = ((gy - row0 * th) * canvas_w + gx).expand(zin.shape)
         return zin.reshape(-1), flat.reshape(-1)
 
     zbuf = torch.full((n_pix,), FAR_DEPTH, dtype=torch.float32, device=dev)
@@ -196,13 +233,13 @@ def _winners(binned, with_winner=True, chunk=4096):
     return zbuf, win, canvas_w
 
 
-def _canvas(a, binned, canvas_w, width, height):
-    rows = binned.n_tiles_y * binned.tile_h
-    return a.reshape(rows, canvas_w)[:height, :width].contiguous()
+def _canvas(a, canvas_w, width, height):
+    return a.reshape(-1, canvas_w)[:height, :width].contiguous()
 
 
 def _winner_rows(binned, win, canvas_w):
-    """The winner's row and the pixel centre, per canvas pixel."""
+    """The winner's row and the pixel centre, per canvas pixel (of the
+    whole frame's canvas: full mode has no band)."""
     dev = win.device
     n_pix = win.shape[0]
     flat = torch.arange(n_pix, device=dev)
@@ -211,13 +248,19 @@ def _winner_rows(binned, win, canvas_w):
     return binned.tri_data[win.clamp(min=0)], px, py.to(torch.float32) + 0.5
 
 
-def _raster_plain(binned, width, height, mode):
-    """The same coverage and depth rule over all pairs at once."""
-    zbuf, win, canvas_w = _winners(binned, with_winner=mode != "depth")
-    z = _canvas(zbuf, binned, canvas_w, width, height)
+def _raster_plain(binned, width, height, mode, tile_row_offset=None):
+    """The same coverage and depth rule over all pairs at once; a band
+    takes the pairs of its bin rows only."""
+    band = {}
+    if tile_row_offset is not None:
+        band = dict(row0=tile_row_offset,
+                    n_rows=-(-height // binned.tile_h))
+    zbuf, win, canvas_w = _winners(binned, with_winner=mode != "depth",
+                                   **band)
+    z = _canvas(zbuf, canvas_w, width, height)
     if mode == "depth":
         return None, z, None, None
-    tri = _canvas(win, binned, canvas_w, width, height).to(torch.int32)
+    tri = _canvas(win, canvas_w, width, height).to(torch.int32)
     tri = torch.where(z < FAR_DEPTH, tri, -1)
     if mode == "slim":
         return tri, z, None, None
@@ -227,7 +270,7 @@ def _raster_plain(binned, width, height, mode):
     for i in range(2):
         bi = _fused(rows[:, i], rows[:, 3 + i], rows[:, 6 + i], px, py)
         bi = torch.where(has, bi * rows[:, COL_INV_AREA], 0.0)
-        b.append(_canvas(bi, binned, canvas_w, width, height))
+        b.append(_canvas(bi, canvas_w, width, height))
     return tri, z, b[0], b[1]
 
 
@@ -235,8 +278,8 @@ def _raster_attrs_plain(binned, attr_rows, width, height):
     """Winner per pixel as in ``_raster_plain``, then one interpolation of
     the winner's rows (the kernel's arithmetic, see csrc/raster_attrs.cu)."""
     zbuf, win, canvas_w = _winners(binned)
-    z = _canvas(zbuf, binned, canvas_w, width, height)
-    tri = _canvas(win, binned, canvas_w, width, height).to(torch.int32)
+    z = _canvas(zbuf, canvas_w, width, height)
+    tri = _canvas(win, canvas_w, width, height).to(torch.int32)
     tri = torch.where(z < FAR_DEPTH, tri, -1)
     rows, px, py = _winner_rows(binned, win, canvas_w)
     attrs = attr_rows[win.clamp(min=0)]
@@ -254,7 +297,7 @@ def _raster_attrs_plain(binned, attr_rows, width, height):
     planes += [attrs[:, ATTR_COLS - 2], attrs[:, ATTR_COLS - 1]]
     has = win >= 0
     planes = torch.stack(
-        [_canvas(torch.where(has, p, 0.0), binned, canvas_w, width, height)
+        [_canvas(torch.where(has, p, 0.0), canvas_w, width, height)
          for p in planes]
     )
     return tri, z, planes
@@ -321,6 +364,28 @@ def _raster_cuda(binned, width, height, mode):
     _build.check("rasterize", err)
     _build.count(f"raster_{mode}")
     return tri, z, b0, b1
+
+
+def _raster_band_cuda(binned, width, height, mode, tile_row_offset):
+    _check_bins("rasterize", binned, width, height)
+    dev = binned.tri_data.device
+    z = torch.empty((height, width), dtype=torch.float32, device=dev)
+    tri = (None if mode == "depth" else
+           torch.empty((height, width), dtype=torch.int32, device=dev))
+    fn = _build.function(
+        "mo_raster_band", [_build.P] * 7 + [_build.I] * 5 + [_build.P],
+    )
+    err = fn(
+        binned.tri_data.data_ptr(), binned.bbox.data_ptr(),
+        binned.pair_tri.data_ptr(), binned.tile_start.data_ptr(),
+        binned.tile_count.data_ptr(), z.data_ptr(),
+        0 if tri is None else tri.data_ptr(),
+        width, height, binned.n_tiles_x, tile_row_offset, _MODES[mode],
+        _build.stream_of(z),
+    )
+    _build.check("rasterize", err)
+    _build.count(f"raster_{mode}_band")
+    return tri, z, None, None
 
 
 def _raster_attrs_cuda(binned, attr_rows, width, height):

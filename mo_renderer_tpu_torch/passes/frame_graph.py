@@ -29,6 +29,7 @@ falls back to another path.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 
 import numpy as np
@@ -357,6 +358,18 @@ class Renderer(torch.nn.Module):
             cfg.height, self.pad_w, self.pad_h,
         )
 
+    def resize(self, width: int, height: int) -> None:
+        """A new framebuffer size (frame_graph.py:636).  The packed scene,
+        the IBL maps and the memoized shadow table do not depend on it and
+        are kept; ``frame_program`` reads the size on every call, so there
+        is nothing to rebuild."""
+        self.config = dataclasses.replace(self.config, width=width,
+                                          height=height)
+        self.pad_w = _round_up(width, self.config.tile_w)
+        self.pad_h = _round_up(height, self.config.tile_h)
+        logger.info("renderer resized: fb %dx%d (pad %dx%d)", width, height,
+                    self.pad_w, self.pad_h)
+
     # --- overflow surfacing -------------------------------------------------
     def _note_overflow(self, ovf) -> None:
         self._pending_overflow.append(ovf)
@@ -364,7 +377,7 @@ class Renderer(torch.nn.Module):
             self._raise_if_overflow(self._pending_overflow.pop(0))
 
     def _raise_if_overflow(self, ovf) -> None:
-        g, s = ovf
+        g, s = (int(v) for v in ovf)  # host ints, or a (2,) tensor
         if g or s:
             raise RuntimeError(
                 f"rasterizer bin overflow: {g} G-buffer and {s} shadow "

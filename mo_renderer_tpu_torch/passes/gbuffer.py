@@ -146,9 +146,10 @@ def gbuffer_pass(tri, z, b0, b1, scene, vs) -> GBuffer:
 def gbuffer_pass_fast(tri, z, scene, tri_attrs, params, slot_map: tuple,
                       cb: bool = False, full_wh=None,
                       plane_kernel: bool = True,
-                      stack_kernel: bool = False) -> GBuffer:
+                      stack_kernel: bool = False, y0: int = 0) -> GBuffer:
     """tri/z: visibility planes (H, W), or the (H, W/2) checkerboard
-    domain when ``cb``; ``full_wh`` is the raster target size.
+    domain when ``cb``; ``full_wh`` is the raster target size and ``y0``
+    the planes' first row in it (a band of a row-sharded frame).
 
     ``plane_kernel`` (``EngineConfig.attrs_plane_kernel``): the attribute
     planes come from the ``attr_planes`` kernel; off, the reference's
@@ -165,7 +166,8 @@ def gbuffer_pass_fast(tri, z, scene, tri_attrs, params, slot_map: tuple,
         full_wh = (tri.shape[1] * (2 if cb else 1), tri.shape[0])
     if plane_kernel:
         planes = attr_planes(
-            tri, tri_attrs, pv, n_mat=len(used_cols), full_wh=full_wh, cb=cb
+            tri, tri_attrs, pv, n_mat=len(used_cols), full_wh=full_wh, cb=cb,
+            y0=y0,
         )
 
         def vec(a, b):
@@ -182,7 +184,8 @@ def gbuffer_pass_fast(tri, z, scene, tri_attrs, params, slot_map: tuple,
         def corner(base, width, k):
             return row[..., base + width * k : base + width * (k + 1)]
 
-        nx, ny = pixel_ndc(tri.shape, full_wh, cb=cb, device=tri.device)
+        nx, ny = pixel_ndc(tri.shape, full_wh, cb=cb, y0=y0,
+                           device=tri.device)
         bb = _homogeneous_barycentrics(
             [corner(TRI_WP0, 3, k) for k in range(3)], pv, nx, ny
         )

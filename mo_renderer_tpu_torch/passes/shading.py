@@ -361,12 +361,18 @@ def calculate_shadow_fast_half(pos_half, full_hw, light_proj_view,
     return _upsample_pow2(factor, h, w, divisor)
 
 
-def _sky_dirs(height, width, camera_basis, stride: int = 1):
+def _sky_dirs(height, width, camera_basis, stride: int = 1,
+              row_offset: int = 0, full_height: int | None = None):
     """Per-pixel skybox ray directions (skybox_fs near-plane basis) at
-    pixels (stride*i, stride*j) of the height x width frame."""
+    pixels (stride*i, stride*j) of the height x width frame; a band of a
+    row-sharded frame gives its first row and the frame's height."""
     dev = camera_basis["right"].device
-    v = (torch.arange(height // stride, dtype=torch.float32, device=dev)
-         * stride + 0.5) / height
+    fh = height if full_height is None else full_height
+    v = torch.arange(height // stride, dtype=torch.float32,
+                     device=dev) * stride
+    if row_offset:  # a band; the whole frame launches no add of 0
+        v = v + row_offset
+    v = (v + 0.5) / fh
     u = (torch.arange(width // stride, dtype=torch.float32, device=dev)
          * stride + 0.5) / width
     y = (v * 2.0 - 1.0)[:, None, None]
@@ -419,7 +425,7 @@ def _ambient(gbuf, eye_pos, irradiance, prefiltered):
 def ibl_ambient_sky_fast(gbuf, eye_pos, ibl, camera_basis,
                          parent_mip_half_res=True, half_geo=None,
                          mirror_half_res=True, merged_trilinear=True,
-                         cb=False):
+                         cb=False, row_offset=0, full_height=None):
     """Ambient AND sky from the trilinear specular taps (shading.py:558):
     sky pixels (depth == 1) re-point the mirror tap at the environment,
     which is mip 0 of the specular table.  Returns (ambient (H,W,3), sky
@@ -433,7 +439,10 @@ def ibl_ambient_sky_fast(gbuf, eye_pos, ibl, camera_basis,
       grid, upsampled; off, at full rate.
     - ``merged_trilinear`` (needs both): both taps from one row of the
       child+parent table, the parent's fractions from the child anchor's
-      parity."""
+      parity.
+
+    ``row_offset`` / ``full_height``: the band's first row and the frame's
+    height, for the sky rays of a row-sharded frame."""
     mq = ibl.specular_quad
     nl = mq.num_levels
     dev = gbuf.depth.device
@@ -473,7 +482,8 @@ def ibl_ambient_sky_fast(gbuf, eye_pos, ibl, camera_basis,
         )
         sky_h = depth_h >= 1.0
         eidx, efx, efy = _env_quad_index(
-            ibl, _sky_dirs(h, sky_w, camera_basis, stride=2)
+            ibl, _sky_dirs(h, sky_w, camera_basis, stride=2,
+                           row_offset=row_offset, full_height=full_height)
         )
         idx0 = torch.where(sky_h, eidx, idx0)
         fx0 = torch.where(sky_h, efx, fx0)
@@ -504,7 +514,9 @@ def ibl_ambient_sky_fast(gbuf, eye_pos, ibl, camera_basis,
         idx0, fx0, fy0 = sampling.mipcube_quad_index(
             sizes, offsets, l0, face, u, v
         )
-        eidx, efx, efy = _env_quad_index(ibl, _sky_dirs(h, w, camera_basis))
+        eidx, efx, efy = _env_quad_index(
+            ibl, _sky_dirs(h, w, camera_basis, row_offset=row_offset,
+                           full_height=full_height))
         idx0 = torch.where(sky_mask, eidx, idx0)
         fx0 = torch.where(sky_mask, efx, fx0)
         fy0 = torch.where(sky_mask, efy, fy0)
@@ -547,10 +559,13 @@ def ibl_ambient_sky_fast(gbuf, eye_pos, ibl, camera_basis,
 def shading_pass_fast(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
                       num_lights: int, params, ibl=None,
                       shadow_res_divisor=1, parent_mip_half_res=True,
-                      mirror_half_res=True, merged_trilinear=True, cb=False):
+                      mirror_half_res=True, merged_trilinear=True, cb=False,
+                      row_offset=0, full_height=None):
     """Tonemapped colour (H, W, 3) in [0, 1] on the G-buffer's domain
     (shading.py:717); the three ``spec_*`` flags choose the specular
-    branches of ``ibl_ambient_sky_fast``."""
+    branches of ``ibl_ambient_sky_fast``.  A band of a row-sharded frame
+    passes its first row (even, so that its row parity is the frame's
+    checkerboard phase) and the frame's height."""
     eye = params["eye_pos"]
     lo = shade_lights(gbuf, lights, num_lights, eye)
     # one shared even-grid slice feeds every half-res consumer
@@ -563,7 +578,8 @@ def shading_pass_fast(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
         ambient, sky, sky_mask = ibl_ambient_sky_fast(
             gbuf, eye, ibl, params, parent_mip_half_res=parent_mip_half_res,
             half_geo=half_geo, mirror_half_res=mirror_half_res,
-            merged_trilinear=merged_trilinear, cb=cb,
+            merged_trilinear=merged_trilinear, cb=cb, row_offset=row_offset,
+            full_height=full_height,
         )
     else:
         ambient = torch.zeros_like(lo)

@@ -2,7 +2,10 @@
 ``mo_renderer_tpu/passes/ssao.py`` (a port of the reference's ssao.comp).
 
 ``ssao_pass_tiles`` is the port of ``ssao_pass_pallas`` (K4); its CUDA
-kernel is ``csrc/ssao.cu``.  ``ssao_pass`` (``EngineConfig.ssao_pallas``
+kernel is ``csrc/ssao.cu``.  With ``y_halo`` (K4b) it is one band of a
+row-sharded frame: real depth rows of the neighbouring bands replace the
+edge clamp above and below the band, so the band's AO equals the same rows
+of the whole-image pass.  ``ssao_pass`` (``EngineConfig.ssao_pallas``
 off) computes the same radius-quantized AO as whole-image torch ops, and
 ``ssao_pass_exact`` is the tests' tap-for-tap oracle.  Per pixel: hash noise from the global pixel
 coordinate, a radius level out of 16 geometric levels, then the
@@ -142,6 +145,12 @@ def _ssao_tap_table(w: int, num_levels: int = NUM_LEVELS):
     return edges, level_taps, max_off
 
 
+def ssao_halo_rows(w: int, num_levels: int = NUM_LEVELS) -> int:
+    """Rows of neighbouring depth a band needs on each side (ssao.py:164):
+    the largest tap offset, rounded up to 8 as the reference rounds it."""
+    return -(-_ssao_tap_table(w, num_levels)[2] // 8) * 8
+
+
 class _Tables(NamedTuple):
     offs: torch.Tensor  # (levels, taps, 2) int32: ox, oy
     fades: torch.Tensor  # (taps,) f32
@@ -175,20 +184,48 @@ def _tables(w, num_levels, device):
 
 
 def ssao_pass_tiles(depth, num_levels: int = NUM_LEVELS, row_offset: int = 0,
-                    near=NEAR, far=FAR):
+                    near=NEAR, far=FAR, y_halo=None):
     """depth (H, W) raw [0, 1] -> AO (H, W) in k/255.  ``W`` is the width
     the radius formula uses: pass the padded plane exactly as the frame
-    pads it (the reference pads the even grid to tile multiples first)."""
+    pads it (the reference pads the even grid to tile multiples first).
+
+    A band of a row-sharded frame passes its first row in the frame as
+    ``row_offset`` (the hash noise) and ``y_halo = (top, bottom)``: the
+    ``ssao_halo_rows(W)`` rows of raw depth above and below the band (the
+    frame's outer bands replicate their edge row); None clamps at the
+    plane's edge."""
+    if y_halo is not None:
+        _check_halo(depth, y_halo, num_levels)
     if depth.is_cuda:
+        if y_halo is not None:
+            return _ssao_halo_cuda(depth, y_halo, num_levels, row_offset,
+                                   near, far)
         return _ssao_cuda(depth, num_levels, row_offset, near, far)
-    return _ssao_plain(depth, num_levels, row_offset, near, far)
+    return _ssao_plain(depth, num_levels, row_offset, near, far, y_halo)
 
 
-def _ssao_plain(depth, num_levels, row_offset, near, far):
+def _check_halo(depth, y_halo, num_levels):
+    top, bottom = y_halo
+    want = (ssao_halo_rows(depth.shape[1], num_levels), depth.shape[1])
+    if tuple(top.shape) != want or tuple(bottom.shape) != want:
+        raise ValueError(
+            f"ssao: halo planes must be {want} (ssao_halo_rows rows), got "
+            f"{tuple(top.shape)} and {tuple(bottom.shape)}"
+        )
+
+
+def _ssao_plain(depth, num_levels, row_offset, near, far, y_halo=None):
     h, w = depth.shape
     dev = depth.device
     offs, fades, edges = _tables(w, num_levels, dev)[:3]
-    d_lin = _linear_depth(depth, near, far)
+    # the taps read the band with its halo rows above and below, clamped
+    # at the edge of that taller plane
+    above, plane = 0, depth
+    if y_halo is not None:
+        above = y_halo[0].shape[0]
+        plane = torch.cat([y_halo[0], depth, y_halo[1]])
+    d_all = _linear_depth(plane, near, far)
+    d_lin = d_all[above: above + h]
     iy = torch.arange(h, device=dev)[:, None].expand(h, w)
     ix = torch.arange(w, device=dev)[None, :].expand(h, w)
     rw, _ = _radii(d_lin, w, h, row_offset)
@@ -196,9 +233,9 @@ def _ssao_plain(depth, num_levels, row_offset, near, far):
     ao = None
     for t in range(offs.shape[1]):
         o = offs[lvl, t].to(torch.int64)
-        sy = torch.clamp(iy + o[..., 1], 0, h - 1)
+        sy = torch.clamp(iy + above + o[..., 1], 0, plane.shape[0] - 1)
         sx = torch.clamp(ix + o[..., 0], 0, w - 1)
-        c = _compare_depths(d_lin, d_lin[sy, sx], near, far) * fades[t]
+        c = _compare_depths(d_lin, d_all[sy, sx], near, far) * fades[t]
         ao = c if ao is None else ao + c
     return _quantized_ao(ao)
 
@@ -266,9 +303,9 @@ def ssao_pass_exact(depth, near=NEAR, far=FAR):
     return _quantized_ao(ao)
 
 
-def _ssao_cuda(depth, num_levels, row_offset, near, far):
-    depth = depth.contiguous()
-    _build.require_cuda("ssao", depth, dtypes=(torch.float32,))
+def _kernel_args(depth, num_levels, near, far):
+    """The launch's shared arguments: (tables, output, the kernel's
+    arguments from h on up to the row offset)."""
     h, w = depth.shape
     if not 1 <= num_levels <= 32:
         raise ValueError(
@@ -276,21 +313,53 @@ def _ssao_cuda(depth, num_levels, row_offset, near, far):
         )
     tab = _tables(w, num_levels, depth.device)
     out = torch.empty_like(depth)
-    if h * w == 0:
+    args = (
+        h, w, tab.max_off, num_levels, tab.win_offs.shape[1],
+        2.0 * near, far + near, far - near, 1.0 / w, w / 2.0,
+        _recip(60.0 / (far - near)), _recip(_TOTAL), _recip(255.0),
+    )
+    return tab, out, args
+
+
+_SCALARS = [_build.I] * 5 + [_build.F] * 8
+
+
+def _ssao_cuda(depth, num_levels, row_offset, near, far):
+    depth = depth.contiguous()
+    _build.require_cuda("ssao", depth, dtypes=(torch.float32,))
+    tab, out, args = _kernel_args(depth, num_levels, near, far)
+    if depth.numel() == 0:
         return out
     fn = _build.function(
-        "mo_ssao",
-        [_build.P] * 5 + [_build.I] * 5 + [_build.F] * 8 + [_build.I]
-        + [_build.P],
+        "mo_ssao", [_build.P] * 5 + _SCALARS + [_build.I, _build.P],
     )
     err = fn(
         depth.data_ptr(), out.data_ptr(), tab.win_offs.data_ptr(),
-        tab.fades.data_ptr(), tab.edges.data_ptr(), h, w, tab.max_off,
-        num_levels, tab.win_offs.shape[1],
-        2.0 * near, far + near, far - near, 1.0 / w, w / 2.0,
-        _recip(60.0 / (far - near)), _recip(_TOTAL), _recip(255.0),
+        tab.fades.data_ptr(), tab.edges.data_ptr(), *args,
         row_offset, _build.stream_of(out),
     )
     _build.check("ssao", err)
     _build.count("ssao")
+    return out
+
+
+def _ssao_halo_cuda(depth, y_halo, num_levels, row_offset, near, far):
+    depth = depth.contiguous()
+    top, bottom = (t.contiguous() for t in y_halo)
+    _build.require_cuda("ssao", depth, top, bottom,
+                        dtypes=(torch.float32,) * 3)
+    tab, out, args = _kernel_args(depth, num_levels, near, far)
+    if depth.numel() == 0:
+        return out
+    fn = _build.function(
+        "mo_ssao_halo", [_build.P] * 7 + _SCALARS + [_build.I] * 2
+        + [_build.P],
+    )
+    err = fn(
+        depth.data_ptr(), top.data_ptr(), bottom.data_ptr(), out.data_ptr(),
+        tab.win_offs.data_ptr(), tab.fades.data_ptr(), tab.edges.data_ptr(),
+        *args, row_offset, top.shape[0], _build.stream_of(out),
+    )
+    _build.check("ssao", err)
+    _build.count("ssao_halo")
     return out

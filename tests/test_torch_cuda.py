@@ -13,8 +13,13 @@ to their plain versions away from the frame's own inputs; the cases after
 them aim at the seams of the region walk that raster.cu and
 raster_attrs.cu share (a run that ends on, before or after a staged chunk,
 boxes that end on a warp's rows or on a region or bin border, equal
-depths, ragged targets), each for both sources; of the SSAO kernel's
-(ragged planes, a row offset, three widths); and of the reconstruct
+depths, ragged targets), each for both sources; of the band raster's
+(K1b/K2b: odd band counts, bands of one bin row, a band cut short,
+near-plane triangles across a band border, from whole and band-local
+bins, each band also against the whole-frame kernel); of the SSAO
+kernel's (ragged planes, a row offset, three widths) and of its halo
+form's (K4b: bands shorter than their halo, ragged bands, against the
+whole-image kernel); and of the reconstruct
 kernel's two entries (planes of odd or unaligned width, strips that end
 inside a warp, one row).
 """
@@ -44,7 +49,8 @@ def test_kernels_match_plain_versions_on_the_card(cuda):
 
     results = chip_smoke.check_kernels(scenes.tiny_config(), cuda)
     assert set(results) == set(chip_smoke.KERNELS) | {
-        f"{name}@grid" for name in chip_smoke.GRID_KERNELS}
+        f"{name}@grid" for name in chip_smoke.GRID_KERNELS
+        + chip_smoke.BAND_GRID_KERNELS}
 
 
 @pytest.mark.cuda
@@ -339,6 +345,144 @@ def test_ssao_kernel_ragged_planes_and_row_offset(cuda, h, w, row_offset):
     out = S._ssao_cuda(*args)
     torch.cuda.synchronize()
     assert torch.equal(out, plain)
+
+
+def _assert_bands_exact(setup, width, height, bands):
+    """K1b and K2b on ``bands`` -- (first bin row, bin rows) -- of the
+    target: each band from the whole frame's bins and from its own
+    band-local bins equals its plain version and the same rows of the
+    whole-frame kernel (ids and depth exact)."""
+    from mo_renderer_tpu_torch.kernels import raster_setup as RS
+    from mo_renderer_tpu_torch.kernels import rasterizer as R
+
+    grid = dict(tile_h=R.BIN_H, tile_w=R.BIN_W,
+                n_tiles_x=-(-width // R.BIN_W),
+                n_tiles_y=-(-height // R.BIN_H))
+    whole = RS.bin_triangles(setup, **grid)
+    covered = 0
+    for mode, kw in (("slim", dict(slim=True)),
+                     ("depth", dict(depth_only=True))):
+        tri_w, z_w, _, _ = R._raster_cuda(whole, width, height, mode)
+        for row0, n_rows in bands:
+            y0 = row0 * R.BIN_H
+            h = min(n_rows * R.BIN_H, height - y0)
+            local = RS.bin_triangles(setup, **grid, band_row0=row0,
+                                     band_tile_rows=n_rows)
+            for bins in (whole, local):
+                tri, z, _, _ = R.rasterize(bins, width=width, height=h,
+                                           tile_row_offset=row0, **kw)
+                tri_p, z_p, _, _ = R._raster_plain(bins, width, h, mode,
+                                                   row0)
+                torch.cuda.synchronize()
+                assert torch.equal(z, z_p), (mode, row0)
+                assert torch.equal(z, z_w[y0: y0 + h]), (mode, row0)
+                if mode == "slim":
+                    assert torch.equal(tri, tri_p), (mode, row0)
+                    assert torch.equal(tri, tri_w[y0: y0 + h]), (mode, row0)
+                    covered += int((tri >= 0).sum())
+    return covered
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bands", [1, 3, 5])
+def test_band_raster_odd_band_counts(cuda, n_bands):
+    """K1b/K2b: 15 bin rows cut into 1, 3 or 5 bands, every band start on
+    a region's (and bin row's) border; then bands of one bin row and a
+    last band cut short inside its bin row."""
+    import numpy as np
+
+    from mo_renderer_tpu_torch.kernels import raster_setup as RS
+
+    width, height = 384, 15 * 32 - 11
+    rng = np.random.default_rng(n_bands)
+    n_tri = 600
+    pts = rng.uniform([-8, -8], [width + 8, height + 8], size=(n_tri * 3, 2))
+    binned = _binned_from_points(pts, rng.uniform(0.05, 0.95, n_tri * 3),
+                                 width, height, cuda)
+    setup = RS.TriangleSetup(binned.tri_data, binned.bbox)
+    rows = 15 // n_bands
+    bands = [(b * rows, rows) for b in range(n_bands)]
+    assert _assert_bands_exact(setup, width, height, bands) > 0
+    assert _assert_bands_exact(setup, width, height,
+                               [(0, 1), (7, 1), (14, 1)]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_band_raster_near_plane_triangles_across_bands(cuda, seed):
+    """Triangles with a corner right in front of the eye plane (edges far
+    over MAX_EXACT_EXTENT, so binning gives them the box of their tiles)
+    straddle the border of two bands of two bin rows each."""
+    import numpy as np
+
+    from mo_renderer_tpu_torch.kernels import raster_setup as RS
+
+    width, height, n_tri = 384, 128, 300
+    rng = np.random.default_rng(seed)
+    ndc = rng.uniform(-1.2, 1.2, size=(n_tri, 3, 2))
+    w = np.ones((n_tri, 3))
+    w[:, 0] = np.exp(rng.uniform(np.log(1.1e-6), np.log(1e-3), size=n_tri))
+    xy = ndc.copy()
+    xy[:, 1:] *= w[:, 1:, None]
+    z = rng.uniform(0.05, 0.95, size=(n_tri, 3)) * w
+    clip = np.concatenate([xy, z[..., None], w[..., None]], -1)
+    clip = torch.from_numpy(clip.reshape(-1, 4).astype(np.float32))
+    idx = torch.arange(n_tri * 3, dtype=torch.int32).reshape(n_tri, 3)
+    setup = RS.triangle_setup(clip, idx, torch.ones(n_tri, dtype=torch.bool),
+                              width, height, cull_backface=False)
+    setup.tri_data = setup.tri_data.to(cuda)
+    setup.bbox = setup.bbox.to(cuda)
+    huge = ~(setup.tri_data[:, :RS.COL_C0].abs().amax(1)
+             <= RS.MAX_EXACT_EXTENT)
+    live = (setup.tri_data[:, RS.COL_VALID] > 0) & (
+        setup.bbox[:, 0] <= setup.bbox[:, 2])
+    # some of them reach over the band border at row 64
+    straddle = (huge & live & (setup.bbox[:, 1] < 64)
+                & (setup.bbox[:, 3] >= 64))
+    assert int(straddle.sum()) > 5
+    assert _assert_bands_exact(setup, width, height, [(0, 2), (2, 2)]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h_band,w,n_bands", [
+    (16, 256, 4), (8, 1920, 3), (45, 1000, 2), (64, 1024, 4),
+])
+def test_ssao_halo_kernel_matches_plain_and_whole_image(cuda, h_band, w,
+                                                        n_bands):
+    """K4b: a plane cut into bands, each with its neighbours' rows as
+    halos (edge rows replicated outside), against its plain version and
+    the same rows of the whole-image kernel -- also with bands shorter
+    than the halo (16 rows against 24, 8 against 32) and ragged ones."""
+    import numpy as np
+
+    from mo_renderer_tpu_torch.passes import ssao as S
+
+    h = h_band * n_bands
+    rng = np.random.default_rng(h * w)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    d = 0.985 + 0.01 * yy / h
+    for _ in range(12):
+        cx, cy, r = rng.uniform(0, w), rng.uniform(0, h), rng.uniform(4, 20)
+        d = np.where((xx - cx) ** 2 + (yy - cy) ** 2 < r * r,
+                     d - rng.uniform(0.002, 0.02), d)
+    depth = torch.from_numpy(np.clip(d, 0.0, 1.0).astype(np.float32)).to(cuda)
+    whole = S.ssao_pass_tiles(depth)
+    hr = S.ssao_halo_rows(w)
+    # rows -hr .. h + hr - 1 of the plane, edge rows replicated
+    ext = torch.cat([depth[:1].expand(hr, w), depth,
+                     depth[-1:].expand(hr, w)])
+    for b in range(n_bands):
+        y0 = b * h_band
+        band = depth[y0: y0 + h_band]
+        top = ext[y0: y0 + hr].contiguous()
+        bottom = ext[y0 + hr + h_band: y0 + 2 * hr + h_band].contiguous()
+        out = S.ssao_pass_tiles(band, row_offset=y0, y_halo=(top, bottom))
+        plain = S._ssao_plain(band, S.NUM_LEVELS, y0, S.NEAR, S.FAR,
+                              (top, bottom))
+        torch.cuda.synchronize()
+        assert torch.equal(out, plain), b
+        assert torch.equal(out, whole[y0: y0 + h_band]), b
+    assert whole.min().item() < 0.99
 
 
 @pytest.mark.cuda

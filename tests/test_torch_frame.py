@@ -249,6 +249,7 @@ def test_port_renders_without_jax():
         import sys
         sys.modules["jax"] = None
         import mo_renderer_tpu_torch as port
+        import mo_renderer_tpu_torch.parallel  # the row-sharded frame
         from mo_renderer_tpu_torch import scenes
         stacks = {"attrs_plane_kernel": False, "stack_plane_kernel": True}
         for kw in ({}, {"fast_sampling": False},
