@@ -57,7 +57,17 @@ Phases (each raises on failure; the script then exits non-zero):
    at full rate, checkerboard on and off) on a world of one, its process
    group NCCL, initialised in this process on 127.0.0.1, against the same
    renderer on the CPU (a gloo group of the same world), within the same
-   bar.
+   bar; with the checkerboard on, a cube spawned into that world shows in
+   the next sharded frame without a rebuild of the band program.  Then
+   incremental topology on the tiny scene, the same steps on the card and
+   the CPU: a default-texture cube spawn keeps the pack state and equals a
+   fresh prepare's frame bit for bit, K2 launches once on the frame after
+   it and not on the next, the despawn gives the first frame back bit for
+   bit, a spawn with new texture content makes one full prepare; the
+   spawned and fallback frames hold the golden bar.  Then the window loop:
+   ``run_windowed`` through an OffscreenWindow, 3 frames with a resize to
+   384x160 pending before frame 2, the last frame (160, 384, 4) within the
+   golden bar of the CPU's; ``present_divisor=2`` presents (64, 128, 4).
 4. Frames at 1920x1080 through the port's App.run along the reference
    benchmark's small camera orbit, on each of the four paths (the
    texture-stack path on the all-slots scene): finite, not black, sky
@@ -73,7 +83,13 @@ Phases (each raises on failure; the script then exits non-zero):
    (``TileShardedRenderer``, world of one, ``ssao_res_divisor=1``) along
    the same orbit, and ``rows@grid`` on the stress scene, timed and
    profiled the same way; they launch the band kernels and no
-   whole-frame raster or SSAO kernel.
+   whole-frame raster or SSAO kernel.  Then the interactive loop:
+   ``window`` and ``window/2``, the default path on the tiny scene through
+   ``run_windowed`` and an OffscreenWindow at ``present_divisor`` 1 and 2,
+   timed in turns with ``App.run`` on the same app and profiled the same
+   way; and ``spawn@grid``, five cube spawns into grid_world(10): the
+   medians of the ``_sync_topology`` ms, of the first frame after a spawn
+   and of the next, and of a full ``prepare`` of the same world.
 
 The last two lines are a JSON summary of the kernels and the contract
 line {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -702,8 +718,6 @@ def check_small_frames(device):
     """Phase 3: the 256x128 frames on the card vs on the CPU; the stack
     kernel launches on the card exactly where the config and the path
     call for it."""
-    import numpy as np
-
     from mo_renderer_tpu_torch import Renderer, scenes
     from mo_renderer_tpu_torch.kernels import _build
 
@@ -744,7 +758,7 @@ def check_small_frames(device):
             r = Renderer(cfg, dev)
             r.prepare(world)
             before = _build.LAUNCHES["stack_planes"]
-            frames.append(r.render(world).astype(np.int32))
+            frames.append(r.render(world))
             launched = _build.LAUNCHES["stack_planes"] > before
             if launched != (k7 and dev == device):
                 raise AssertionError(
@@ -753,21 +767,158 @@ def check_small_frames(device):
         gpu, cpu = frames
         if gpu.shape != (128, 256, 4):
             raise AssertionError(f"256x128 frame has shape {gpu.shape}")
-        diff = np.abs(gpu - cpu)[..., :3]
-        mean, big = diff.mean(), (diff > 16).mean()
-        print(f"[3] 256x128 {what} frame, card vs CPU: max |diff| "
-              f"{diff.max()} LSB, mean {mean:.4f} LSB, {big:.4%} of "
-              "channels > 16 (bar: mean < 2, < 0.5%)", flush=True)
-        if not (mean < 2.0 and big < 0.005):
-            raise AssertionError(f"256x128 {what} card frame misses the "
-                                 "golden bar")
+        golden_bar(f"256x128 {what} frame", gpu, cpu)
+
+
+def golden_bar(what, gpu, cpu):
+    """Card frame against CPU frame: mean |diff| < 2/255 and fewer than
+    0.5% of channels above 16/255 (tests/test_golden.py:99-107)."""
+    import numpy as np
+
+    if gpu.shape != cpu.shape:
+        raise AssertionError(f"{what}: card frame {gpu.shape}, CPU frame "
+                             f"{cpu.shape}")
+    diff = np.abs(gpu.astype(np.int32) - cpu.astype(np.int32))[..., :3]
+    mean, big = diff.mean(), (diff > 16).mean()
+    print(f"[3] {what}, card vs CPU: max |diff| {diff.max()} LSB, mean "
+          f"{mean:.4f} LSB, {big:.4%} of channels > 16 (bar: mean < 2, "
+          "< 0.5%)", flush=True)
+    if not (mean < 2.0 and big < 0.005):
+        raise AssertionError(f"{what}: the card frame misses the golden bar")
+
+
+def _cube(x, y, z, **kw):
+    from mo_renderer_tpu_torch.assets.procedural import procedural_model
+    from mo_renderer_tpu_torch.math.transform import Transform
+
+    return (Transform.from_xyz(x, y, z), procedural_model("cube", **kw))
+
+
+def check_topology(device):
+    """Phase 3, incremental topology at 256x128 on the tiny scene, the same
+    steps on the card and on the CPU: a default-texture cube spawned into
+    the default path is incremental (no prepare, the same pack state) and
+    its frame equals a fresh prepare's bit for bit; the shadow raster (K2)
+    runs once on the frame after the spawn and not on the next; the
+    despawn gives the first frame back bit for bit; a spawn with new
+    texture content falls back to one full prepare.  The spawned and the
+    fallback frames hold the golden bar against the CPU's."""
+    import numpy as np
+
+    from mo_renderer_tpu_torch import Renderer, scenes
+    from mo_renderer_tpu_torch.kernels import _build
+
+    cfg = scenes.tiny_config()
+    frames = {}
+    for dev in (device, "cpu"):
+        world = scenes.tiny_world()
+        world.insert_resource(scenes.camera(cfg))
+        r = Renderer(cfg, dev)
+        r.prepare(world)
+        f0 = r.render(world)
+        pack = r.scene._host_pack
+        entity = world.spawn(_cube(0.6, 0.3, 0.9, base_color=(0.2, 0.9, 0.2,
+                                                              1.0)))
+        _build.reset_launches()
+        f1 = r.render(world)
+        k2_first = _build.LAUNCHES["raster_depth"]
+        if r._prepare_count != 1 or r.scene._host_pack is not pack:
+            raise AssertionError(f"{dev}: the default-texture spawn ran a "
+                                 "full prepare")
+        if np.array_equal(f0, f1):
+            raise AssertionError(f"{dev}: the spawned cube is not rendered")
+        if dev != "cpu":
+            _build.reset_launches()
+            f1_again = r.render(world)
+            k2_next = _build.LAUNCHES["raster_depth"]
+            if (k2_first, k2_next) != (1, 0):
+                raise AssertionError(
+                    f"shadow raster launches {k2_first} on the frame after "
+                    f"the spawn and {k2_next} on the next (want 1, 0)")
+            fresh = Renderer(cfg, dev)
+            fresh.prepare(world)
+            if not (np.array_equal(f1, fresh.render(world))
+                    and np.array_equal(f1, f1_again)):
+                raise AssertionError("the incremental spawn's card frame "
+                                     "differs from a fresh prepare's")
+        world.despawn(entity)
+        if not np.array_equal(r.render(world), f0) or r._prepare_count != 1:
+            raise AssertionError(f"{dev}: the despawn did not give the "
+                                 "pre-spawn frame back incrementally")
+        world.spawn(_cube(-0.8, 0.3, 0.8, mr_gradient=True))
+        f3 = r.render(world)
+        if r._prepare_count != 2:
+            raise AssertionError(f"{dev}: new texture content made "
+                                 f"{r._prepare_count - 1} prepares, want 1")
+        frames[dev] = (f1, f3)
+    print(f"[3] topology on {device}: spawn incremental and equal to a "
+          "fresh prepare bit for bit, K2 1 then 0 launches, despawn gives "
+          "the first frame back, new texture content 1 prepare", flush=True)
+    for i, what in enumerate(("spawned", "fallback")):
+        golden_bar(f"256x128 {what} frame", frames[device][i],
+                   frames["cpu"][i])
+
+
+def check_window_loop(device):
+    """Phase 3, the window loop: ``run_windowed`` through an
+    OffscreenWindow for 3 frames of the tiny scene at 256x128, with a
+    resize to 384x160 pending before frame 2, on the card and on the CPU;
+    the last frame presented has the new size and holds the golden bar.
+    Then ``present_divisor=2`` presents the card frame's even rows and
+    columns, (64, 128, 4)."""
+    import numpy as np
+
+    from mo_renderer_tpu_torch import App, scenes
+    from mo_renderer_tpu_torch.app.window import OffscreenWindow, run_windowed
+
+    def make_app(dev):
+        app = App.new(config=scenes.tiny_config(), device=dev)
+        app.world = scenes.tiny_world()
+        app.insert_resource(scenes.camera(app.config))
+        return app
+
+    last = {}
+    for dev in (device, "cpu"):
+        app = make_app(dev)
+        shapes = []
+
+        class Resizing(OffscreenWindow):
+            def present(self, frame):
+                super().present(frame)
+                shapes.append(frame.shape)
+                if len(shapes) == 1:
+                    self.pending_resize = (384, 160)
+
+        window = Resizing(256, 128)
+        shown = run_windowed(app, window=window, max_frames=3)
+        want = [(128, 256, 4), (160, 384, 4), (160, 384, 4)]
+        if shown != 3 or shapes != want:
+            raise AssertionError(f"{dev}: window loop showed {shown} frames "
+                                 f"of {shapes}, want {want}")
+        last[dev] = window.frame
+    golden_bar("window loop, last frame after the resize to 384x160",
+               last[device], last["cpu"])
+
+    app = make_app(device)
+    window = OffscreenWindow(256, 128)
+    run_windowed(app, window=window, max_frames=1, present_divisor=2)
+    full = app.renderer.render(app.world)
+    if window.frame.shape != (64, 128, 4) or not np.array_equal(
+            window.frame, full[::2, ::2]):
+        raise AssertionError(f"present_divisor=2 presented "
+                             f"{window.frame.shape}, not the full frame's "
+                             "even rows and columns (64, 128, 4)")
+    print("[3] window loop, present_divisor=2: (64, 128, 4), the full "
+          "frame's even rows and columns", flush=True)
 
 
 def check_sharded_frames(device, group, cpu_group):
     """Phase 3, the row-sharded frame: TileShardedRenderer at 256x256 on
     the card (``group``, NCCL) against the same on the CPU (``cpu_group``,
-    gloo), checkerboard on and off; the band kernels launch on the
-    card."""
+    gloo), checkerboard on and off; the band kernels launch on the card.
+    With the checkerboard on, a cube spawned into the same world shows in
+    the next sharded frame, incrementally (the band program is kept), on
+    both."""
     import numpy as np
 
     from mo_renderer_tpu_torch import scenes
@@ -775,7 +926,7 @@ def check_sharded_frames(device, group, cpu_group):
     from mo_renderer_tpu_torch.parallel import TileShardedRenderer
 
     for cb in (True, False):
-        frames = []
+        frames, spawned = [], []
         for dev, g in ((device, group), ("cpu", cpu_group)):
             cfg = scenes.tiny_config(height=256, checkerboard=cb,
                                      **ROWS_OVERRIDES)
@@ -790,18 +941,25 @@ def check_sharded_frames(device, group, cpu_group):
             if dev == device and idle:
                 raise AssertionError(f"256x256 sharded frame: {idle} did "
                                      "not launch")
+            if cb:
+                program = ts._frame_fn
+                world.spawn(_cube(0.6, 0.3, 0.9,
+                                  base_color=(0.2, 0.9, 0.2, 1.0)))
+                spawned.append(ts.render(world))
+                if (np.array_equal(spawned[-1], frames[-1])
+                        or ts._frame_fn is not program
+                        or ts._inner._prepare_count != 1):
+                    raise AssertionError(
+                        f"{dev}: the sharded spawn is not visible or "
+                        "rebuilt the band program")
         gpu, cpu = frames
         if gpu.shape != (256, 256, 4):
             raise AssertionError(f"sharded frame has shape {gpu.shape}")
-        diff = np.abs(gpu - cpu)[..., :3]
-        mean, big = diff.mean(), (diff > 16).mean()
-        print(f"[3] 256x256 row-sharded frame (world of {group.size}, "
-              f"checkerboard {cb}), card vs CPU: max |diff| {diff.max()} "
-              f"LSB, mean {mean:.4f} LSB, {big:.4%} of channels > 16 (bar: "
-              "mean < 2, < 0.5%)", flush=True)
-        if not (mean < 2.0 and big < 0.005):
-            raise AssertionError("256x256 row-sharded card frame misses the "
-                                 "golden bar")
+        golden_bar(f"256x256 row-sharded frame (world of {group.size}, "
+                   f"checkerboard {cb})", gpu, cpu)
+        if cb:
+            golden_bar("256x256 row-sharded frame after a spawn (band "
+                       "program kept)", *spawned)
 
 
 def profile_frames(run, n_frames=2):
@@ -927,13 +1085,7 @@ def run_full_frame(device, line, path, n_frames, group=None, warmup=3):
     if not 0.0 < covered < 1.0:
         raise AssertionError(f"covered fraction {covered}: need sky and "
                              "geometry")
-    idle = [k for k in kernels if counts[k] == 0]
-    if idle:
-        raise AssertionError(f"{path}: kernels never launched: {idle}")
-    stray = [k for k, v in counts.items() if v and k not in kernels]
-    if stray:
-        raise AssertionError(f"{path}: launched kernels of other paths: "
-                             f"{stray}")
+    _check_launches(path, kernels, counts)
     if "interleave_present" in kernels and (
             counts["interleave_present"] != warmup + n_frames
             or present_calls):
@@ -946,6 +1098,147 @@ def run_full_frame(device, line, path, n_frames, group=None, warmup=3):
             and counts["raster_depth"] != warmup + n_frames):
         raise AssertionError("the reference path must re-raster the shadow "
                              "map every frame")
+    return counts, ms
+
+
+def _check_launches(path, kernels, counts):
+    idle = [k for k in kernels if counts[k] == 0]
+    if idle:
+        raise AssertionError(f"{path}: kernels never launched: {idle}")
+    stray = [k for k, v in counts.items() if v and k not in kernels]
+    if stray:
+        raise AssertionError(f"{path}: launched kernels of other paths: "
+                             f"{stray}")
+
+
+def run_spawn_path(device, line, n_spawns=5, warmup=3):
+    """Phase 4, ``spawn@grid``: the default path on scenes.grid_world(10)
+    at 1920x1080 through App, with ``n_spawns`` default-texture cubes
+    spawned one at a time.  For each: the wall ms of
+    ``Renderer._sync_topology`` (the incremental repack, device work
+    synchronised), of the first frame after it (the re-bake of the
+    per-triangle rows and the shadow re-raster included) and of the next,
+    steady-state frame; K2 must launch once on the first and not on the
+    next.  Then the wall ms of a full ``prepare`` of the same world (what
+    a spawn cost before the repack was incremental).  Medians."""
+    import torch
+
+    from mo_renderer_tpu_torch import App, scenes
+    from mo_renderer_tpu_torch.config import EngineConfig
+    from mo_renderer_tpu_torch.kernels import _build
+
+    cfg = EngineConfig(width=1920, height=1080)
+    app = App.new(config=cfg, device=device)
+    app.world = scenes.grid_world(10)
+    app.insert_resource(scenes.grid_camera(cfg))
+    app.resumed()
+    r, world = app.renderer, app.world
+    app.run(num_frames=warmup)
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    _build.reset_launches()
+    sync_ms, first_ms, steady_ms = [], [], []
+    for i in range(n_spawns):
+        world.spawn(_cube(-4.8 + 2.4 * i, 2.5, 0.0,
+                          base_color=(1.0, 1.0, 0.0, 1.0)))
+        sync_ms.append(wall_ms(lambda: r._sync_topology(world)))
+        if r._prepare_count != 1:
+            raise AssertionError(f"spawn@grid: spawn {i} ran a full prepare")
+        k2 = _build.LAUNCHES["raster_depth"]
+        first_ms.append(wall_ms(app.render_frame))
+        k2_first = _build.LAUNCHES["raster_depth"] - k2
+        steady_ms.append(wall_ms(app.render_frame))
+        k2_next = _build.LAUNCHES["raster_depth"] - k2 - k2_first
+        if (k2_first, k2_next) != (1, 0):
+            raise AssertionError(
+                f"spawn@grid: shadow raster launches {k2_first} on the "
+                f"frame after spawn {i} and {k2_next} on the next (want 1, 0)")
+    counts = dict(_build.LAUNCHES)
+    r.check_overflow()
+    _check_launches("spawn@grid", PATHS["default"][1], counts)
+    prepare_ms = [wall_ms(lambda: r.prepare(world)) for _ in range(5)]
+    med = {"sync_topology_ms": statistics.median(sync_ms),
+           "first_frame_ms": statistics.median(first_ms),
+           "steady_frame_ms": statistics.median(steady_ms),
+           "prepare_ms": statistics.median(prepare_ms)}
+    print(f"[4] spawn@grid 1920x1080 ({r.scene.indices.shape[0]} triangle "
+          f"rows): {n_spawns} cube spawns, _sync_topology "
+          f"{med['sync_topology_ms']:.3f} ms (median of "
+          f"{[round(t, 3) for t in sync_ms]}), first frame after a spawn "
+          f"{med['first_frame_ms']:.3f} ms ({[round(t, 3) for t in first_ms]})"
+          f", next frame {med['steady_frame_ms']:.3f} ms "
+          f"({[round(t, 3) for t in steady_ms]}); full prepare of the same "
+          f"world {med['prepare_ms']:.3f} ms "
+          f"({[round(t, 3) for t in prepare_ms]}); launches {counts}; on "
+          f"{line}", flush=True)
+    return counts, med
+
+
+def run_window_path(device, line, divisor, n_frames=8, warmup=3):
+    """Phase 4, ``window`` and ``window/2``: the 1080p default path on the
+    tiny scene through ``run_windowed`` and an OffscreenWindow along the
+    orbit, at ``present_divisor`` 1 or 2: ms/frame (the host fetch of the
+    presented frame included), in turns with ``App.run`` on the same app
+    (window, App.run, App.run, window; the launch counts are those of the
+    warm-up and the first window turn), then launches and device ms per
+    frame from torch.profiler over two more window frames."""
+    import torch
+
+    from mo_renderer_tpu_torch import App, scenes
+    from mo_renderer_tpu_torch.app.window import OffscreenWindow, run_windowed
+    from mo_renderer_tpu_torch.config import EngineConfig
+    from mo_renderer_tpu_torch.kernels import _build
+
+    path = "window" if divisor == 1 else f"window/{divisor}"
+    cfg = EngineConfig(width=1920, height=1080)
+    app = App.new(config=cfg, device=device)
+    app.world = scenes.tiny_world()
+    app.insert_resource(scenes.camera(cfg))
+    app.add_runtime_system(scenes.orbit_system(warmup + 4 * n_frames))
+    window = OffscreenWindow(1920, 1080)
+
+    def run(n):
+        return run_windowed(app, window=window, max_frames=n,
+                            present_divisor=divisor)
+
+    def ms_per_frame(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(n_frames)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n_frames
+
+    _build.reset_launches()
+    run(warmup)
+    turns = {"window": [ms_per_frame(run)]}
+    counts = dict(_build.LAUNCHES)
+    turns["app"] = [ms_per_frame(lambda n: app.run(num_frames=n))
+                    for _ in range(2)]
+    turns["window"].append(ms_per_frame(run))
+    ms = statistics.mean(turns["window"])
+    app_ms = statistics.mean(turns["app"])
+    launches, device_ms = profile_frames(run)
+    want = (-(-1080 // divisor), -(-1920 // divisor), 4)
+    print(f"[4] {path} 1920x1080 (present_divisor {divisor}): presents "
+          f"{window.frame.shape}, {ms:.3f} ms/frame (run_windowed, "
+          f"OffscreenWindow; turns {[round(t, 3) for t in turns['window']]})"
+          f", App.run on the same app in turns {app_ms:.3f} ms/frame "
+          f"({[round(t, 3) for t in turns['app']]}), {n_frames} frames a "
+          f"turn, on {line}; profile (2 frames): {launches:.0f} kernel "
+          f"launches/frame, {device_ms:.3f} ms/frame of device kernel time; "
+          f"launches {counts}", flush=True)
+    if window.frame.shape != want:
+        raise AssertionError(f"{path}: presented {window.frame.shape}, want "
+                             f"{want}")
+    if window.frame[..., :3].max() == 0:
+        raise AssertionError(f"{path}: black frame")
+    _check_launches(path, PATHS["default"][1], counts)
     return counts, ms
 
 
@@ -1007,6 +1300,8 @@ def main() -> int:
 
     kernels = check_kernels(EngineConfig(width=1920, height=1080), device)
     check_small_frames(device)
+    check_topology(device)
+    check_window_loop(device)
     # the row-sharded frame's process groups: a world of one, NCCL for the
     # card, and a gloo group of the same world for the CPU comparison
     import torch.distributed as dist
@@ -1040,6 +1335,17 @@ def main() -> int:
                         launches[name][path] = counts[name]
     finally:
         dist.destroy_process_group()
+    # the interactive loop: the window on the tiny scene, spawns on the
+    # stress scene (its raster and SSAO launches go to the @grid entries)
+    for divisor in (1, 2):
+        counts, _ = run_window_path(device, line, divisor)
+        for name in PATHS["default"][1]:
+            launches[name]["window" if divisor == 1 else f"window/{divisor}"] \
+                = counts[name]
+    counts, _ = run_spawn_path(device, line)
+    for name in PATHS["default"][1]:
+        if f"{name}@grid" in launches:
+            launches[f"{name}@grid"]["spawn@grid"] = counts[name]
 
     # each kernel on the tiny scene's inputs, then the raster modes and
     # SSAO on the stress scene's; launches are those of the paths that ran

@@ -244,9 +244,10 @@ class TileShardedRenderer:
     def _rebuild_frame_fn(self) -> None:
         """Check the prepared scene's path and bind the band program; run
         again after a full re-prepare (a topology change may flip the
-        path)."""
+        path).  An incremental repack changes table contents only, and
+        keeps the program."""
         inner, cfg = self._inner, self.config
-        self._prepared_at = inner._world_generation
+        self._prepared_at = inner._prepare_count
         if not inner._fast:
             raise ValueError(
                 "row sharding requires the fast sampling path: this scene "
@@ -273,7 +274,7 @@ class TileShardedRenderer:
         if self._frame_fn is None:
             self.prepare(world)
         inner._sync_topology(world)
-        if inner._world_generation != self._prepared_at:
+        if inner._prepare_count != self._prepared_at:
             self._rebuild_frame_fn()
         inner.scene = refresh_transforms(inner.scene)
         params, has_light = inner.frame_params(world)

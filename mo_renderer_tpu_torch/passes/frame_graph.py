@@ -53,6 +53,7 @@ from ..kernels.rasterizer import BIN_H, BIN_W, rasterize, rasterize_attrs
 from ..scene.camera import Camera
 from ..scene.scene_buffers import (
     find_shadow_light,
+    incremental_repack,
     pack_scene,
     refresh_transforms,
 )
@@ -321,12 +322,16 @@ class Renderer(torch.nn.Module):
         self.scene = None
         self.ibl = None
         self._pending_overflow = []
+        # bumped by every full prepare: wrappers that bind what prepare
+        # derives (TileShardedRenderer's band program) rebuild on a change
+        self._prepare_count = 0
         self.pad_w = _round_up(config.width, config.tile_w)
         self.pad_h = _round_up(config.height, config.tile_h)
 
     # --- scene preparation ------------------------------------------------
     def prepare(self, world) -> None:
         self._world_generation = getattr(world, "generation", None)
+        self._prepare_count += 1
         cfg = self.config
         self.scene = pack_scene(world, cfg, self.device)
         ibl_res = world.get_resource(IBLResource)
@@ -412,12 +417,26 @@ class Renderer(torch.nn.Module):
         return self._shadow_quads
 
     def _sync_topology(self, world) -> None:
-        """A spawn or despawn after prepare re-packs the whole scene
-        (incremental repacking is ROADMAP Queue 1 item 11)."""
+        """Bring the packed scene up to date with a spawn or despawn after
+        prepare (the reference's ``_sync_topology``, frame_graph.py:686):
+        ``incremental_repack`` rewrites the changed rows of the padded
+        tables in place; what the static layout cannot absorb (new texture
+        content, a capacity overflow, a light-count change, a UV1 material
+        on the fast path) falls back to a full ``prepare``."""
         gen = getattr(world, "generation", None)
-        if gen is not None and gen != self._world_generation:
-            logger.info("world topology changed: full re-prepare")
+        if gen is None or gen == self._world_generation:
+            return
+        new_scene = incremental_repack(self.scene, world, self.config,
+                                       forbid_uv1=self._fast)
+        if new_scene is None:
+            logger.info("world topology changed (generation %s -> %s): "
+                        "full re-prepare", self._world_generation, gen)
             self.prepare(world)
+            return
+        logger.info("world topology changed (generation %s -> %s): "
+                    "incremental repack", self._world_generation, gen)
+        self.scene = new_scene
+        self._world_generation = gen
 
     def frame_params(self, world):
         camera: Camera = world.resource(Camera)

@@ -1,14 +1,22 @@
 """Scene packing: World -> padded tensors on a torch device (port of
 ``mo_renderer_tpu/scene/scene_buffers.py``: ``SceneBuffers``,
-``pack_scene``, ``refresh_tri_attrs``, ``refresh_transforms`` and
-``find_shadow_light``).
+``pack_scene``, ``incremental_repack``, ``refresh_tri_attrs``,
+``refresh_transforms`` and ``find_shadow_light``).
 
 The packing itself is host-side numpy, identical to the reference.  The
 reference uploads with ``jnp.asarray``, which (64-bit types being off in
 JAX) turns float64 into float32 and int64 into int32; here every field's
 dtype is explicit (``_FIELD_DTYPES``).  Texture stacks and other packed
-uint32 words are held as int32 bit patterns.  Incremental spawn and
-despawn are not ported: a topology change re-packs the scene.
+uint32 words are held as int32 bit patterns.
+
+A spawn or despawn after the pack rewrites only the rows it changes
+(``incremental_repack``): the changed row ranges of the padded host
+mirrors are copied into the device tensors in place.  The reference's
+chunked single-buffer uploads and their pre-compiled program
+(``_apply_tail_chunks``, ``warm_incremental``) exist for a slow TPU host
+link and an XLA program cache, and are not ported.  No device tensor
+shares memory with a host mirror or cache: on the CPU ``Tensor.to``
+would alias a numpy array, so every upload copies.
 """
 
 from __future__ import annotations
@@ -107,6 +115,50 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+@dataclasses.dataclass
+class _EntityRecord:
+    """Packed placement of one (Transform, Model) entity in the soup.
+
+    ``refs`` keeps the (transform, model) objects alive while the record
+    is: identity matching uses their ids, and a freed object's address
+    can be reused by a later allocation -- a strong reference makes the
+    collision impossible.  Cleared when the record dies (dead records
+    are never matched)."""
+
+    key: tuple  # (id(transform), id(model))
+    mesh0: int
+    v0: int
+    t0: int
+    n_meshes: int = 0
+    nv: int = 0
+    nt: int = 0
+    alive: bool = True
+    refs: tuple | None = None
+
+
+@dataclasses.dataclass
+class _PackState:
+    """Host-side packing metadata for incremental topology updates (spawn
+    and despawn after the pack).  Every tensor's shape is fixed at pack
+    time; an update only rewrites rows (tails of the padded soup, or a
+    dead entity's ``tri_valid`` range)."""
+
+    entities: list
+    v_count: int
+    t_count: int
+    m_count: int
+    n_materials: int
+    n_lights: int
+    image_ids: dict  # content hash key -> texture layer
+    uniform_rgba: list  # per layer: uniform colour or None
+    default_layer: dict  # slot name -> default layer id
+    stack_ids: dict  # slot_layers tuple -> stack entry index
+    entry_bases: list
+    entry_sizes: list
+    slot_map: np.ndarray
+    host: dict  # padded numpy mirrors of the mutable fields, device dtypes
+
+
 def _image_key(img: np.ndarray) -> tuple:
     return (
         img.shape,
@@ -165,8 +217,14 @@ def pack_scene(world, config: EngineConfig, device) -> SceneBuffers:
     default_layer["occlusion"] = default_layer["base"]
     default_layer["emissive"] = add_texture(defaults.black)
 
+    entity_records: list[_EntityRecord] = []
     vtx_offset = 0
+    tri_offset = 0
     for transform, model in world.query(Transform, Model):
+        rec = _EntityRecord(
+            key=(id(transform), id(model)), mesh0=len(mesh_worlds),
+            v0=vtx_offset, t0=tri_offset, refs=(transform, model),
+        )
         entity_world = transform.model_matrix()
         model_layer: dict[int, int] = {}
 
@@ -214,6 +272,12 @@ def pack_scene(world, config: EngineConfig, device) -> SceneBuffers:
             tri_indices.append(tri)
             tri_mesh.append(np.full(len(tri), mesh_id, np.int32))
             vtx_offset += n
+            tri_offset += len(tri)
+
+        rec.n_meshes = len(mesh_worlds) - rec.mesh0
+        rec.nv = vtx_offset - rec.v0
+        rec.nt = tri_offset - rec.t0
+        entity_records.append(rec)
 
     if vtx_offset == 0:
         raise ValueError("pack_scene: no (Transform, Model) entities in world")
@@ -359,32 +423,36 @@ def pack_scene(world, config: EngineConfig, device) -> SceneBuffers:
     for i, row in enumerate(light_rows):
         lights[i] = row
 
-    fields = to_device_fields(
+    # padded host mirrors of the mutable fields, in the device dtypes:
+    # incremental_repack appends into their tails and uploads the rows
+    host = {
+        "position": _pad_rows(position, v_pad),
+        "normal": _pad_rows(v_cat(normals).astype(np.float32), v_pad),
+        "color": _pad_rows(v_cat(colors).astype(np.float32), v_pad),
+        "uv0": _pad_rows(v_cat(uv0s).astype(np.float32), v_pad),
+        "uv1": _pad_rows(v_cat(uv1s).astype(np.float32), v_pad),
+        "tangent": _pad_rows(v_cat(tangents).astype(np.float32), v_pad),
+        "vertex_mesh": _pad_rows(v_cat(vmesh), v_pad),
+        "indices": _pad_rows(t_all, t_pad),
+        "tri_valid": tri_valid,
+        "tri_mesh": _pad_rows(v_cat(tri_mesh), t_pad),
+        "mesh_world": _pad_rows(np.stack(mesh_worlds), m_pad),
+        "mesh_normal_mat": _pad_rows(np.stack(mesh_normals), m_pad),
+        "mesh_material": _pad_rows(np.asarray(mesh_materials, np.int32),
+                                   m_pad),
+        "materials": _pad_rows(
+            np.stack(material_rows).astype(np.float32), mat_pad
+        ),
+        "lights": lights,
+    }
+    fields = to_device_fields(  # copies: no tensor aliases a mirror
         {
-            "position": _pad_rows(position, v_pad),
-            "normal": _pad_rows(v_cat(normals).astype(np.float32), v_pad),
-            "color": _pad_rows(v_cat(colors).astype(np.float32), v_pad),
-            "uv0": _pad_rows(v_cat(uv0s).astype(np.float32), v_pad),
-            "uv1": _pad_rows(v_cat(uv1s).astype(np.float32), v_pad),
-            "tangent": _pad_rows(v_cat(tangents).astype(np.float32), v_pad),
-            "vertex_mesh": _pad_rows(v_cat(vmesh), v_pad),
-            "indices": _pad_rows(t_all, t_pad),
-            "tri_valid": tri_valid,
-            "tri_mesh": _pad_rows(v_cat(tri_mesh), t_pad),
-            "mesh_world": _pad_rows(np.stack(mesh_worlds), m_pad),
-            "mesh_normal_mat": _pad_rows(np.stack(mesh_normals), m_pad),
-            "mesh_material": _pad_rows(
-                np.asarray(mesh_materials, np.int32), m_pad
-            ),
-            "materials": _pad_rows(
-                np.stack(material_rows).astype(np.float32), mat_pad
-            ),
+            **host,
             "textures": tex_array,
             "texture_stack_a": stack_group(0, 2),
             "texture_stack_b": stack_group(2, 4),
             "texture_stack_c": stack_group(4, 5),
             "stack_slots": slot_map,
-            "lights": lights,
             "num_lights": np.int32(len(light_rows)),
             "tri_attrs": np.zeros((t_pad, 1), np.float32),  # placeholder
         },
@@ -395,7 +463,235 @@ def pack_scene(world, config: EngineConfig, device) -> SceneBuffers:
     scene._host_mesh_sources = mesh_sources
     scene._host_worlds_cache = np.stack(mesh_worlds)
     scene._host_trs_cache = _trs_fingerprint(mesh_sources)
+    scene._host_pack = _PackState(
+        entities=entity_records, v_count=v_count, t_count=t_count,
+        m_count=m_count, n_materials=len(material_rows),
+        n_lights=len(light_rows), image_ids=image_ids,
+        uniform_rgba=uniform_rgba, default_layer=default_layer,
+        stack_ids=stack_ids, entry_bases=entry_bases,
+        entry_sizes=entry_sizes, slot_map=slot_map, host=host,
+    )
     return scene
+
+
+# the fields an appended entity writes, by the count that indexes their rows
+_APPEND_FIELDS = {
+    "v": ("position", "normal", "color", "uv0", "uv1", "tangent",
+          "vertex_mesh"),
+    "t": ("indices", "tri_mesh", "tri_valid"),
+    "m": ("mesh_world", "mesh_normal_mat", "mesh_material"),
+    "mat": ("materials",),
+}
+_UV_SET_FIELDS = ("base_color_uv", "normal_uv", "surface_properties_uv",
+                  "occlusion_uv", "emissive_uv")
+
+
+def _write_rows(scene: SceneBuffers, host: dict, name: str, lo: int,
+                hi: int) -> None:
+    """Copy rows [lo, hi) of the mirror ``name`` into the scene's tensor in
+    place.  A blocking copy on the current stream: it lands after every
+    frame queued before it, and the mirror may be written again at once."""
+    if hi > lo:
+        getattr(scene, name)[lo:hi].copy_(torch.from_numpy(host[name][lo:hi]))
+
+
+def incremental_repack(
+    scene: SceneBuffers, world, config: EngineConfig, forbid_uv1: bool = False
+) -> SceneBuffers | None:
+    """Apply a world topology change (spawn/despawn) to an already-packed
+    scene by rewriting only the affected rows of the padded soup.
+
+    - **despawn**: the entity's triangles are masked out of ``tri_valid``
+      (its rows stay as dead padding until the next full prepare);
+    - **spawn** of a model whose texture CONTENT already exists in the
+      packed stacks (another instance of a packed model, or a procedural
+      model with default textures): vertices, triangles, meshes and
+      materials append into the padded tails.
+
+    Returns a new SceneBuffers (a new object, so that the Renderer's
+    shadow memo recomputes) over the same tensors, or None when the change
+    cannot be expressed without repacking: new texture content or
+    stack-entry combination, a sampled texture in a slot the scene holds
+    constant, any capacity overflow, a light-count change, or -- when
+    ``forbid_uv1`` -- a new material sampling UV set 1.  The caller then
+    runs the full ``pack_scene``.
+
+    Existing entities' mesh and material data is not re-read (as in the
+    reference): mutate a packed material and call ``Renderer.prepare``.
+    Transforms are the dynamic exception (``refresh_transforms``).
+    """
+    st = getattr(scene, "_host_pack", None)
+    sources = getattr(scene, "_host_mesh_sources", None)
+    if st is None or sources is None:
+        return None
+
+    # light set: content changes repack in place, count changes re-prepare
+    # (the shading loop is specialised to the live count)
+    light_rows = []
+    for comp_type in (DirectionalLight, PointLight, SpotLight):
+        for light in world.query(comp_type):
+            light_rows.append(light.gpu_light())
+    if len(light_rows) != st.n_lights:
+        return None
+
+    current = list(world.query(Transform, Model))
+    if not current:
+        return None  # empty scene: let pack_scene raise its clear error
+
+    # match current entities against packed records by object identity
+    by_key: dict[tuple, list[_EntityRecord]] = {}
+    for rec in st.entities:
+        if rec.alive:
+            by_key.setdefault(rec.key, []).append(rec)
+    to_append: list[tuple] = []
+    matched: set[int] = set()
+    for transform, model in current:
+        pool = by_key.get((id(transform), id(model)))
+        if pool:
+            matched.add(id(pool.pop(0)))
+        else:
+            to_append.append((transform, model))
+    dead = [rec for rec in st.entities
+            if rec.alive and id(rec) not in matched]
+
+    # --- validate appends against the frozen static layout ---------------
+    plans = []  # (transform, model, per-mesh (slot_layers, entry))
+    for transform, model in to_append:
+        mesh_plans = []
+        for mesh in model.meshes:
+            mat = mesh.material
+            if forbid_uv1 and any(getattr(mat, f) for f in _UV_SET_FIELDS):
+                return None  # the fast path samples UV set 0 only
+            slot_layers = []
+            for tex_idx, slot in (
+                (mat.base_color_texture, "base"),
+                (mat.normal_texture, "normal"),
+                (mat.surface_properties_texture, "mr"),
+                (mat.occlusion_texture, "occlusion"),
+                (mat.emissive_texture, "emissive"),
+            ):
+                if tex_idx == DEFAULT_TEXTURE_MAP:
+                    slot_layers.append(st.default_layer[slot])
+                else:
+                    layer = st.image_ids.get(
+                        _image_key(model.textures[tex_idx]))
+                    if layer is None:
+                        return None  # new texture content: stacks must grow
+                    slot_layers.append(layer)
+            slot_layers = tuple(slot_layers)
+            entry = st.stack_ids.get(slot_layers)
+            if entry is None:
+                return None  # new stack-entry combination
+            # a sampled texture in a slot the scene holds constant has no
+            # stack position to read from
+            for slot in range(5):
+                if (st.uniform_rgba[slot_layers[slot]] is None
+                        and st.slot_map[slot] < 0):
+                    return None
+            mesh_plans.append((slot_layers, entry))
+        plans.append((transform, model, mesh_plans))
+
+    meshes = [mesh for _, m, _ in plans for mesh in m.meshes]
+    h = st.host
+    if (
+        st.v_count + sum(m.primitive.num_vertices for m in meshes)
+        > h["position"].shape[0]
+        or st.t_count + sum(len(m.primitive.indices) // 3 for m in meshes)
+        > h["indices"].shape[0]
+        or st.m_count + len(meshes) > h["mesh_world"].shape[0]
+        or st.n_materials + len(meshes) > h["materials"].shape[0]
+    ):
+        return None  # exceeds the padded capacities: full prepare
+
+    # --- apply: all validation passed; mirrors first, then the device ----
+    base = {"v": st.v_count, "t": st.t_count, "m": st.m_count,
+            "mat": st.n_materials}
+    for rec in dead:
+        rec.alive = False
+        rec.refs = None  # allow GC; dead records are never matched
+        h["tri_valid"][rec.t0 : rec.t0 + rec.nt] = False
+        _write_rows(scene, h, "tri_valid", rec.t0, rec.t0 + rec.nt)
+
+    for transform, model, mesh_plans in plans:
+        rec = _EntityRecord(
+            key=(id(transform), id(model)), mesh0=st.m_count,
+            v0=st.v_count, t0=st.t_count, refs=(transform, model),
+        )
+        entity_world = transform.model_matrix()
+        for mesh, (slot_layers, entry) in zip(model.meshes, mesh_plans):
+            mesh_id = st.m_count
+            world_mat = (entity_world @ mesh.world).astype(np.float32)
+            h["mesh_world"][mesh_id] = world_mat
+            h["mesh_normal_mat"][mesh_id] = normal_matrix(world_mat)
+            sources.append((transform, mesh.world))
+
+            row = pack_material_gpu(mesh.material, *slot_layers)
+            for slot in range(5):
+                c = st.uniform_rgba[slot_layers[slot]]
+                if c is not None:
+                    b = pack_M.MAT_CONST_BASE + 4 * slot
+                    row[b : b + 4] = c
+            row[pack_M.MAT_STACK_BASE] = st.entry_bases[entry]
+            row[pack_M.MAT_STACK_SIZE] = st.entry_sizes[entry]
+            mesh.gpu_mat_index = st.n_materials
+            h["materials"][st.n_materials] = row
+            h["mesh_material"][mesh_id] = st.n_materials
+            st.n_materials += 1
+
+            prim = mesh.primitive
+            n = prim.num_vertices
+            v0, t0, nt = st.v_count, st.t_count, len(prim.indices) // 3
+            h["position"][v0 : v0 + n] = prim.position[:, :3]
+            h["normal"][v0 : v0 + n] = prim.normal[:, :3]
+            h["color"][v0 : v0 + n] = prim.color
+            h["uv0"][v0 : v0 + n] = prim.uv0
+            h["uv1"][v0 : v0 + n] = prim.uv1
+            h["tangent"][v0 : v0 + n] = prim.tangent
+            h["vertex_mesh"][v0 : v0 + n] = mesh_id
+            h["indices"][t0 : t0 + nt] = (
+                prim.indices.reshape(-1, 3).astype(np.int32) + v0
+            )
+            h["tri_mesh"][t0 : t0 + nt] = mesh_id
+            h["tri_valid"][t0 : t0 + nt] = True
+            st.v_count += n
+            st.t_count += nt
+            st.m_count += 1
+        rec.n_meshes = st.m_count - rec.mesh0
+        rec.nv = st.v_count - rec.v0
+        rec.nt = st.t_count - rec.t0
+        st.entities.append(rec)
+    end = {"v": st.v_count, "t": st.t_count, "m": st.m_count,
+           "mat": st.n_materials}
+    for cls, names in _APPEND_FIELDS.items():
+        for name in names:
+            _write_rows(scene, h, name, base[cls], end[cls])
+
+    # light content (same count): rewrite the rows in place
+    lights = np.zeros_like(h["lights"])
+    for i, row in enumerate(light_rows):
+        lights[i] = row
+    new_lights = not np.array_equal(lights, h["lights"])
+    if new_lights:
+        h["lights"] = lights
+        _write_rows(scene, h, "lights", 0, len(lights))
+
+    if not (dead or plans or new_lights):
+        return scene  # pure reorder / no-op topology bump
+    new_scene = dataclasses.replace(scene)
+    if plans:
+        # tri_attrs reads the appended rows (and no tri_valid: a despawn
+        # leaves it as it is)
+        new_scene = refresh_tri_attrs(new_scene)
+    new_scene._host_mesh_sources = sources
+    new_scene._host_worlds_cache = None  # invalidated by the append
+    # carry the OLD TRS cache forward, not a fresh fingerprint: the mesh
+    # rows were written from the last-baked worlds, so a transform that
+    # moved since then must still look "changed" to the next
+    # refresh_transforms (appends also change the fingerprint's shape,
+    # which forces a re-bake)
+    new_scene._host_trs_cache = getattr(scene, "_host_trs_cache", None)
+    new_scene._host_pack = st
+    return new_scene
 
 
 def refresh_tri_attrs(scene: SceneBuffers) -> SceneBuffers:
@@ -444,17 +740,27 @@ def refresh_transforms(scene: SceneBuffers) -> SceneBuffers:
     m_pad = scene.mesh_world.shape[0]
     dev = scene.mesh_world.device
     normals = np.stack([normal_matrix(w) for w in worlds])
+    # copy=True: on the CPU the tensor would otherwise share memory with
+    # ``worlds``, the cache kept below
     new_scene = dataclasses.replace(
         scene,
-        mesh_world=torch.from_numpy(_pad_rows(worlds, m_pad)).to(dev),
-        mesh_normal_mat=torch.from_numpy(
-            _pad_rows(normals.astype(np.float32), m_pad)
-        ).to(dev),
+        mesh_world=torch.from_numpy(_pad_rows(worlds, m_pad)).to(
+            dev, copy=True),
+        mesh_normal_mat=torch.from_numpy(_pad_rows(normals, m_pad)).to(
+            dev, copy=True),
     )
     new_scene = refresh_tri_attrs(new_scene)
     new_scene._host_mesh_sources = sources
     new_scene._host_worlds_cache = worlds
     new_scene._host_trs_cache = fp
+    # keep the pack state and its mirrors in sync: a later spawn writes
+    # mesh rows from the mirror, which would silently revert this move if
+    # it were stale
+    st = getattr(scene, "_host_pack", None)
+    if st is not None:
+        st.host["mesh_world"][: len(worlds)] = worlds
+        st.host["mesh_normal_mat"][: len(normals)] = normals
+        new_scene._host_pack = st
     return new_scene
 
 

@@ -61,6 +61,17 @@ def test_card_frame_matches_cpu_frame(cuda):
     chip_smoke.check_small_frames(cuda)
 
 
+@pytest.mark.cuda
+def test_interactive_loop_on_the_card(cuda):
+    """Spawns, a despawn and a fallback on the card against a fresh
+    prepare and the CPU; the window loop with a live resize and
+    present_divisor=2 (chip_smoke's phase 3)."""
+    import chip_smoke
+
+    chip_smoke.check_topology(cuda)
+    chip_smoke.check_window_loop(cuda)
+
+
 def _soup_binned(seed, n_tri, width, height, extra_cols=0, device="cpu"):
     """Random triangles through the port's own setup and binning, with
     ``extra_cols`` random megakernel columns (1/w corners in (0.2, 2))."""

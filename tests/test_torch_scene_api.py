@@ -93,3 +93,23 @@ def test_procedural_model_arrays_equal(kind, kw):
     for k, v in dataclasses.asdict(m.meshes[0].material).items():
         np.testing.assert_array_equal(
             v, dataclasses.asdict(jm.meshes[0].material)[k], err_msg=k)
+
+
+def test_window_descriptor_defaults_equal():
+    """The window shell's descriptors (app/window.py) keep the reference's
+    fields and defaults; both modules import without pygame."""
+    from mo_renderer_tpu.app import window as JW
+    from mo_renderer_tpu_torch.app import window as W
+
+    for name in ("WindowResizeConstraints", "WindowDescriptor"):
+        got, want = getattr(W, name)(), getattr(JW, name)()
+        got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+        if name == "WindowDescriptor":
+            assert got.pop("mode").value == want.pop("mode").value
+        assert got == want, name
+    assert [m.value for m in W.WindowMode] == [m.value for m in JW.WindowMode]
+    for w, h in ((64, 32), (1000, 50), (100, 5000)):
+        c = dict(min_width=400.0, max_width=200.0, min_height=-5.0,
+                 max_height=300.0)
+        assert (W.WindowResizeConstraints(**c).clamp(w, h)
+                == JW.WindowResizeConstraints(**c).clamp(w, h))

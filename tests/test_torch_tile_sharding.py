@@ -201,3 +201,57 @@ def test_world_of_one_is_the_single_device_frame():
         np.testing.assert_array_equal(ts.render(world), want)
     finally:
         dist.destroy_process_group()
+
+
+def test_spawn_keeps_the_band_program():
+    """A spawn shows in the sharded frame (on a world of one, the
+    single-device frame of a fresh prepare, bit for bit), and the
+    incremental repack keeps the band program: the rebuild keys on the
+    inner Renderer's ``_prepare_count``.  A spawn the layout cannot absorb
+    (new texture content) re-prepares and rebuilds it."""
+    import torch.distributed as dist
+
+    from mo_renderer_tpu_torch.assets.procedural import procedural_model
+    from mo_renderer_tpu_torch.math.transform import Transform
+    from mo_renderer_tpu_torch.parallel import (
+        TileShardedRenderer,
+        make_rank_group,
+    )
+    from mo_renderer_tpu_torch.scene.components import DirectionalLight
+    from mo_renderer_tpu_torch.scene.world import World
+
+    cfg = scenes.tiny_config(width=128, height=64, ssao_res_divisor=1)
+    world = World()  # no IBL: the sky is black, the geometry is lit
+    world.spawn((Transform.from_xyz(0.0, -0.5, 0.0),
+                 procedural_model("plane", size=8.0)))
+    world.spawn((DirectionalLight(
+        Transform.from_xyz(5.0, 8.0, 5.0).looking_at((0.0, 0.0, 0.0)),
+        (1.0, 1.0, 1.0), 4.0, True,
+    ),))
+    world.insert_resource(scenes.camera(cfg))
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        ts = TileShardedRenderer(cfg, make_rank_group(backend="gloo"),
+                                 device="cpu")
+        ts.prepare(world)
+        f0 = ts.render(world)
+        program = ts._frame_fn
+
+        world.spawn((Transform.from_xyz(0.0, 0.5, 0.0),
+                     procedural_model("cube", base_color=(1, 0, 0, 1))))
+        f1 = ts.render(world)
+        assert not np.array_equal(f0, f1), "spawn not visible"
+        assert ts._inner._prepare_count == 1
+        assert ts._frame_fn is program, "incremental repack rebuilt"
+        r = Renderer(cfg, "cpu")
+        r.prepare(world)
+        np.testing.assert_array_equal(f1, r.render(world))
+
+        world.spawn((Transform.from_xyz(1.0, 0.5, 0.0),
+                     procedural_model("cube", textured=True)))
+        ts.render(world)
+        assert ts._inner._prepare_count == 2
+        assert ts._frame_fn is not program
+    finally:
+        dist.destroy_process_group()
