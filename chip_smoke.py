@@ -68,6 +68,19 @@ Phases (each raises on failure; the script then exits non-zero):
    ``run_windowed`` through an OffscreenWindow, 3 frames with a resize to
    384x160 pending before frame 2, the last frame (160, 384, 4) within the
    golden bar of the CPU's; ``present_divisor=2`` presents (64, 128, 4).
+   Then ``[3] render pass``: a probe RenderPass sees the padded frame,
+   dims it, ``present_pass`` runs and K5 does not launch, ``resize``
+   reaches ``on_swapchain_recreate``, card vs CPU in the golden bar.
+   ``[3] sequence``: on each of the four paths and with a pass,
+   ``render_sequence_device`` (the frame captured in a CUDA graph and
+   replayed per step) over K = 4 poses with the light fixed and K = 3
+   with it moving equals the eager ``render_device`` frames bit for bit,
+   a second call with the same key captures nothing new; the static
+   binning's pair table equals the exact one on the card, and past a
+   small capacity the graph's device overflow sum equals the eager sum.
+   ``[3] views``: ``MultiViewRenderer`` on the NCCL world of one, 3 views
+   equal 3 single-view frames bit for bit, a 3-step x 2-view sequence
+   equals per-step views, a spawn shows in the next views.
 4. Frames at 1920x1080 through the port's App.run along the reference
    benchmark's small camera orbit, on each of the four paths (the
    texture-stack path on the all-slots scene): finite, not black, sky
@@ -89,7 +102,17 @@ Phases (each raises on failure; the script then exits non-zero):
    timed in turns with ``App.run`` on the same app and profiled the same
    way; and ``spawn@grid``, five cube spawns into grid_world(10): the
    medians of the ``_sync_topology`` ms, of the first frame after a spawn
-   and of the next, and of a full ``prepare`` of the same world.
+   and of the next, and of a full ``prepare`` of the same world.  The
+   ``default`` and ``default@grid`` paths also print their launches and
+   device ms by pass (the functions ``frame_program`` calls, wrapped in
+   ``torch.profiler.record_function`` ranges by this script only).  Then
+   ``sequence`` (the default path's 16 orbit poses as one
+   ``render_sequence_device`` call, 3 timed calls beside an eager loop
+   over the same poses: ms/frame, host launch calls and device kernels per
+   frame, device ms and busy share, the static pair capacity beside the
+   exact pair counts), ``sequence@grid`` (8 poses of grid_world(10)) and
+   ``views`` (4 views a call through ``MultiViewRenderer``, which replays
+   the same captured frame per view: ms per view).
 
 The last two lines are a JSON summary of the kernels and the contract
 line {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -962,6 +985,259 @@ def check_sharded_frames(device, group, cpu_group):
                        "program kept)", *spawned)
 
 
+def check_render_pass(device):
+    """Phase 3, the RenderPass API at 256x128 on the tiny scene, on the
+    card and on the CPU: a probe pass records the context's shapes and
+    halves the colour.  The context is at the padded frame size, the frame
+    is dimmed, ``present_pass`` runs once and the checkerboard reconstruct
+    (K5) does not launch (a pass switches the checkerboard off); ``resize``
+    reaches ``on_swapchain_recreate``.  The card frame holds the golden
+    bar against the CPU's."""
+    import mo_renderer_tpu_torch.passes.frame_graph as FG
+    from mo_renderer_tpu_torch import Renderer, RenderPass, scenes
+    from mo_renderer_tpu_torch.kernels import _build
+
+    class Probe(RenderPass):
+        def __init__(self):
+            self.seen, self.sizes = [], []
+
+        def render(self, ctx):
+            self.seen.append(tuple(tuple(x.shape[:2]) for x in (
+                ctx["color"], ctx["ssao"], ctx["gbuffer"].depth)))
+            return dict(ctx, color=ctx["color"] * 0.5)
+
+        def on_swapchain_recreate(self, window_size):
+            self.sizes.append(window_size)
+
+    present_pass, calls = FG.present_pass, []
+
+    def counted_present_pass(color):
+        calls.append(color.shape)
+        return present_pass(color)
+
+    frames = {}
+    FG.present_pass = counted_present_pass
+    try:
+        for dev in (device, "cpu"):
+            cfg = scenes.tiny_config()
+            world = scenes.tiny_world()
+            world.insert_resource(scenes.camera(cfg))
+            probe = Probe()
+            r = Renderer(cfg, dev, extra_passes=[probe])
+            r.prepare(world)
+            plain = Renderer(cfg, dev)
+            plain.prepare(world)
+            full = plain.render(world)
+            _build.reset_launches()
+            calls.clear()
+            frames[dev] = r.render(world)
+            pad = (r.pad_h, r.pad_w)
+            k5 = (_build.LAUNCHES["interleave"]
+                  + _build.LAUNCHES["interleave_present"])
+            if probe.seen != [(pad, pad, pad)]:
+                raise AssertionError(f"{dev}: the pass saw {probe.seen}, "
+                                     f"want the padded frame {pad}")
+            if len(calls) != 1 or k5:
+                raise AssertionError(f"{dev}: present_pass ran {len(calls)} "
+                                     f"times and K5 launched {k5} times "
+                                     "(want 1 and 0)")
+            if not (frames[dev][..., :3].astype(int).sum()
+                    < 0.6 * full[..., :3].astype(int).sum()):
+                raise AssertionError(f"{dev}: the pass did not dim the frame")
+            r.resize(384, 160)
+            if probe.sizes != [(384, 160)]:
+                raise AssertionError(f"{dev}: resize reached "
+                                     f"on_swapchain_recreate with "
+                                     f"{probe.sizes}")
+    finally:
+        FG.present_pass = present_pass
+    print(f"[3] render pass: the probe saw {probe.seen[0]} (the padded "
+          "frame) on the card and the CPU, present_pass ran once, K5 0 "
+          "launches, resize reached on_swapchain_recreate (384, 160)",
+          flush=True)
+    golden_bar("256x128 frame with a probe pass", frames[device],
+               frames["cpu"])
+
+
+def check_sequences(device):
+    """Phase 3, camera-path sequences at 256x128 on the tiny scene: on each
+    of the four paths and with a probe pass, ``render_sequence_device``
+    over K = 4 poses with the light fixed (the memoized shadow) and K = 3
+    with it moving per step (a shadow per step, in the graph) equals the
+    eager ``render_device`` frames bit for bit; a second call with the
+    same key captures nothing new.  On the default path also: the static
+    binning's pair table equals the exact one on the card (the frame and
+    the shadow map), and with a capacity below the pair count the
+    graph's device overflow sum equals the eager frames' sum."""
+    import numpy as np
+    import torch
+
+    from mo_renderer_tpu_torch import Renderer, RenderPass, scenes
+    from mo_renderer_tpu_torch.kernels.raster_setup import (
+        triangle_setup_from_attrs,
+    )
+    from mo_renderer_tpu_torch.passes.frame_graph import (
+        _bin,
+        build_camera_params,
+    )
+    from mo_renderer_tpu_torch.scene.camera import Camera
+    from mo_renderer_tpu_torch.scene.components import DirectionalLight
+    from mo_renderer_tpu_torch.scene.scene_buffers import find_shadow_light
+
+    class Dim(RenderPass):
+        def render(self, ctx):
+            return dict(ctx, color=ctx["color"] * 0.5)
+
+    def steps(r, world, n, light_step):
+        camera = world.resource(Camera)
+        light = next(lt for lt in world.query(DirectionalLight)
+                     if lt.is_shadow_caster)
+        base = np.asarray(camera.transform.translation, np.float64).copy()
+        width = light.shadow_width
+        params, eager = [], []
+        for i in range(n):
+            camera.transform.translation = (
+                base + np.array([0.1 * i, 0.0, 0.0])).astype(np.float32)
+            camera.refresh_view()
+            light.shadow_width = width + light_step * i
+            light_pv, _ = find_shadow_light(world)
+            params.append(build_camera_params(camera, light_pv, r.device))
+            eager.append(r.render_device(world).clone())
+        camera.transform.translation = base.astype(np.float32)
+        camera.refresh_view()
+        light.shadow_width = width
+        return params, torch.stack(eager)
+
+    cases = {name: (overrides, scene_kw, ())
+             for name, (overrides, _, scene_kw) in PATHS.items()}
+    cases["probe pass"] = ({}, {}, (Dim(),))
+    for what, (overrides, scene_kw, passes) in cases.items():
+        cfg = scenes.tiny_config(**overrides)
+        world = scenes.tiny_world(**scene_kw)
+        world.insert_resource(scenes.camera(cfg))
+        r = Renderer(cfg, device, extra_passes=passes)
+        r.prepare(world)
+        out = []
+        for n, light_step in ((4, 0.0), (3, 0.5)):
+            params, eager = steps(r, world, n, light_step)
+            before = r._captures
+            frames = r.render_sequence_device(world, params)
+            again = r.render_sequence_device(world, params)
+            r.check_overflow()
+            if not (torch.equal(frames, eager) and torch.equal(again, eager)):
+                raise AssertionError(
+                    f"{what}: the replayed sequence (K = {n}, light "
+                    f"{'moving' if light_step else 'fixed'}) differs from "
+                    "the eager frames")
+            if r._captures - before > 1:
+                raise AssertionError(f"{what}: a second call with the same "
+                                     "key captured again")
+            out.append(f"K={n} light {'moving' if light_step else 'fixed'}:"
+                       f" equal, {r._captures - before} new capture(s) over "
+                       "two calls")
+        print(f"[3] sequence, {what}: {'; '.join(out)}; {r._captures} "
+              f"captures, captured launches "
+              f"{r._graph.launches if r._graph else None}",
+              flush=True)
+
+    # the default path's binning and overflow on the card
+    cfg = scenes.tiny_config()
+    world = scenes.tiny_world()
+    world.insert_resource(scenes.camera(cfg))
+    r = Renderer(cfg, device)
+    r.prepare(world)
+    params, _ = r.frame_params(world)
+    s = cfg.shadow_map_size
+    setups = {
+        "frame": (triangle_setup_from_attrs(
+            r.scene.tri_attrs, r.scene.tri_valid, params["proj_view"],
+            r.pad_w, r.pad_h), r.pad_w, r.pad_h),
+        "shadow": (triangle_setup_from_attrs(
+            r.scene.tri_attrs, r.scene.tri_valid, params["light_proj_view"],
+            s, s, cull_backface=False), s, s),
+    }
+    for what, (setup, w, h) in setups.items():
+        exact = _bin(setup, w, h, r._binned_cap)
+        static = _bin(setup, w, h, r._binned_cap, static=True)
+        n = int(exact.tile_count.sum())
+        if not (torch.equal(static.tile_start, exact.tile_start)
+                and torch.equal(static.tile_count, exact.tile_count)
+                and torch.equal(static.pair_tri[:n], exact.pair_tri)
+                and int(static.overflow) == exact.overflow == 0):
+            raise AssertionError(f"static binning of the {what} differs "
+                                 "from the exact binning on the card")
+        print(f"[3] static binning of the 256x128 {what} on the card: {n} "
+              f"pairs in {r._binned_cap} slots, the runs equal the exact "
+              "binning's pair for pair", flush=True)
+    small = Renderer(scenes.tiny_config(binned_cap=256), device)
+    small.prepare(world)
+    params, _ = steps(small, world, 3, 0.5)
+    small._pending_overflow.clear()
+    eager = np.zeros(2, np.int64)
+    for p in params:
+        _, (g, s_) = small._frame(p, None, True)
+        eager += (int(g), int(s_))
+    small.render_sequence_device(world, params)
+    got = np.array([int(v) for v in small._pending_overflow.pop()])
+    small._pending_overflow.clear()
+    if not np.array_equal(got, eager):
+        raise AssertionError(f"the graph's overflow sum {got} differs from "
+                             f"the eager frames' {eager}")
+    print(f"[3] sequence overflow past a 256-pair cap (3 steps, moving "
+          f"light): device sum {got.tolist()} equals the eager sum",
+          flush=True)
+
+
+def check_views(device, group):
+    """Phase 3, ``MultiViewRenderer`` at 256x128 on ``group`` (the NCCL
+    world of one): 3 views equal 3 single-view frames bit for bit; a
+    3-step x 2-view sequence equals per-step ``render_views_device`` bit
+    for bit; a spawned cube shows in the next views."""
+    import numpy as np
+    import torch
+
+    from mo_renderer_tpu_torch import Renderer, scenes
+    from mo_renderer_tpu_torch.parallel import MultiViewRenderer
+    from mo_renderer_tpu_torch.passes.frame_graph import build_camera_params
+    from mo_renderer_tpu_torch.scene.scene_buffers import find_shadow_light
+
+    cfg = scenes.tiny_config()
+    world = scenes.tiny_world()
+    world.insert_resource(scenes.camera(cfg))
+    mv = MultiViewRenderer(cfg, group, device)
+    mv.prepare(world)
+    cams = [scenes.camera(cfg, a) for a in (0.0, 1.0, 2.0)]
+    views = mv.render_views(cams, world)
+    single = Renderer(cfg, device)
+    single.prepare(world)
+    for i, cam in enumerate(cams):
+        world.insert_resource(cam)
+        if not np.array_equal(views[i], single.render(world)):
+            raise AssertionError(f"view {i} differs from the single-view "
+                                 "frame")
+    world.insert_resource(scenes.camera(cfg))
+    light_pv, _ = find_shadow_light(world)
+    rigs = [[scenes.camera(cfg, 0.4 * s + 1.5 * i) for i in range(2)]
+            for s in range(3)]
+    seq = mv.render_view_sequence_device(
+        [[build_camera_params(c, light_pv, device) for c in rig]
+         for rig in rigs], world)
+    for s, rig in enumerate(rigs):
+        if not torch.equal(seq[s], mv.render_views_device(rig, world)):
+            raise AssertionError(f"view sequence step {s} differs from "
+                                 "render_views_device")
+    mv.check_overflow()
+    cam = scenes.camera(cfg)
+    before = mv.render_views([cam], world)
+    world.spawn(_cube(0.6, 0.3, 0.9, base_color=(0.2, 0.9, 0.2, 1.0)))
+    if np.array_equal(before, mv.render_views([cam], world)):
+        raise AssertionError("the spawned cube is not in the next views")
+    print(f"[3] views on a world of {group.size}: 3 views equal 3 "
+          f"single-view frames bit for bit, a 3-step x 2-view sequence "
+          f"{tuple(seq.shape)} equals per-step views bit for bit, a spawn "
+          "shows in the next views", flush=True)
+
+
 def profile_frames(run, n_frames=2):
     """torch.profiler over ``run(n_frames)`` (which renders that many
     frames): (kernel launches per frame, device kernel ms per frame)."""
@@ -1063,6 +1339,8 @@ def run_full_frame(device, line, path, n_frames, group=None, warmup=3):
     counts = dict(_build.LAUNCHES)
     renderer.check_overflow()
     launches, device_ms = profile_frames(run)
+    if path in ("default", "default@grid"):
+        print_passes(path, profile_passes(run), line)
 
     rgb = frame[..., :3]
     covered = _covered_fraction(renderer, world, cfg)
@@ -1099,6 +1377,315 @@ def run_full_frame(device, line, path, n_frames, group=None, warmup=3):
         raise AssertionError("the reference path must re-raster the shadow "
                              "map every frame")
     return counts, ms
+
+
+# the functions frame_program calls, by the pass they belong to: phase 4
+# wraps them (in chip_smoke.py only) in torch.profiler ranges to break a
+# frame's launches and device time down by pass
+PASS_FUNCTIONS = {
+    "vertex stage": ("run_vertex_stage", "pack_raster_attr_rows"),
+    "shadow (K2)": ("shadow_map_from_clip", "shadow_program"),
+    "triangle setup": ("triangle_setup_from_attrs", "triangle_setup"),
+    "binning": ("_bin",),
+    "raster (K1/K6/K8)": ("rasterize", "rasterize_attrs"),
+    "decimate": ("decimate_cols",),
+    "G-buffer (K3/K7)": ("gbuffer_pass_fast", "gbuffer_pass",
+                         "gbuffer_pass_from_planes"),
+    "SSAO (K4)": ("ssao_pass_tiles", "ssao_pass", "_pad_edge", "_even_grid",
+                  "_upsample_to_cb", "_upsample_pow2"),
+    "shading": ("shading_pass_fast", "shading_pass"),
+    "present (K5)": ("reconstruct_present", "present_pass"),
+}
+LAUNCH_ROWS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx")
+
+
+def profile_passes(run, n_frames=2):
+    """torch.profiler over ``run(n_frames)`` with each function of
+    ``PASS_FUNCTIONS`` wrapped in a ``record_function`` range: {pass:
+    (kernel launches per frame, device ms per frame)}, each pass counted
+    without the passes it calls (the shadow's binning and raster count
+    as binning and raster); "rest of the frame" is what no range holds
+    (the frame's own ops, the params upload, the fetch)."""
+    import torch
+
+    import mo_renderer_tpu_torch.passes.frame_graph as FG
+
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(f"pass::{name}"):
+                return fn(*args, **kwargs)
+        return call
+
+    saved = {}
+    for name, fns in PASS_FUNCTIONS.items():
+        for fn in fns:
+            saved[fn] = getattr(FG, fn)
+            setattr(FG, fn, ranged(name, saved[fn]))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            run(n_frames)
+            torch.cuda.synchronize()
+    finally:
+        for fn, orig in saved.items():
+            setattr(FG, fn, orig)
+
+    def tally(evt, top):
+        """(launches, device us) under ``evt``, without nested passes."""
+        if not top and evt.name.startswith("pass::"):
+            return 0, 0.0
+        n = 1 if evt.name in LAUNCH_ROWS else 0
+        us = sum(k.duration for k in evt.kernels)
+        for child in evt.cpu_children:
+            cn, cus = tally(child, False)
+            n, us = n + cn, us + cus
+        return n, us
+
+    events = prof.events()
+    by_pass = {name: [0, 0.0] for name in PASS_FUNCTIONS}
+    for evt in events:
+        if evt.name.startswith("pass::"):
+            n, us = tally(evt, True)
+            by_pass[evt.name[len("pass::"):]][0] += n
+            by_pass[evt.name[len("pass::"):]][1] += us
+    total_n = sum(1 for e in events if e.name in LAUNCH_ROWS)
+    total_us = sum(k.duration for e in events for k in e.kernels)
+    by_pass["rest of the frame"] = [
+        total_n - sum(v[0] for v in by_pass.values()),
+        total_us - sum(v[1] for v in by_pass.values())]
+    return {name: (n / n_frames, us / 1e3 / n_frames)
+            for name, (n, us) in by_pass.items()}
+
+
+def print_passes(path, by_pass, line):
+    total_n = sum(n for n, _ in by_pass.values())
+    total_ms = sum(ms for _, ms in by_pass.values())
+    rows = "; ".join(f"{name} {n:.0f} / {ms:.3f}"
+                     for name, (n, ms) in by_pass.items())
+    print(f"[4] {path} by pass (torch.profiler ranges, 2 frames; kernel "
+          f"launches / device ms per frame): {rows}; total {total_n:.0f} / "
+          f"{total_ms:.3f}; on {line}", flush=True)
+
+
+# the __global__ functions of csrc/, as the profiler names their launches
+HAND_KERNELS = ("raster_kernel", "raster_attrs_kernel", "attr_planes_kernel",
+                "ssao_kernel", "reconstruct_kernel", "stack_planes_kernel")
+
+
+def profile_graph_calls(run):
+    """torch.profiler over one ``run()`` of a sequence: (host launch calls
+    -- kernel launches and graph launches --, kernels that ran on the
+    device, of them the hand kernels of csrc/, device kernel us,
+    memcpy/memset device us, the call's own wall ms, synced, under the
+    profiler)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    host, kernels, hand, kernel_us, copy_us = 0, 0, 0, 0.0, 0.0
+    for row in prof.key_averages():
+        if row.key in LAUNCH_ROWS + ("cudaGraphLaunch",):
+            host += row.count
+        if row.device_type == torch.autograd.DeviceType.CUDA:
+            if row.key.startswith(("Memcpy", "Memset")):
+                copy_us += row.self_device_time_total
+            else:
+                kernels += row.count
+                kernel_us += row.self_device_time_total
+                if any(k in row.key for k in HAND_KERNELS):
+                    hand += row.count
+    return host, kernels, hand, kernel_us, copy_us, wall_ms
+
+
+def run_sequence_path(device, line, path, n_steps, n_calls=3):
+    """Phase 4, ``sequence`` / ``sequence@grid``: the default path at
+    1920x1080 on the tiny scene (or scenes.grid_world(10)) along the
+    orbit of ``run_full_frame``, ``n_steps`` poses as one
+    ``render_sequence_device`` call: the first call captures the frame in
+    a CUDA graph; then ``n_calls`` timed calls (each synced; ms/frame is
+    the call's wall time / ``n_steps``), beside an eager loop over the
+    same poses (``Renderer._frame``, no fetch).  Frames equal the eager
+    ones bit for bit.  One more call under torch.profiler gives host
+    launch calls, device ms per frame and the busy share of that call's
+    own wall time; a 2-step call of the same graph under the profiler
+    gives kernels per frame and holds the hand kernels it saw run to the
+    counters (the profiler's record of a call of ~45K kernels has come
+    back short at times, with the counters unchanged).  The counts are set to 0
+    just before the first call and hold the sequence calls' launches
+    only: the eager loop's are taken back after each turn.
+    Also prints the static pair capacity beside the exact pair counts of
+    the frame (first pose) and of the 2048^2 shadow map."""
+    import numpy as np
+    import torch
+
+    from mo_renderer_tpu_torch import Renderer, scenes
+    from mo_renderer_tpu_torch.config import EngineConfig
+    from mo_renderer_tpu_torch.kernels import _build
+    from mo_renderer_tpu_torch.kernels.raster_setup import (
+        triangle_setup_from_attrs,
+    )
+    from mo_renderer_tpu_torch.passes.frame_graph import (
+        _bin,
+        build_camera_params,
+    )
+    from mo_renderer_tpu_torch.scene.camera import Camera
+    from mo_renderer_tpu_torch.scene.scene_buffers import find_shadow_light
+
+    grid = path.endswith("@grid")
+    cfg = EngineConfig(width=1920, height=1080)
+    world = scenes.grid_world(10) if grid else scenes.tiny_world()
+    world.insert_resource((scenes.grid_camera if grid else scenes.camera)(
+        cfg))
+    r = Renderer(cfg, device)
+    r.prepare(world)
+    orbit = scenes.orbit_system(n_steps)
+    light_pv, has_light = find_shadow_light(world)
+    params = []
+    for _ in range(n_steps):
+        orbit(world)
+        params.append(build_camera_params(world.resource(Camera), light_pv,
+                                          device))
+
+    def eager():
+        # the eager loop launches the same kernels: take its counts back,
+        # so the sequence's counts show what the graph replays
+        before = dict(_build.LAUNCHES)
+        frames = torch.stack([r._frame(p, quads, has_light)[0]
+                              for p in params])
+        _build.LAUNCHES.update(before)
+        return frames
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    def sequence():
+        return r.render_sequence_device(world, params)
+
+    _build.reset_launches()
+    capture_ms, frames = wall_ms(sequence)
+    quads, _ = r._sequence_shadow(world, params)  # the call's memo
+    eager_frames = eager()
+    if not torch.equal(frames, eager_frames):
+        raise AssertionError(f"{path}: replayed frames differ from the "
+                             "eager frames")
+    turns = {"sequence": [], "eager": []}
+    for _ in range(n_calls):
+        turns["sequence"].append(wall_ms(sequence)[0] / n_steps)
+        turns["eager"].append(wall_ms(eager)[0] / n_steps)
+    r.check_overflow()
+    counts = dict(_build.LAUNCHES)
+    host, _, _, kernel_us, copy_us, prof_ms = profile_graph_calls(sequence)
+    # the counts grow by the captured launches at each replay: hold them
+    # to the hand kernels the profiler saw run in a 2-step call
+    before = sum(_build.LAUNCHES.values())
+    _, kernels, hand, _, _, _ = profile_graph_calls(
+        lambda: r.render_sequence_device(world, params[:2]))
+    counted = sum(_build.LAUNCHES.values()) - before
+    ms = statistics.median(turns["sequence"])
+    device_ms = kernel_us / 1e3 / n_steps
+
+    # the static capacity against the exact pair counts at this size
+    p0 = params[0]
+    s = cfg.shadow_map_size
+    pairs = {}
+    for what, pv, w, h, cull in (("frame", p0["proj_view"], r.pad_w,
+                                  r.pad_h, True),
+                                 ("shadow", p0["light_proj_view"], s, s,
+                                  False)):
+        setup = triangle_setup_from_attrs(r.scene.tri_attrs,
+                                          r.scene.tri_valid, pv, w, h,
+                                          cull_backface=cull)
+        pairs[what] = int(_bin(setup, w, h, None).tile_count.sum())
+    rgb = frames[-1].cpu().numpy().view(np.uint8)
+    print(f"[4] {path} 1920x1080, {n_steps} steps per call "
+          f"({r.scene.indices.shape[0]} triangle rows): first call "
+          f"(capture included) {capture_ms:.3f} ms; ms/frame "
+          f"{'; '.join(f'{t:.3f}' for t in turns['sequence'])} (CUDA graph "
+          f"replay, the call's wall time / {n_steps}), eager loop over the "
+          f"same poses in turns {'; '.join(f'{t:.3f}' for t in turns['eager'])}"
+          f"; profile (one call): {host / n_steps:.1f} host launch "
+          f"calls/frame, {device_ms:.3f} ms/frame of device kernel time (+ "
+          f"{copy_us / 1e3 / n_steps:.3f} ms copies; busy share "
+          f"{kernel_us / 1e3 / prof_ms:.1%} of that call's wall time, "
+          f"{prof_ms / n_steps:.3f} ms/frame under the profiler); a 2-step "
+          f"call: {kernels / 2:.0f} kernels/frame on the device, {hand} hand "
+          f"kernels against {counted} counted; captured launches "
+          f"{r._graph.launches}; pair capacity {r._binned_cap}, exact pairs"
+          f" frame {pairs['frame']}, shadow {pairs['shadow']}; launches "
+          f"{counts}; on {line}", flush=True)
+    if rgb.max() == 0:
+        raise AssertionError(f"{path}: black frame")
+    if r._captures != 1:
+        raise AssertionError(f"{path}: {r._captures} captures, want 1")
+    if hand != counted:
+        raise AssertionError(f"{path}: the profiler saw {hand} hand kernels "
+                             f"run in a 2-step call, the counts grew by "
+                             f"{counted}")
+    if max(pairs.values()) > r._binned_cap:
+        raise AssertionError(f"{path}: the exact pair count passes the "
+                             "static capacity")
+    # the eager warm-up before the capture launches every kernel too:
+    # each must also be in the graph, but for the memoized shadow's K2
+    outside = {"raster_depth"} if quads is not None else set()
+    missing = [k for k in PATHS["default"][1]
+               if k not in outside and not r._graph.launches.get(k)]
+    if missing:
+        raise AssertionError(f"{path}: kernels missing from the captured "
+                             f"graph: {missing}")
+    _check_launches(path, PATHS["default"][1], counts)
+    return counts, ms
+
+
+def run_views_path(device, line, group, n_views=4, n_calls=3):
+    """Phase 4, ``views``: ``MultiViewRenderer`` on ``group`` (a world of
+    one) renders ``n_views`` orbit views of the tiny scene at 1920x1080
+    per call, left on the device (the Renderer's captured frame replayed
+    per view; the warm-up call captures it); ms per view (the call's wall
+    time, synced, / views), ``n_calls`` calls after the warm-up."""
+    import torch
+
+    from mo_renderer_tpu_torch import scenes
+    from mo_renderer_tpu_torch.config import EngineConfig
+    from mo_renderer_tpu_torch.kernels import _build
+    from mo_renderer_tpu_torch.parallel import MultiViewRenderer
+
+    cfg = EngineConfig(width=1920, height=1080)
+    world = scenes.tiny_world()
+    world.insert_resource(scenes.camera(cfg))
+    _build.reset_launches()
+    mv = MultiViewRenderer(cfg, group, device)
+    mv.prepare(world)
+    cams = [scenes.camera(cfg, 0.3 * i) for i in range(n_views)]
+    mv.render_views_device(cams, world)
+    times = []
+    for _ in range(n_calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        block = mv.render_views_device(cams, world)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / n_views)
+    mv.check_overflow()
+    counts = dict(_build.LAUNCHES)
+    if tuple(block.shape) != (n_views, cfg.height, cfg.width):
+        raise AssertionError(f"views: block {tuple(block.shape)}")
+    print(f"[4] views 1920x1080: {n_views} views per call on a world of "
+          f"{group.size}, ms/view {'; '.join(f'{t:.3f}' for t in times)} "
+          f"(the call's wall time, synced, / {n_views}; CUDA graph replay, "
+          f"left on the device); launches {counts}; on {line}", flush=True)
+    _check_launches("views", PATHS["default"][1], counts)
+    return counts, statistics.median(times)
 
 
 def _check_launches(path, kernels, counts):
@@ -1302,6 +1889,8 @@ def main() -> int:
     check_small_frames(device)
     check_topology(device)
     check_window_loop(device)
+    check_render_pass(device)
+    check_sequences(device)
     # the row-sharded frame's process groups: a world of one, NCCL for the
     # card, and a gloo group of the same world for the CPU comparison
     import torch.distributed as dist
@@ -1313,6 +1902,7 @@ def main() -> int:
     try:
         group = make_rank_group()
         check_sharded_frames(device, group, make_rank_group(backend="gloo"))
+        check_views(device, group)
         # kernel (or kernel@grid) -> {path: launches during that path's run}
         launches = {name: {} for name in kernels}
         for path, n_frames in (("default", 16), ("reference", 8),
@@ -1333,6 +1923,16 @@ def main() -> int:
                 for name in set(kernels) & set(KERNELS):
                     if name in PATHS[path][1]:
                         launches[name][path] = counts[name]
+        # camera-path sequences (CUDA graph replay) and multi-view
+        for path, n_steps in (("sequence", 16), ("sequence@grid", 8)):
+            counts, _ = run_sequence_path(device, line, path, n_steps)
+            tag = "@grid" if path.endswith("@grid") else ""
+            for name in PATHS["default"][1]:
+                if f"{name}{tag}" in launches:
+                    launches[f"{name}{tag}"][path] = counts[name]
+        counts, _ = run_views_path(device, line, group)
+        for name in PATHS["default"][1]:
+            launches[name]["views"] = counts[name]
     finally:
         dist.destroy_process_group()
     # the interactive loop: the window on the tiny scene, spawns on the

@@ -13,8 +13,12 @@ The entry points (``App.new``, ``Renderer``) run on the card
 (``device="cuda"``) unless the caller passes ``device="cpu"``.  Three
 frame paths: the default (fast sampling, checkerboard), the reference
 sampling path (``fast_sampling=False`` or a UV1 material) and the raster
-megakernel (``raster_interp_attrs=True``).  ``parallel.TileShardedRenderer``
-splits one frame's rows over the ranks of a ``torch.distributed`` group.
+megakernel (``raster_interp_attrs=True``).  A ``RenderPass`` given to
+``Renderer`` (or ``App.add_render_pass``) runs between shading and present;
+``Renderer.render_sequence_device`` renders a camera path by replaying one
+captured CUDA graph of the frame.  ``parallel.TileShardedRenderer`` splits
+one frame's rows over the ranks of a ``torch.distributed`` group, and
+``parallel.MultiViewRenderer`` a batch of cameras.
 
 Their kernels, each written in CUDA C++ under ``csrc/`` and built with
 ``nvcc`` at first use (``kernels/_build.py``):
@@ -33,6 +37,7 @@ tensors on the CPU.  A CUDA tensor always goes to the kernel.
 _EXPORTS = {
     "App": ".app.application",
     "Renderer": ".passes.frame_graph",
+    "RenderPass": ".passes.frame_graph",
 }
 
 
@@ -47,4 +52,4 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["App", "Renderer"]
+__all__ = ["App", "Renderer", "RenderPass"]

@@ -467,10 +467,18 @@ def sample_mipcube_quad_lod(mq: MipCubeQuad, dirs, lod):
 
 
 def _level_tables(mq, device):
-    return (
-        torch.as_tensor(mq.sizes, dtype=torch.int32, device=device),
-        torch.as_tensor(mq.offsets, dtype=torch.int32, device=device),
-    )
+    """A chain's level sizes and offsets as int32 tensors on ``device``,
+    made once per chain and device and kept on the chain: a host-to-device
+    copy per frame would stall the launch queue, and a CUDA graph cannot
+    capture one."""
+    tables = mq.__dict__.setdefault("_device_tables", {})
+    device = torch.device(device)
+    if device not in tables:
+        tables[device] = (
+            torch.as_tensor(mq.sizes, dtype=torch.int32, device=device),
+            torch.as_tensor(mq.offsets, dtype=torch.int32, device=device),
+        )
+    return tables[device]
 
 
 def sample_mipcube_quad_merged_lod(mq: MipCubeQuadMerged, dirs, lod):

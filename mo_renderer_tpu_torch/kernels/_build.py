@@ -12,7 +12,8 @@ Every C entry point launches on the stream it is given and returns
 failed build raises too: nothing falls back to a plain version.
 
 ``LAUNCHES`` counts kernel launches per kernel name.  A wrapper adds one
-right after its launch succeeded, and nowhere else.
+right after its launch succeeded, and nowhere else; a replayed CUDA graph
+adds the launches it captured (``passes/frame_graph.py``, ``_FrameGraph``).
 """
 
 from __future__ import annotations
@@ -69,8 +70,10 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def count(name: str) -> None:
-    LAUNCHES[name] += 1
+def count(name: str, n: int = 1) -> None:
+    """``n`` more launches of ``name``: one from a wrapper that launched,
+    or a CUDA graph's captured launches of it, at each replay."""
+    LAUNCHES[name] += n
 
 
 def sources() -> list[str]:

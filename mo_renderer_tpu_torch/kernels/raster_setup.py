@@ -15,10 +15,18 @@ Port of ``mo_renderer_tpu/kernels/raster_setup.py``:
   an exclusive ``cumsum``, ``repeat_interleave``, then one sort of the key
   ``tile * T + tri``.  The sort puts each tile's run in draw order, which
   the rasterizer's later-wins tie rule needs.  The pair count is read on
-  the host once per call (the one host sync of a raster pass).  Nothing
-  is ever dropped unless a caller passes ``binned_cap``; then the pairs
-  past the cap are dropped and counted in ``overflow``, as the reference
-  does.
+  the host once per call (the one host sync of a raster pass).  The pairs
+  past ``binned_cap`` are dropped and counted in ``overflow``, as the
+  reference does.
+
+- ``bin_triangles(static=True)`` gives the same runs without reading
+  anything on the host, so a CUDA graph can capture it: the pairs are
+  enumerated into exactly ``binned_cap`` slots (slot -> triangle by
+  ``searchsorted`` over the inclusive ``cumsum`` of the pair counts), the
+  slots past the true total get a key after the last tile, and
+  ``overflow`` stays a device tensor.  ``pair_capacity`` is the
+  reference's static capacity (``Renderer.prepare``,
+  frame_graph.py:481-511), built from its class caps.
 """
 
 from __future__ import annotations
@@ -48,6 +56,40 @@ TRI_STRIDE = 16
 MAX_EXACT_EXTENT = 65536.0
 
 
+def default_medium_cap(t: int) -> int:
+    """The reference's capacity of the medium (span 3..mt) class
+    (raster_setup.py:289)."""
+    return max(1024, t // 16)
+
+
+LARGE_SPAN = 32  # the reference's large class: span up to 32 tiles
+
+
+def default_large_cap(t: int) -> int:
+    """The reference's capacity of the large class (raster_setup.py:296)."""
+    return max(256, t // 128)
+
+
+def default_xlarge_cap(t: int) -> int:
+    """The reference's capacity of the xlarge (span 33..n_tiles) class
+    (raster_setup.py:308)."""
+    return max(8, t // 2048)
+
+
+def pair_capacity(t: int, n_tiles: int) -> int:
+    """The static pair capacity of ``t`` triangles over ``n_tiles`` bins
+    (frame_graph.py:496-511): 2 slots per triangle + 8 / ``LARGE_SPAN`` /
+    ``n_tiles`` per medium / large / xlarge class row, clamped to [8192,
+    2^20] and rounded up to 8."""
+    cap = (
+        2 * t
+        + 8 * default_medium_cap(t)
+        + LARGE_SPAN * default_large_cap(t)
+        + n_tiles * default_xlarge_cap(t)
+    )
+    return -(-min(max(8192, cap), 1 << 20) // 8) * 8
+
+
 @dataclasses.dataclass
 class TriangleSetup:
     tri_data: torch.Tensor  # (T, 16) f32
@@ -69,14 +111,16 @@ class BinnedTriangles:
 
     tri_data: torch.Tensor  # (T, 16) f32
     bbox: torch.Tensor  # (T, 4) int32
-    pair_tri: torch.Tensor  # (P,) int32
+    pair_tri: torch.Tensor  # (P,) int32; P = binned_cap when static
     tile_start: torch.Tensor  # (n_tiles,) int32
     tile_count: torch.Tensor  # (n_tiles,) int32
     tile_h: int
     tile_w: int
     n_tiles_x: int
     n_tiles_y: int
-    overflow: int  # pairs dropped by binned_cap (0 = none)
+    # pairs dropped by binned_cap (0 = none): an int, or a 0-d int64
+    # device tensor from static binning
+    overflow: int | torch.Tensor
 
 
 def project(points, m):
@@ -221,6 +265,57 @@ def setup_from_corners(
     return TriangleSetup(tri_data=tri_data, bbox=bbox)
 
 
+def _pair_key(slot, first, tri_rep, span_x, ly0, tx0, n_tiles_x, stride):
+    """tile * stride + triangle of each pair ``slot`` of triangle
+    ``tri_rep`` (``first``: each triangle's first slot)."""
+    local = slot - first[tri_rep]
+    sx = span_x[tri_rep]
+    dy = torch.div(local, sx, rounding_mode="floor")
+    dx = local - dy * sx
+    tile = (ly0[tri_rep] + dy) * n_tiles_x + tx0[tri_rep] + dx
+    return tile * stride + tri_rep
+
+
+def _pair_keys_exact(pairs, span_x, ly0, tx0, n_tiles_x, binned_cap):
+    """Sorted keys of every pair, cut at ``binned_cap`` (the lowest tiles
+    kept), and the host int count dropped.  One host sync reads the
+    total."""
+    t = pairs.shape[0]
+    dev = pairs.device
+    total = int(pairs.sum())  # the pass's host sync
+    tri_rep = torch.repeat_interleave(
+        torch.arange(t, device=dev), pairs, output_size=total
+    )
+    first = torch.cumsum(pairs, 0) - pairs
+    slot = torch.arange(total, device=dev)
+    key, _ = torch.sort(_pair_key(slot, first, tri_rep, span_x, ly0, tx0,
+                                  n_tiles_x, max(t, 1)))
+    if binned_cap is None or total <= binned_cap:
+        return key, 0
+    return key[:binned_cap], total - binned_cap
+
+
+def _pair_keys_static(pairs, span_x, ly0, tx0, n_tiles_x, n_tiles,
+                      binned_cap):
+    """Sorted keys of exactly ``binned_cap`` slots, with no host read:
+    slot -> the triangle whose pairs hold it by ``searchsorted`` over the
+    inclusive ``cumsum``; the slots past the total sort after the last
+    tile, so no run reaches them.  The count dropped is a device
+    tensor."""
+    t = pairs.shape[0]
+    stride = max(t, 1)
+    incl = torch.cumsum(pairs, 0)
+    first = incl - pairs
+    slot = torch.arange(binned_cap, device=pairs.device)
+    tri_rep = torch.searchsorted(incl, slot, right=True)
+    listed_slot = tri_rep < t  # t past the last pair
+    tri_rep = torch.clamp(tri_rep, max=max(t - 1, 0))
+    key = _pair_key(slot, first, tri_rep, span_x, ly0, tx0, n_tiles_x,
+                    stride)
+    key, _ = torch.sort(torch.where(listed_slot, key, n_tiles * stride))
+    return key, torch.clamp(pairs.sum() - binned_cap, min=0)
+
+
 def bin_triangles(
     setup: TriangleSetup,
     *,
@@ -231,9 +326,18 @@ def bin_triangles(
     binned_cap: int | None = None,
     band_row0: int | None = None,
     band_tile_rows: int | None = None,
+    static: bool = False,
 ) -> BinnedTriangles:
     """Every (tile, triangle) pair of the triangles' bboxes, sorted by
     (tile, draw order).  One host sync reads the pair count.
+
+    ``static`` (needs ``binned_cap``): no host read.  The pairs fill
+    exactly ``binned_cap`` slots; ``pair_tri`` has that length, the runs
+    cover its first min(total, cap) entries, and ``overflow`` is the
+    device tensor max(total - cap, 0).  While total <= cap the runs equal
+    the exact binning's pair for pair; past the cap the same number of
+    pairs is dropped, though not the same pairs (the exact binning keeps
+    the lowest tiles, this the first triangles).
 
     Band mode (raster_setup.py:350): with ``band_row0`` and
     ``band_tile_rows``, only the pairs whose tile row lies in [band_row0,
@@ -268,24 +372,15 @@ def bin_triangles(
          (ty1 + 1) * tile_h - 1], dim=-1,
     ).to(torch.int32)
     bbox = torch.where(huge[:, None], tiles_box, bbox)
-    total = int(pairs.sum())  # the pass's host sync
-
-    tri_rep = torch.repeat_interleave(
-        torch.arange(t, device=dev), pairs, output_size=total
-    )
-    first = torch.cumsum(pairs, 0) - pairs
-    local = torch.arange(total, device=dev) - first[tri_rep]
-    sx = span_x[tri_rep]
-    dy = torch.div(local, sx, rounding_mode="floor")
-    dx = local - dy * sx
-    tile = (ly0[tri_rep] + dy) * n_tiles_x + tx0[tri_rep] + dx
     stride = max(t, 1)
-    key, _ = torch.sort(tile * stride + tri_rep)
-
-    overflow = 0
-    if binned_cap is not None and total > binned_cap:
-        overflow = total - binned_cap
-        key = key[:binned_cap]
+    if static:
+        if binned_cap is None:
+            raise ValueError("bin_triangles(static=True) needs binned_cap")
+        key, overflow = _pair_keys_static(pairs, span_x, ly0, tx0,
+                                          n_tiles_x, n_tiles, binned_cap)
+    else:
+        key, overflow = _pair_keys_exact(pairs, span_x, ly0, tx0, n_tiles_x,
+                                         binned_cap)
     tile_sorted = torch.div(key, stride, rounding_mode="floor")
     pair_tri = (key - tile_sorted * stride).to(torch.int32)
     tile_end = torch.searchsorted(

@@ -174,11 +174,13 @@ def _winners(binned, with_winner=True, chunk=4096, row0=0, n_rows=None):
         n_rows = nty - row0
     canvas_w = ntx * tw
     n_pix = n_rows * th * canvas_w
+    # the runs fill pair_tri's head; static binning pads it past them
+    n_listed = int(binned.tile_count.sum())
     tiles = torch.repeat_interleave(
         torch.arange(ntx * nty, device=dev), binned.tile_count.to(torch.int64),
-        output_size=binned.pair_tri.shape[0],
+        output_size=n_listed,
     )
-    ids = binned.pair_tri.to(torch.int64)
+    ids = binned.pair_tri[:n_listed].to(torch.int64)
     if (row0, n_rows) != (0, nty):  # the pairs of the canvas's tiles
         keep = (tiles >= row0 * ntx) & (tiles < (row0 + n_rows) * ntx)
         tiles, ids = tiles[keep], ids[keep]

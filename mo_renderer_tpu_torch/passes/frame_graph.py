@@ -21,10 +21,16 @@
   fast path's texturing, shading and memoized shadow, without the
   checkerboard.
 
+Extra render passes (``RenderPass``) run between shading and present and
+switch the checkerboard off, so they see full-resolution arrays.
+
 PyTorch runs the frame eagerly on the Renderer's device; the kernels
-launch on the current CUDA stream.  Extra render passes, which are not
-ported, raise ``NotImplementedError`` (see ``_check_config``); nothing
-falls back to another path.
+launch on the current CUDA stream.  ``render_sequence_device`` renders K
+frames of a camera path with the scene fixed: on a card it captures the
+frame once in a ``torch.cuda.CUDAGraph`` (binning under the static pair
+capacity, ``bin_triangles(static=True)``, so nothing reads the device on
+the host) and replays it per step; elsewhere it loops over the frame.
+Nothing falls back to another path.
 """
 
 from __future__ import annotations
@@ -43,9 +49,11 @@ from ..device.sampling import (
     build_pcf_window_u16_half,
     build_window_rows_2x4,
 )
+from ..kernels import _build
 from ..kernels.decimate import decimate_cols
 from ..kernels.raster_setup import (
     bin_triangles,
+    pair_capacity,
     triangle_setup,
     triangle_setup_from_attrs,
 )
@@ -68,18 +76,32 @@ from .vertex_stage import pack_raster_attr_rows, run_vertex_stage
 logger = logging.getLogger("mo_renderer_tpu_torch")
 
 
+class RenderPass:
+    """API-parity base for custom passes (RenderPassTrait,
+    mo_renderpass/src/lib.rs:25-48).  Custom passes are pure functions over
+    the frame context dict; they slot in after shading, before present.
+
+    Context domain: ctx['color'] / ctx['gbuffer'] / ctx['ssao'] are always
+    FULL-RESOLUTION (H, W[, C]) tensors at the padded frame size — matching
+    the reference's RenderPassTrait, whose passes see full-res attachments.
+    Checkerboard shading (cfg.checkerboard) is therefore disabled
+    automatically whenever extra passes are present: a custom pass must
+    never silently receive the (H, W/2) parity-shuffled cb domain.
+
+    On a card, ``Renderer.render_sequence_device`` captures the frame, the
+    passes included, in a CUDA graph: a pass that reads a tensor on the
+    host (``.item()``, ``int(t)``, boolean-mask indexing, a host-to-device
+    copy) makes the capture raise, and the error is not caught."""
+
+    def render(self, ctx: dict) -> dict:
+        return ctx
+
+    def on_swapchain_recreate(self, window_size) -> None:
+        pass
+
+
 def _round_up(x, m):
     return ((x + m - 1) // m) * m
-
-
-def _check_config(cfg: EngineConfig, extra_passes=()) -> None:
-    """Raise for what this package does not port: every EngineConfig
-    option runs, extra render passes do not."""
-    if extra_passes:
-        raise NotImplementedError(
-            "mo_renderer_tpu_torch does not port extra render passes yet: "
-            "ROADMAP Queue 1 item 13 (sequences and the RenderPass API)"
-        )
 
 
 def _pcf_build(cfg):
@@ -95,7 +117,8 @@ def _pcf_build(cfg):
 
 class CameraParams:
     """Per-frame camera/light block as ONE (64,) f32 device vector plus
-    its host copy (the reference's CameraParams layout)."""
+    its host copy (the reference's CameraParams layout); ``stack_params``
+    stacks several into (V, 64), whose fields keep the leading axis."""
 
     _LAYOUT = {
         "proj_view": (0, 16, (4, 4)),
@@ -116,11 +139,20 @@ class CameraParams:
 
     def __getitem__(self, key):
         a, b, shape = self._LAYOUT[key]
-        return self.vec[a:b].reshape(shape)
+        return self.vec[..., a:b].reshape(self.vec.shape[:-1] + shape)
 
     def host_field(self, key) -> np.ndarray:
         a, b, shape = self._LAYOUT[key]
-        return np.asarray(self.host[a:b]).reshape(shape)
+        host = np.asarray(self.host)
+        return host[..., a:b].reshape(host.shape[:-1] + shape)
+
+
+def stack_params(param_list) -> CameraParams:
+    """CameraParams (``build_camera_params``) stacked into one with a
+    leading (N, ...) axis, on the device and on the host
+    (multi_view.py:42)."""
+    return CameraParams(torch.stack([p.vec for p in param_list]),
+                        host=np.stack([p.host for p in param_list]))
 
 
 def build_camera_params(camera: Camera, light_proj_view, device,
@@ -148,21 +180,21 @@ def build_camera_params(camera: Camera, light_proj_view, device,
     return CameraParams(torch.from_numpy(buf).to(device), host=buf)
 
 
-def _bin(setup, width, height, binned_cap):
+def _bin(setup, width, height, binned_cap, static=False):
     return bin_triangles(
         setup, tile_h=BIN_H, tile_w=BIN_W,
         n_tiles_x=-(-width // BIN_W), n_tiles_y=-(-height // BIN_H),
-        binned_cap=binned_cap,
+        binned_cap=binned_cap, static=static,
     )
 
 
 def shadow_map_from_clip(scene, *, cfg, binned_cap, shadow_clip=None,
-                         light_pv=None):
+                         light_pv=None, static_bins=False):
     """Depth-only raster from the light (no culling, depth bias 2/2,
     shadow_pass.rs:132-140): from per-vertex light clip positions, or,
     when ``shadow_clip`` is None, from the packed per-triangle corners
     projected by ``light_pv``.  Returns (shadow map (S, S), dropped pair
-    count)."""
+    count); ``static_bins`` bins with no host read."""
     smap = cfg.shadow_map_size
     bias = dict(
         cull_backface=False,
@@ -177,7 +209,7 @@ def shadow_map_from_clip(scene, *, cfg, binned_cap, shadow_clip=None,
         setup = triangle_setup(
             shadow_clip, scene.indices, scene.tri_valid, smap, smap, **bias
         )
-    binned = _bin(setup, smap, smap, binned_cap)
+    binned = _bin(setup, smap, smap, binned_cap, static_bins)
     _, shadow_map, _, _ = rasterize(binned, width=smap, height=smap,
                                     depth_only=True)
     return shadow_map, binned.overflow
@@ -203,14 +235,18 @@ def _pad_edge(a, ph, pw):
 
 def frame_program(scene, ibl, params, *, cfg, pad_w, pad_h, binned_cap,
                   has_shadow_light, slot_map, n_lights, fast=True,
-                  shadow_quads=None):
+                  shadow_quads=None, extra_passes=(), static_bins=False):
     """One deferred frame on the path ``fast`` and the config choose (see
-    the module docstring).  Returns (rgba (H, W) int32 packed rgba8 bits,
-    (G-buffer, shadow) dropped-pair counts)."""
+    the module docstring).  ``extra_passes`` run on the full-resolution
+    context between shading and present; ``static_bins`` bins under
+    ``binned_cap`` with no host read (what a CUDA graph can capture).
+    Returns (rgba (H, W) int32 packed rgba8 bits, (G-buffer, shadow)
+    dropped-pair counts)."""
     use_shadow = cfg.shadow_enabled and has_shadow_light
     megakernel = fast and cfg.raster_interp_attrs
     attrs_setup = fast and not megakernel
-    use_cb = attrs_setup and cfg.checkerboard
+    # a pass sees full-resolution arrays (RenderPass): no checkerboard
+    use_cb = attrs_setup and cfg.checkerboard and not extra_passes
     vs = None if attrs_setup else run_vertex_stage(
         scene, params["proj_view"], params["prev_proj_view"],
         params["light_proj_view"],
@@ -221,7 +257,7 @@ def frame_program(scene, ibl, params, *, cfg, pad_w, pad_h, binned_cap,
         shadow_map, shadow_overflow = shadow_map_from_clip(
             scene, cfg=cfg, binned_cap=binned_cap,
             shadow_clip=None if attrs_setup else vs.shadow_clip,
-            light_pv=params["light_proj_view"],
+            light_pv=params["light_proj_view"], static_bins=static_bins,
         )
 
     if attrs_setup:
@@ -234,7 +270,7 @@ def frame_program(scene, ibl, params, *, cfg, pad_w, pad_h, binned_cap,
             vs.clip, scene.indices, scene.tri_valid, pad_w, pad_h,
             cull_backface=True,
         )
-    binned = _bin(setup, pad_w, pad_h, binned_cap)
+    binned = _bin(setup, pad_w, pad_h, binned_cap, static_bins)
     if megakernel:
         tri, z, attrs, mat_plane, ht_plane = rasterize_attrs(
             binned, width=pad_w, height=pad_h,
@@ -295,10 +331,13 @@ def frame_program(scene, ibl, params, *, cfg, pad_w, pad_h, binned_cap,
     else:
         color = shading_pass(gbuf, ssao, shadow_map, scene.lights, n_lights,
                              params, ibl=ibl)
-    if use_cb:
-        rgba = reconstruct_present(color, tri)
+    ctx = {"color": color, "gbuffer": gbuf, "ssao": ssao}
+    for p in extra_passes:
+        ctx = p.render(ctx)
+    if use_cb:  # never with extra passes
+        rgba = reconstruct_present(ctx["color"], tri)
     else:
-        rgba = present_pass(color)
+        rgba = present_pass(ctx["color"])
     return rgba[: cfg.height, : cfg.width], (binned.overflow, shadow_overflow)
 
 
@@ -311,7 +350,6 @@ class Renderer(torch.nn.Module):
 
     def __init__(self, config: EngineConfig, device="cuda", extra_passes=()):
         super().__init__()
-        _check_config(config, extra_passes)
         # the shading path has small float32 products (the velocity and
         # shadow projections, SH9); TF32 would move them by far more than
         # an 8-bit LSB
@@ -319,9 +357,12 @@ class Renderer(torch.nn.Module):
         torch.backends.cudnn.allow_tf32 = False
         self.config = config
         self.device = resolve_device(device)
+        self.extra_passes = list(extra_passes)
         self.scene = None
         self.ibl = None
         self._pending_overflow = []
+        self._graph = None  # the captured sequence frame (_FrameGraph)
+        self._captures = 0  # CUDA graphs captured so far
         # bumped by every full prepare: wrappers that bind what prepare
         # derives (TileShardedRenderer's band program) rebuild on a change
         self._prepare_count = 0
@@ -339,9 +380,19 @@ class Renderer(torch.nn.Module):
             ibl_res.to(self.device)  # raises if computed on another device
             ibl_res.ensure_computed()
         self.ibl = ibl_res
-        self._binned_cap = (
-            None if cfg.binned_cap is None else _round_up(cfg.binned_cap, 8)
-        )
+        if cfg.binned_cap is not None:
+            self._binned_cap = _round_up(cfg.binned_cap, 8)
+        else:
+            # the reference's static capacity (frame_graph.py:481-511),
+            # over the larger of the frame's and the shadow map's tilings
+            # in the port's own bins
+            smap = cfg.shadow_map_size
+            n_tiles = max(
+                -(-self.pad_w // BIN_W) * -(-self.pad_h // BIN_H),
+                -(-smap // BIN_W) * -(-smap // BIN_H),
+            )
+            self._binned_cap = pair_capacity(
+                int(self.scene.indices.shape[0]), n_tiles)
         # the texture-stack fast path samples every slot with UV set 0;
         # a scene whose materials sample UV set 1 takes the reference
         # sampling path (frame_graph.py:512-524)
@@ -357,6 +408,7 @@ class Renderer(torch.nn.Module):
         self._params_prev = None
         self._params_fp = None
         self._pending_overflow = []
+        self._graph = None
         logger.info(
             "renderer prepared on %s: %d tris, fb %dx%d (pad %dx%d)",
             self.device, int(self.scene.indices.shape[0]), cfg.width,
@@ -366,18 +418,27 @@ class Renderer(torch.nn.Module):
     def resize(self, width: int, height: int) -> None:
         """A new framebuffer size (frame_graph.py:636).  The packed scene,
         the IBL maps and the memoized shadow table do not depend on it and
-        are kept; ``frame_program`` reads the size on every call, so there
-        is nothing to rebuild."""
+        are kept; ``frame_program`` reads the size on every call, and the
+        captured sequence frame keys on it.  Each extra pass hears of the
+        new size (``on_swapchain_recreate``)."""
         self.config = dataclasses.replace(self.config, width=width,
                                           height=height)
         self.pad_w = _round_up(width, self.config.tile_w)
         self.pad_h = _round_up(height, self.config.tile_h)
+        for p in self.extra_passes:
+            p.on_swapchain_recreate((width, height))
         logger.info("renderer resized: fb %dx%d (pad %dx%d)", width, height,
                     self.pad_w, self.pad_h)
 
     # --- overflow surfacing -------------------------------------------------
     def _note_overflow(self, ovf) -> None:
         self._pending_overflow.append(ovf)
+        if len(self._pending_overflow) > self._OVERFLOW_LAG:
+            self._drain_lagging()
+
+    def _drain_lagging(self) -> None:
+        """Past the lag window: read the oldest counts (a frame that has
+        long finished, so no stall) and raise if it dropped geometry."""
         while len(self._pending_overflow) > self._OVERFLOW_LAG:
             self._raise_if_overflow(self._pending_overflow.pop(0))
 
@@ -391,11 +452,18 @@ class Renderer(torch.nn.Module):
                 f"{self._binned_cap}) and re-prepare."
             )
 
+    def drain_overflow(self) -> np.ndarray:
+        """Every pending overflow count summed and emptied: (G-buffer,
+        shadow) dropped pairs as a (2,) int64 host array."""
+        total = np.zeros(2, np.int64)
+        while self._pending_overflow:
+            total += [int(v) for v in self._pending_overflow.pop(0)]
+        return total
+
     def check_overflow(self) -> None:
         """Drain all pending overflow counts; raises if any frame dropped
         geometry."""
-        while self._pending_overflow:
-            self._raise_if_overflow(self._pending_overflow.pop(0))
+        self._raise_if_overflow(self.drain_overflow())
 
     # --- per-frame host side ------------------------------------------------
     def _cached_shadow_quads(self, key_pv, light_pv, has_light):
@@ -459,24 +527,113 @@ class Renderer(torch.nn.Module):
         self._params_fp = fp
         return params, has_light
 
+    def _frame(self, params, quads, has_light, static_bins=False):
+        """``frame_program`` on the prepared scene: (rgba, overflow)."""
+        ibl_maps = self.ibl.maps() if self.ibl is not None else None
+        return frame_program(
+            self.scene, ibl_maps, params, cfg=self.config, pad_w=self.pad_w,
+            pad_h=self.pad_h, binned_cap=self._binned_cap,
+            has_shadow_light=has_light, slot_map=self._slot_map,
+            n_lights=self._n_lights, fast=self._fast, shadow_quads=quads,
+            extra_passes=self.extra_passes, static_bins=static_bins,
+        )
+
     def render_device(self, world):
         """One frame left on the device: (H, W) int32 packed rgba8 bits."""
         self._sync_topology(world)
         self.scene = refresh_transforms(self.scene)
         params, has_light = self.frame_params(world)
-        ibl_maps = self.ibl.maps() if self.ibl is not None else None
         quads = self._cached_shadow_quads(
             params.host_field("light_proj_view"), params["light_proj_view"],
             has_light,
         )
-        rgba, overflow = frame_program(
-            self.scene, ibl_maps, params, cfg=self.config, pad_w=self.pad_w,
-            pad_h=self.pad_h, binned_cap=self._binned_cap,
-            has_shadow_light=has_light, slot_map=self._slot_map,
-            n_lights=self._n_lights, fast=self._fast, shadow_quads=quads,
-        )
+        rgba, overflow = self._frame(params, quads, has_light)
         self._note_overflow(overflow)
         return rgba
+
+    # --- camera-path sequences ----------------------------------------------
+    def _sequence_shadow(self, world, params_list):
+        """(memoized shadow table or None, has_light) for frames whose
+        params are ``params_list``: the memo only when every step's light
+        matrix has the bytes of the world's light (frame_graph.py:790-804);
+        otherwise each step rasterizes its own shadow."""
+        light_pv, has_light = find_shadow_light(world)
+        lpv = np.asarray(light_pv, np.float32).reshape(-1)
+        same_light = all(
+            p.host is not None and np.array_equal(p.host[32:48], lpv)
+            for p in params_list
+        )
+        if not same_light:
+            return None, has_light
+        return self._cached_shadow_quads(
+            lpv, params_list[0]["light_proj_view"], has_light), has_light
+
+    def render_sequence_device(self, world, params_list):
+        """K frames of a camera path, left on the device as (K, H, W) int32
+        packed rgba8 bits (frame_graph.py:768).  The scene is fixed over
+        the sequence (one topology sync and one transform refresh up
+        front); each step is the whole frame, its shadow included unless
+        every step has the world's light (then the memoized table).
+
+        ``params_list``: per-step ``CameraParams`` (``build_camera_params``).
+        On a card the frame is captured once in a CUDA graph and replayed
+        per step (see ``_render_params``); frames equal ``render_device``'s
+        bit for bit."""
+        self._sync_topology(world)
+        self.scene = refresh_transforms(self.scene)
+        quads, has_light = self._sequence_shadow(world, params_list)
+        frames, overflow = self._render_params(stack_params(params_list),
+                                               quads, has_light)
+        self._note_overflow(overflow)
+        return frames
+
+    def _render_params(self, stack, quads, has_light):
+        """Frames of the prepared scene for the (N, 64) ``stack`` of camera
+        params (``stack_params``): (frames (N, H, W), dropped pairs).
+
+        On a card: the frame (binned with no host read) is captured in a
+        CUDA graph on the first call with this key; then, per step, a
+        device copy of the step's params into the graph's input, one
+        replay, and a copy of its output into ``frames[i]``; the overflow
+        adds up on the device.  A capture that fails raises.  Elsewhere:
+        a loop over ``frame_program``."""
+        n = stack.vec.shape[0]
+        if self.device.type != "cuda":
+            frames, g, s = [], 0, 0
+            for i in range(n):
+                rgba, (go, so) = self._frame(
+                    CameraParams(stack.vec[i], stack.host[i]), quads,
+                    has_light)
+                frames.append(rgba)
+                g, s = g + go, s + so
+            return torch.stack(frames), (g, s)
+        steps = stack.vec.to(self.device)
+        graph = self._capture(steps[0], quads, has_light)
+        frames = torch.empty((n, self.config.height, self.config.width),
+                             dtype=torch.int32, device=self.device)
+        graph.overflow.zero_()
+        for i in range(n):
+            graph.params.copy_(steps[i])
+            graph.replay()
+            frames[i].copy_(graph.rgba)  # the next replay overwrites it
+        return frames, graph.overflow.clone()
+
+    def _capture(self, first_params, quads, has_light):
+        """The sequence frame's CUDA graph for the current key: the scene,
+        IBL maps, config and pad size, the light, the memoized table and
+        the prepare count (a spawn, a resize or a re-prepare captures
+        again; a second call with the same key does not)."""
+        ibl_maps = self.ibl.maps() if self.ibl is not None else None
+        refs = (self.scene, ibl_maps, self.config, quads)
+        key = (tuple(id(r) for r in refs), self.pad_w, self.pad_h,
+               has_light, self._prepare_count)
+        if self._graph is not None and self._graph.key == key:
+            return self._graph
+        self._graph = None  # free the old graph's memory first
+        self._graph = _FrameGraph(self, key, refs, first_params, quads,
+                                  has_light)
+        self._captures += 1
+        return self._graph
 
     forward = render_device
 
@@ -485,3 +642,52 @@ class Renderer(torch.nn.Module):
         frame = unpack_rgba8(self.render_device(world))
         self.check_overflow()
         return frame
+
+
+class _FrameGraph:
+    """One frame of a Renderer captured in a ``torch.cuda.CUDAGraph``.
+
+    ``params`` is the graph's (64,) input, ``rgba`` its output (overwritten
+    by each replay) and ``overflow`` a (2,) int64 sum that each replay adds
+    its dropped pairs to.  The frame bins with no host read
+    (``static_bins``).  It runs once eagerly on a side stream first, as
+    capture requires (this also builds the kernel library and fills the
+    per-device table caches).  The kernel wrappers count their launches
+    while the graph is captured, which launches nothing: those counts are
+    taken back, and each replay adds them (``launches``) instead."""
+
+    def __init__(self, renderer, key, refs, first_params, quads, has_light):
+        dev = renderer.device
+        self.key = key
+        self.refs = refs  # keeps the keyed objects (and their ids) alive
+        self.params = first_params.clone()  # the warm-up frame's params
+        self.overflow = torch.zeros(2, dtype=torch.int64, device=dev)
+        params = CameraParams(self.params)
+
+        def frame():
+            rgba, (g, s) = renderer._frame(params, quads, has_light,
+                                           static_bins=True)
+            self.overflow[0] += g
+            if torch.is_tensor(s):  # 0 when the shadow is memoized
+                self.overflow[1] += s
+            return rgba
+
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            frame()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = dict(_build.LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.rgba = frame()
+        self.launches = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                         if v != before[k]}
+        _build.LAUNCHES.update(before)
+        logger.info("sequence frame captured in a CUDA graph: %s launches",
+                    self.launches)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for name, n in self.launches.items():
+            _build.count(name, n)

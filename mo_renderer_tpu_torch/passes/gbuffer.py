@@ -25,6 +25,7 @@ reference sampling path's ``gbuffer_pass``, the fast path's
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -355,9 +356,17 @@ def gbuffer_pass_from_planes(tri, z, attrs, mat_plane, ht_plane, scene,
     wp1 = torch.cat([world_pos, torch.ones_like(world_pos[..., :1])], -1)
     velocity = _ndc01(wp1 @ pv.t()) - _ndc01(wp1 @ prev_pv.t())
     mat_id = torch.round(mat_plane).to(torch.int64)
-    used_cols = list(M.fast_used_cols(slot_map))
+    used = _column_index(M.fast_used_cols(slot_map), scene.materials.device)
     return _texture_and_assemble(
         tri >= 0, z, world_pos, vec(3, 6), vec(6, 9), vec(9, 12),
         vec(12, 14), ht_plane > 0.5, velocity, scene, slot_map,
-        mat_cols=scene.materials[:, used_cols][mat_id],
+        mat_cols=scene.materials.index_select(1, used)[mat_id],
     )
+
+
+@functools.lru_cache(maxsize=16)
+def _column_index(cols: tuple, device):
+    """The material-table columns ``cols`` as an index tensor on
+    ``device``, made once: indexing with a Python list would copy it to
+    the device on every frame, which a CUDA graph cannot capture."""
+    return torch.tensor(cols, dtype=torch.int64, device=device)

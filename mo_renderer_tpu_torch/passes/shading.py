@@ -400,6 +400,16 @@ def _env_quad_index(ibl, dirs):
     return env_off + face * (s * s) + idx, fx, fy
 
 
+def skybox_color_fast(height, width, camera_basis, ibl):
+    """Skybox from the quad-packed environment rows, one row gather per
+    pixel (shading.py:547); the frame gets its sky inside
+    ``ibl_ambient_sky_fast``, so this is for standalone use."""
+    d = _sky_dirs(height, width, camera_basis)
+    idx, fx, fy = _env_quad_index(ibl, d)
+    return sampling.quad_lerp_rgbe(
+        sampling.take_rows(ibl.specular_quad.rows, idx), fx, fy)
+
+
 def ibl_ambient_fast(gbuf, eye_pos, ibl):
     """Split-sum ambient from SH9 irradiance, the RGBE quad-packed
     specular chain (two row gathers) and the polynomial BRDF
@@ -446,8 +456,7 @@ def ibl_ambient_sky_fast(gbuf, eye_pos, ibl, camera_basis,
     mq = ibl.specular_quad
     nl = mq.num_levels
     dev = gbuf.depth.device
-    sizes = torch.as_tensor(mq.sizes, dtype=torch.int32, device=dev)
-    offsets = torch.as_tensor(mq.offsets, dtype=torch.int32, device=dev)
+    sizes, offsets = sampling._level_tables(mq, dev)
 
     lod = torch.clamp(gbuf.orm[..., 1] * MAX_REFLECTION_LOD, 0.0, nl - 1)
     l0 = torch.floor(lod).to(torch.int32)

@@ -8,6 +8,8 @@ the conftest:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 ``python3 chip_smoke.py`` runs the same checks at 1920x1080.  The
+sequence checks replay each path's CUDA graph against its eager frames,
+and static binning is held to the exact binning on random soups.  The
 random soups below hold the full-mode raster (K6) and the megakernel (K8)
 to their plain versions away from the frame's own inputs; the cases after
 them aim at the seams of the region walk that raster.cu and
@@ -72,13 +74,49 @@ def test_interactive_loop_on_the_card(cuda):
     chip_smoke.check_window_loop(cuda)
 
 
-def _soup_binned(seed, n_tri, width, height, extra_cols=0, device="cpu"):
-    """Random triangles through the port's own setup and binning, with
+@pytest.mark.cuda
+def test_sequences_and_passes_on_the_card(cuda):
+    """A probe RenderPass on the card against the CPU; every path's
+    sequence, replayed from its CUDA graph, against the eager frames bit
+    for bit; static binning and the graph's overflow sum on the card
+    (chip_smoke's phase 3)."""
+    import chip_smoke
+
+    chip_smoke.check_render_pass(cuda)
+    chip_smoke.check_sequences(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_static_binning_matches_exact_binning(cuda, seed):
+    """Random soups on the card: the static binning lists the exact
+    binning's runs pair for pair while the pairs fit its capacity, and
+    past the capacity it drops as many pairs (a device count)."""
+    from mo_renderer_tpu_torch.kernels import raster_setup as RS
+    from mo_renderer_tpu_torch.kernels import rasterizer as R
+
+    setup = _soup_setup(seed, 400, 640, 200, device=cuda)
+    kw = dict(tile_h=R.BIN_H, tile_w=R.BIN_W, n_tiles_x=5, n_tiles_y=7)
+    total = int(RS.bin_triangles(setup, **kw).tile_count.sum())
+    for cap in (total + 8, total, total // 3):
+        exact = RS.bin_triangles(setup, binned_cap=cap, **kw)
+        static = RS.bin_triangles(setup, binned_cap=cap, static=True, **kw)
+        assert static.pair_tri.shape == (cap,)
+        assert int(static.overflow) == exact.overflow == max(total - cap, 0)
+        if cap >= total:
+            assert torch.equal(static.tile_start, exact.tile_start)
+            assert torch.equal(static.tile_count, exact.tile_count)
+            assert torch.equal(static.pair_tri[:total], exact.pair_tri)
+        else:
+            assert int(static.tile_count.sum()) == cap
+
+
+def _soup_setup(seed, n_tri, width, height, extra_cols=0, device="cpu"):
+    """Random triangles through the port's own setup, with
     ``extra_cols`` random megakernel columns (1/w corners in (0.2, 2))."""
     import numpy as np
 
     from mo_renderer_tpu_torch.kernels import raster_setup as RS
-    from mo_renderer_tpu_torch.kernels import rasterizer as R
 
     rng = np.random.default_rng(seed)
     pts = rng.uniform([0, 0], [width, height], size=(n_tri * 3, 2))
@@ -98,8 +136,17 @@ def _soup_binned(seed, n_tri, width, height, extra_cols=0, device="cpu"):
                                    dim=1)
     setup.tri_data = setup.tri_data.to(device)
     setup.bbox = setup.bbox.to(device)
+    return setup
+
+
+def _soup_binned(seed, n_tri, width, height, extra_cols=0, device="cpu"):
+    """``_soup_setup``'s triangles binned exactly."""
+    from mo_renderer_tpu_torch.kernels import raster_setup as RS
+    from mo_renderer_tpu_torch.kernels import rasterizer as R
+
     return RS.bin_triangles(
-        setup, tile_h=R.BIN_H, tile_w=R.BIN_W,
+        _soup_setup(seed, n_tri, width, height, extra_cols, device),
+        tile_h=R.BIN_H, tile_w=R.BIN_W,
         n_tiles_x=-(-width // R.BIN_W), n_tiles_y=-(-height // R.BIN_H),
     )
 

@@ -3,7 +3,7 @@ on the same inputs: the PCF table layouts (``pcf_u16``,
 ``pcf_half_anchor``) and the shadow factor each gives, every reachable
 branch of the specular/sky sampler (``spec_parent_mip_half_res``,
 ``spec_mirror_half_res``, ``spec_merged_trilinear``, with and without
-the checkerboard domain), and SSAO without the tile kernel
+the checkerboard domain), the standalone ``skybox_color_fast``, and SSAO without the tile kernel
 (``ssao_pallas=False``: ``ssao_pass``, with ``ssao_pass_exact`` as the
 oracle).  The inputs are the tiny scene's own G-buffer, shadow map and
 IBL maps, made by the JAX package and carried over as numpy.
@@ -200,6 +200,16 @@ def test_full_rate_mirror_on_the_checkerboard_raises(ref):
         Sh.ibl_ambient_sky_fast(_port_gbuf(gb), ref.port_params["eye_pos"],
                                 ref.port_ibl, ref.port_params,
                                 mirror_half_res=False, cb=True)
+
+
+def test_skybox_color_fast_matches_reference(ref):
+    """The standalone skybox from the quad-packed environment rows
+    (shading.py:547) on a 64x32 frame: atol 1e-5 / rtol 1e-5, the sky's
+    bar above."""
+    want = n(JSh.skybox_color_fast(32, 64, ref.params, ref.ibl))
+    got = n(Sh.skybox_color_fast(32, 64, ref.port_params, ref.port_ibl))
+    assert got.shape == (32, 64, 3) and want.max() > 0
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
 def test_ibl_ambient_fast_matches_reference(ref):

@@ -205,8 +205,11 @@ def test_app_runs_the_port_and_memoizes_the_shadow():
 
 
 def test_unported_options_raise():
-    """Every EngineConfig option is ported: the options that used to
-    raise construct a Renderer; only extra render passes still raise."""
+    """Every EngineConfig option is ported, and so are extra render
+    passes, which raised until sequences and the RenderPass API were
+    ported: a Renderer with the identity pass renders, and its frame
+    is the frame with the checkerboard off bit for bit (a pass switches
+    the checkerboard off)."""
     for overrides in (dict(stack_plane_kernel=True), dict(ssao_pallas=False),
                       dict(pcf_u16=False), dict(pcf_half_anchor=False),
                       dict(spec_parent_mip_half_res=False),
@@ -214,16 +217,36 @@ def test_unported_options_raise():
                       dict(spec_merged_trilinear=False),
                       dict(attrs_plane_kernel=False)):
         Renderer(scenes.tiny_config(**overrides), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Renderer(scenes.tiny_config(), "cpu", extra_passes=[object()])
+    cfg = scenes.tiny_config()
+    world = scenes.tiny_world()
+    world.insert_resource(scenes.camera(cfg))
+    r = Renderer(cfg, "cpu", extra_passes=[FG.RenderPass()])
+    r.prepare(world)
+    np.testing.assert_array_equal(r.render(world),
+                                  _port_frame(checkerboard=False))
 
 
 def test_extra_passes_and_uv1_raise():
-    """Extra render passes still raise; a UV1 scene no longer does: it
-    takes the reference sampling path (rendered and held to the JAX
-    frame by test_uv1_scene_takes_the_reference_path_in_both)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Renderer(scenes.tiny_config(), "cpu", extra_passes=[object()])
+    """Extra render passes no longer raise: one added through
+    App.add_render_pass renders end to end and dims the frame.  A UV1
+    scene does not raise either: it takes the reference sampling path
+    (rendered and held to the JAX frame by
+    test_uv1_scene_takes_the_reference_path_in_both)."""
+    class Dim(FG.RenderPass):
+        def render(self, ctx):
+            return dict(ctx, color=ctx["color"] * 0.5)
+
+    cfg = scenes.tiny_config()
+    app = App.new(config=cfg, device="cpu")
+    app.world = scenes.tiny_world()
+    app.insert_resource(scenes.camera(cfg))
+    app.add_render_pass(Dim())
+    frame = app.run(num_frames=1)
+    assert len(app.renderer.extra_passes) == 1
+    full = _port_frame(checkerboard=False)
+    lit = full[..., :3] > 8
+    assert frame.shape == full.shape
+    assert (frame[..., :3][lit] < full[..., :3][lit]).mean() > 0.9
     world = scenes.tiny_world(uv1=True)
     world.insert_resource(scenes.camera(scenes.tiny_config()))
     r = Renderer(scenes.tiny_config(), "cpu")
