@@ -113,6 +113,21 @@ Phases (each raises on failure; the script then exits non-zero):
    exact pair counts), ``sequence@grid`` (8 poses of grid_world(10)) and
    ``views`` (4 views a call through ``MultiViewRenderer``, which replays
    the same captured frame per view: ms per view).
+5. Surface: the oracle rasterizer (``kernels/raster_reference``) on the
+   card equals K6 (full mode) on the tiny scene's 256x128 rows (ids
+   exact, depth within 1e-6); then the port's programs through their
+   entry points, each with the launch counts set to 0 just before it and
+   read just after (it must launch the default path's kernels and no
+   other; the counts go to each kernel's own entry of the kernels line,
+   whatever the scene): ``bench.run`` at 1920x1080 per frame and with
+   ``seq=16`` (both JSON lines, with the card), ``sponza_scale.main``
+   (1080p, 3 frames), ``dynamic_spawn.main`` (1280x720, the despawn
+   restores the frame bit for bit), ``multi_view_flythrough.main``
+   (3840x2160, 8 views, 8 steps, on the NCCL world of one: one capture)
+   and ``eval_configs.main`` on ``ibl_preprocess``, ``sponza_1080p``,
+   ``multi_view_4k`` (8 steps) and ``stress_200k_1080p`` (5 frames each;
+   exit 0, its JSON printed).  The sky is the synthetic one wherever
+   ``resources/`` is absent, and every output names it.
 
 The last two lines are a JSON summary of the kernels and the contract
 line {"ok": true, "device": {...}}.  Without a CUDA device, or outside a
@@ -121,12 +136,12 @@ checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -234,15 +249,6 @@ def ssao_flop_equivalents(n_pixels, n_taps, n_occluding):
             + n_occluding * SSAO_MUFU_PER_OCCLUDING_TAP)
     fp64 = n_pixels * SSAO_FP64_PER_PIXEL
     return 2 * max(fp32 + mufu + fp64, 8 * mufu, 2 * fp64)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0].strip()
 
 
 def median_ms(fn, runs=20, sleep_cycles=50_000_000):
@@ -1849,6 +1855,144 @@ def _covered_fraction(renderer, world, cfg):
     return (tri[: cfg.height, : cfg.width] >= 0).float().mean().item()
 
 
+@contextlib.contextmanager
+def _env(**values):
+    """The environment variables ``values`` set over the block, the old
+    values back after it."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def check_oracle(device):
+    """Phase 5: the oracle rasterizer (``kernels/raster_reference``) on
+    the card against K6 (full mode) on the same rows: the tiny scene's
+    256x128 setup; ids exactly equal, depth within 1e-6."""
+    from mo_renderer_tpu_torch import Renderer, scenes
+    from mo_renderer_tpu_torch.kernels import raster_setup as RS
+    from mo_renderer_tpu_torch.kernels.raster_reference import (
+        rasterize_reference,
+    )
+    from mo_renderer_tpu_torch.kernels.rasterizer import rasterize
+    from mo_renderer_tpu_torch.passes.frame_graph import _bin
+
+    cfg = scenes.tiny_config()
+    world = scenes.tiny_world()
+    world.insert_resource(scenes.camera(cfg))
+    r = Renderer(cfg, device)
+    r.prepare(world)
+    params, _ = r.frame_params(world)
+    setup = RS.triangle_setup_from_attrs(
+        r.scene.tri_attrs, r.scene.tri_valid, params["proj_view"],
+        cfg.width, cfg.height)
+    binned = _bin(setup, cfg.width, cfg.height, r._binned_cap)
+    tri, z, _, _ = rasterize(binned, width=cfg.width, height=cfg.height)
+    o_tri, o_z, _, _ = rasterize_reference(setup, cfg.width, cfg.height)
+    covered = float((o_tri >= 0).float().mean())
+    mism = int((tri != o_tri).sum())
+    dz = float((z - o_z).abs().max())
+    if mism or dz > 1e-6 or not 0.1 < covered < 0.95:
+        raise AssertionError(f"oracle vs K6: {mism} id mismatches, depth "
+                             f"max |diff| {dz}, covered {covered:.3f}")
+    print(f"[5] oracle: rasterize_reference on the card equals K6 (full "
+          f"mode) on the tiny scene's {setup.tri_data.shape[0]} rows at "
+          f"{cfg.width}x{cfg.height}: 0 id mismatches, depth max |diff| "
+          f"{dz:.3g}, {covered:.3f} covered", flush=True)
+
+
+def check_surface(device, line):
+    """Phase 5 (after the oracle): the port's programs, each driven through
+    its entry point on the card with the launch counts set to 0 just
+    before it and read just after: ``bench.run`` at 1920x1080 per frame
+    and with ``seq=16``; the examples ``sponza_scale.main`` (1080p, 3
+    frames), ``dynamic_spawn.main`` (1280x720; the despawn must restore
+    the frame bit for bit) and ``multi_view_flythrough.main`` (3840x2160,
+    8 views, 8 steps, on the initialised NCCL world of one: one capture,
+    however many steps); ``eval_configs.main`` on ``ibl_preprocess``,
+    ``sponza_1080p``, ``multi_view_4k`` (8 steps) and
+    ``stress_200k_1080p``, 5 timed frames each: exit 0, every config that
+    ran succeeded.  Each path must launch the default path's kernels and
+    no other.  Returns {path: launch counts}."""
+    import tempfile
+
+    from mo_renderer_tpu_torch import bench, eval_configs
+    from mo_renderer_tpu_torch.config import EngineConfig
+    from mo_renderer_tpu_torch.examples import (
+        dynamic_spawn,
+        multi_view_flythrough,
+        sponza_scale,
+    )
+    from mo_renderer_tpu_torch.kernels import _build
+
+    kernels = PATHS["default"][1]
+    launches = {}
+
+    def drive(path, fn):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        launches[path] = dict(_build.LAUNCHES)
+        _check_launches(path, kernels, launches[path])
+        return out, wall
+
+    cfg = EngineConfig(width=1920, height=1080)
+    for path, seq in (("bench", 1), ("bench/seq16", 16)):
+        res, wall = drive(path, lambda: bench.run(cfg, device, seq=seq))
+        print(f"[5] {path} ({wall:.1f} s): {json.dumps(res)}", flush=True)
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        png = os.path.join(out_dir, "frame.png")
+        with _env(MO_WIDTH=1920, MO_HEIGHT=1080, MO_FRAMES=3, MO_OUT=png):
+            res, wall = drive("sponza_scale",
+                              lambda: sponza_scale.main(device))
+        print(f"[5] sponza_scale.main 1920x1080 ({wall:.1f} s): "
+              f"{res['fps']:.3f} fps, {res['tris']} triangles, sky "
+              f"{res['sky']}; on {line}", flush=True)
+        with _env(MO_WIDTH=1280, MO_HEIGHT=720, MO_OUT=png):
+            res, wall = drive("dynamic_spawn",
+                              lambda: dynamic_spawn.main(device))
+        if not res["bit_exact"] or res["prepares"] != 1:
+            raise AssertionError(f"dynamic_spawn: {res}")
+        print(f"[5] dynamic_spawn.main 1280x720 ({wall:.1f} s): 6 spawns "
+              f"in {res['spawn_seconds']:.3f} s, no full prepare, the "
+              f"despawn restored the frame bit for bit; sky {res['sky']}; "
+              f"on {line}", flush=True)
+        with _env(MO_WIDTH=3840, MO_HEIGHT=2160, MO_VIEWS=8, MO_FRAMES=8,
+                  MO_OUT=png):
+            res, wall = drive("multi_view_flythrough",
+                              lambda: multi_view_flythrough.main(device))
+        if res["captures"] != 1 or res["devices"] != 1:
+            raise AssertionError(f"multi_view_flythrough: {res}")
+        print(f"[5] multi_view_flythrough.main 3840x2160 ({wall:.1f} s): "
+              f"{res['n_frames']} steps x {res['views']} views, "
+              f"{res['frames_per_dispatch']} steps a call, "
+              f"{res['views_per_s']:.3f} views/s, {res['captures']} "
+              f"capture; sky {res['sky']}; on {line}", flush=True)
+
+        eval_out = os.path.join(out_dir, "eval.json")
+        names = "ibl_preprocess,sponza_1080p,multi_view_4k,stress_200k_1080p"
+        with _env(MO_EVAL_ONLY=names, MO_EVAL_STRESS=1, MO_EVAL_FRAMES=5,
+                  MO_EVAL_MV_FRAMES=8, MO_EVAL_OUT=eval_out):
+            rc, wall = drive("eval_configs",
+                             lambda: eval_configs.main(device))
+        with open(eval_out) as f:
+            res = json.load(f)
+    ran = [n for n in names.split(",") if "skipped" not in res[n]]
+    if rc != 0 or res["failed"] or len(ran) != 4 or not res[
+            "ibl_preprocess"]["ok"] or res["multi_view_4k"]["captures"] != 1:
+        raise AssertionError(f"eval_configs: rc {rc}, {res}")
+    print(f"[5] eval_configs ({wall:.1f} s): {json.dumps(res)}", flush=True)
+    return launches
+
+
 def _free_port() -> int:
     import socket
 
@@ -1869,8 +2013,10 @@ def main() -> int:
         print("no CUDA device: chip_smoke.py runs the port on a card",
               file=sys.stderr)
         return 1
+    from mo_renderer_tpu_torch.device import card
+
     device = "cuda"
-    line = card_line()
+    line = card(device)
     print(f"[0] {line}", flush=True)
     print(f"[0] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, "
@@ -1933,19 +2079,27 @@ def main() -> int:
         counts, _ = run_views_path(device, line, group)
         for name in PATHS["default"][1]:
             launches[name]["views"] = counts[name]
+        # the interactive loop: the window on the tiny scene, spawns on
+        # the stress scene (its raster and SSAO launches go to the @grid
+        # entries)
+        for divisor in (1, 2):
+            counts, _ = run_window_path(device, line, divisor)
+            for name in PATHS["default"][1]:
+                launches[name]["window" if divisor == 1
+                               else f"window/{divisor}"] = counts[name]
+        counts, _ = run_spawn_path(device, line)
+        for name in PATHS["default"][1]:
+            if f"{name}@grid" in launches:
+                launches[f"{name}@grid"]["spawn@grid"] = counts[name]
+        # phase 5: the oracle, the bench, the examples and the eval
+        # configs (multi-view on this world of one); their launches go
+        # to each kernel's own entry, whatever their scene
+        check_oracle(device)
+        for path, counts in check_surface(device, line).items():
+            for name in PATHS["default"][1]:
+                launches[name][path] = counts[name]
     finally:
         dist.destroy_process_group()
-    # the interactive loop: the window on the tiny scene, spawns on the
-    # stress scene (its raster and SSAO launches go to the @grid entries)
-    for divisor in (1, 2):
-        counts, _ = run_window_path(device, line, divisor)
-        for name in PATHS["default"][1]:
-            launches[name]["window" if divisor == 1 else f"window/{divisor}"] \
-                = counts[name]
-    counts, _ = run_spawn_path(device, line)
-    for name in PATHS["default"][1]:
-        if f"{name}@grid" in launches:
-            launches[f"{name}@grid"]["spawn@grid"] = counts[name]
 
     # each kernel on the tiny scene's inputs, then the raster modes and
     # SSAO on the stress scene's; launches are those of the paths that ran

@@ -32,10 +32,32 @@ Their kernels, each written in CUDA C++ under ``csrc/`` and built with
 
 Each has a plain PyTorch twin in the same module; the twin runs only for
 tensors on the CPU.  A CUDA tensor always goes to the kernel.
+
+The package exports the JAX package's top-level names, each its own
+class, and carries its programs: ``bench`` and ``eval_configs`` (``python
+-m mo_renderer_tpu_torch.bench``, ``.eval_configs``), the four examples
+(``examples/``), ``utils`` and the oracle rasterizer
+(``kernels/raster_reference``).
 """
 
+# every public name of mo_renderer_tpu/__init__.py, each resolved to the
+# port's own class, and the port's Renderer and RenderPass
 _EXPORTS = {
     "App": ".app.application",
+    "AppError": ".app.application",
+    "FColor": ".app.color",
+    "Transform": ".math.transform",
+    "DirectionalLight": ".scene.components",
+    "PointLight": ".scene.components",
+    "Camera": ".scene.camera",
+    "CameraSettings": ".scene.camera",
+    "Input": ".scene.input",
+    "Timer": ".scene.timer",
+    "Model": ".assets.model",
+    "DefaultTextures": ".assets.default_textures",
+    "GlobalSamplers": ".assets.samplers",
+    "IBLResource": ".assets.ibl_resource",
+    "EngineConfig": ".config",
     "Renderer": ".passes.frame_graph",
     "RenderPass": ".passes.frame_graph",
 }
@@ -52,4 +74,6 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["App", "Renderer", "RenderPass"]
+__all__ = list(_EXPORTS)
+
+__version__ = "0.1.0"

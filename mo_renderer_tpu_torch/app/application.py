@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import contextlib
 import logging
-import os
 
 import numpy as np
 
@@ -42,21 +41,6 @@ class EventLoop:
 
     def run_app(self, app: "App", num_frames: int = 1, on_frame=None):
         return app.run(num_frames=num_frames, on_frame=on_frame)
-
-
-def _profile_trace(profile_dir: str):
-    """torch.profiler over the block (CPU and, on a card, CUDA
-    activity), written to ``profile_dir`` as a Chrome trace."""
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(profile_dir, exist_ok=True)
-    return torch.profiler.profile(
-        activities=acts,
-        on_trace_ready=torch.profiler.tensorboard_trace_handler(profile_dir),
-    )
 
 
 class App:
@@ -179,7 +163,9 @@ class App:
 
         profile_dir: capture a torch.profiler trace of the loop there."""
         self.resumed()
-        ctx = (_profile_trace(profile_dir) if profile_dir
+        from ..utils import profile_trace
+
+        ctx = (profile_trace(profile_dir) if profile_dir
                else contextlib.nullcontext())
         frame = None
         with ctx:

@@ -133,3 +133,13 @@ def procedural_model(kind: str = "cube", *, base_color=(1.0, 1.0, 1.0, 1.0),
         textures.append(_mr_gradient_texture())
     return Model(meshes=[Mesh(primitive=prim, material=mat)],
                  textures=textures)
+
+
+def synthetic_sky(h: int = 16, w: int = 32) -> np.ndarray:
+    """Blue-to-warm gradient equirect panorama, (h, w, 3) float32: the
+    asset-free stand-in for ``resources/tex/env/default_sky.hdr``."""
+    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None, None]
+    top = np.array([0.3, 0.5, 1.2], np.float32)
+    bottom = np.array([1.0, 0.8, 0.6], np.float32)
+    sky = top * (1.0 - y) + bottom * y
+    return np.broadcast_to(sky, (h, w, 3)).copy()

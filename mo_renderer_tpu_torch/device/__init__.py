@@ -16,3 +16,20 @@ def resolve_device(device="cuda") -> torch.device:
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def card(device) -> str | None:
+    """``name, power.limit`` of the card ``device`` is on, as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    gives them (a card below its full power limit runs slower under
+    load, so a time is reported with both); None for a CPU device."""
+    import subprocess
+
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return None
+    return subprocess.run(
+        ["nvidia-smi", f"--id={device.index}",
+         "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()

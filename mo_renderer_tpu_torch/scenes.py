@@ -23,12 +23,17 @@ import numpy as np
 
 from .assets.ibl_resource import IBLResource
 from .assets.materials import DEFAULT_TEXTURE_MAP
-from .assets.procedural import _mr_gradient_texture, procedural_model
+from .assets.procedural import (  # noqa: F401 (synthetic_sky: scenes API)
+    _mr_gradient_texture,
+    procedural_model,
+    synthetic_sky,
+)
 from .config import EngineConfig
+from .examples import sponza_scale
 from .math import quat
 from .math.transform import Transform
 from .scene.camera import Camera
-from .scene.components import DirectionalLight, PointLight
+from .scene.components import DirectionalLight
 from .scene.world import World
 
 
@@ -38,15 +43,6 @@ def tiny_config(**overrides):
               texture_array_size=64, tile_h=16, tile_w=128, max_lights=16)
     kw.update(overrides)
     return EngineConfig(**kw)
-
-
-def synthetic_sky(h: int = 16, w: int = 32) -> np.ndarray:
-    """Blue-to-warm gradient equirect panorama, (h, w, 3) float32."""
-    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None, None]
-    top = np.array([0.3, 0.5, 1.2], np.float32)
-    bottom = np.array([1.0, 0.8, 0.6], np.float32)
-    sky = top * (1.0 - y) + bottom * y
-    return np.broadcast_to(sky, (h, w, 3)).copy()
 
 
 def tiny_ibl(device=None) -> IBLResource:
@@ -162,59 +158,21 @@ def tiny_world(device=None, uv1=False, all_slots=False):
 
 def grid_world(n_grid: int = 10, device=None):
     """The reference's stress scene (``examples/sponza_scale.py``
-    ``build_app``): a 40-unit textured plane, an ``n_grid`` x ``n_grid``
-    grid of alternating cubes and spheres whose colours, heights and
-    roughness come from ``default_rng(42)`` in the reference's draw order,
-    one shadow-casting sun over a 40 x 40 half-extent and four point
-    lights.  The IBL is the synthetic sky (the reference falls back to no
-    IBL when its HDR asset is absent)."""
+    ``build_app``), spawned by the port's copy of that example
+    (``examples.sponza_scale.spawn_scene``): a 40-unit textured plane, an
+    ``n_grid`` x ``n_grid`` grid of alternating cubes and spheres with
+    distinct materials, one shadow-casting sun over a 40 x 40 half-extent
+    and four point lights.  The IBL is the tiny synthetic sky."""
     world = World()
-    world.spawn((
-        Transform.from_xyz(0.0, 0.0, 0.0),
-        procedural_model("plane", size=40.0, textured=True, roughness=0.8),
-    ))
-    rng = np.random.default_rng(42)
-    for i in range(n_grid):
-        for j in range(n_grid):
-            x = (i - (n_grid - 1) / 2) * 2.4
-            z = (j - (n_grid - 1) / 2) * 2.4
-            kind = "cube" if (i + j) % 2 == 0 else "sphere"
-            color = tuple(rng.uniform(0.2, 1.0, 3)) + (1.0,)
-            model = procedural_model(
-                kind,
-                base_color=color,
-                metallic=float((i * n_grid + j) % 3 == 0),
-                roughness=float(0.1 + 0.8 * rng.random()),
-                textured=(i + j) % 5 == 0,
-            )
-            world.spawn((
-                Transform.from_xyz(x, 0.5 + 0.8 * rng.random(), z), model,
-            ))
-    world.spawn((DirectionalLight(
-        Transform.from_xyz(20.0, 30.0, 10.0).looking_at((0.0, 0.0, 0.0)),
-        (1.0, 0.98, 0.9), 3.0, True, shadow_width=40.0, shadow_height=40.0,
-    ),))
-    for k in range(4):
-        ang = k * np.pi / 2 + 0.4
-        world.spawn((PointLight(
-            Transform.from_xyz(8 * np.cos(ang), 3.0, 8 * np.sin(ang)),
-            color=[(1, .3, .2), (.2, 1, .3), (.3, .4, 1), (1, 1, .5)][k],
-            intensity=8.0,
-        ),))
+    sponza_scale.spawn_scene(world, n_grid)
     world.insert_resource(tiny_ibl(device))
     return world
 
 
 def grid_camera(cfg):
-    """The stress scene's camera: 14 units back and 4 up, pitched down by
-    0.2 rad (``examples/sponza_scale.py``)."""
-    yaw = np.pi * 0.8
-    d = np.array([np.sin(yaw), 0.0, np.cos(yaw)])
-    cam = Camera(
-        position=tuple(-14.0 * d + np.array([0.0, 4.0, 0.0])),
-        rotation=quat.mul(quat.from_rotation_y(yaw),
-                          quat.from_rotation_x(-0.2)),
-    )
+    """The stress scene's camera (``examples.sponza_scale.scene_camera``),
+    sized to ``cfg``."""
+    cam = sponza_scale.scene_camera()
     cam.resize((cfg.width, cfg.height))
     return cam
 

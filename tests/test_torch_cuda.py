@@ -64,6 +64,27 @@ def test_card_frame_matches_cpu_frame(cuda):
 
 
 @pytest.mark.cuda
+def test_oracle_matches_full_mode_on_the_card(cuda):
+    """The oracle rasterizer equals K6 on the tiny scene's rows
+    (chip_smoke's phase 5)."""
+    import chip_smoke
+
+    chip_smoke.check_oracle(cuda)
+
+
+@pytest.mark.cuda
+def test_bench_runs_on_the_card(cuda):
+    """The bench at 256x128, per frame and replayed: bench.py's keys, the
+    card named, a frame that is not black."""
+    from mo_renderer_tpu_torch import bench, scenes
+
+    for seq in (1, 4):
+        res = bench.run(scenes.tiny_config(), cuda, frames=4, seq=seq)
+        assert res["backend"] == "cuda" and res["card"]
+        assert res["frames_per_dispatch"] == seq and res["value"] > 0
+
+
+@pytest.mark.cuda
 def test_interactive_loop_on_the_card(cuda):
     """Spawns, a despawn and a fallback on the card against a fresh
     prepare and the CPU; the window loop with a live resize and
