@@ -68,9 +68,10 @@ Phases (each raises on failure; the script then exits non-zero):
    ``run_windowed`` through an OffscreenWindow, 3 frames with a resize to
    384x160 pending before frame 2, the last frame (160, 384, 4) within the
    golden bar of the CPU's; ``present_divisor=2`` presents (64, 128, 4).
-   Then ``[3] render pass``: a probe RenderPass sees the padded frame,
-   dims it, ``present_pass`` runs and K5 does not launch, ``resize``
-   reaches ``on_swapchain_recreate``, card vs CPU in the golden bar.
+   Then ``[3] render pass``: a probe RenderPass sees the padded frame
+   (on the card while the frame is captured, not per replay), dims it,
+   ``present_pass`` runs and K5 does not launch, ``resize`` reaches
+   ``on_swapchain_recreate``, card vs CPU in the golden bar.
    ``[3] sequence``: on each of the four paths and with a pass,
    ``render_sequence_device`` (the frame captured in a CUDA graph and
    replayed per step) over K = 4 poses with the light fixed and K = 3
@@ -81,16 +82,28 @@ Phases (each raises on failure; the script then exits non-zero):
    ``[3] views``: ``MultiViewRenderer`` on the NCCL world of one, 3 views
    equal 3 single-view frames bit for bit, a 3-step x 2-view sequence
    equals per-step views, a spawn shows in the next views.
+   ``[3] interactive``: ``render_device`` replays the frame captured in a
+   CUDA graph keyed on the layout; on the default, reference, megakernel,
+   stacks and rows paths and the default path with an extra pass, at
+   256x128, 8 frames through a camera move, an entity move, a spawn, a
+   despawn, a light move and a resize each equal the eager
+   ``frame_program`` frame bit for bit with the same dropped-pair counts,
+   frames returned earlier stay unchanged, the moves, spawn, despawn and
+   light capture nothing and the resize captures once; past a 256-pair
+   capacity ``check_overflow`` raises with the eager counts.
 4. Frames at 1920x1080 through the port's App.run along the reference
    benchmark's small camera orbit, on each of the four paths (the
    texture-stack path on the all-slots scene): finite, not black, sky
    and geometry both present, no bin overflow, and every kernel of the
    path launched during its run (the counts are set to 0 just before each
-   path and read just after; the reference path re-rasterizes the shadow
-   map every frame; a checkerboard frame takes one reconstruct launch and
-   never ``present_pass``).  Prints each path's steady-state ms/frame, then
-   its kernel launches and device kernel time per frame from
-   torch.profiler over two more frames.  Then the default, the reference
+   path and read just after; they are the captured launches of each
+   replayed frame plus the capture's warm-up frame; the reference path
+   re-rasterizes the shadow map every frame; a checkerboard frame takes
+   one reconstruct launch and never ``present_pass``).  Prints each
+   path's steady-state ms/frame replayed, beside the eager frame
+   (``eager_frames``) in turns on the same app, then host launch calls
+   and device time per frame of both from torch.profiler over two more
+   frames.  Then the default, the reference
    and the megakernel path on scenes.grid_world(10) in the same way, a few
    frames each.  Then the ``rows`` path: the 1080p row-sharded frame
    (``TileShardedRenderer``, world of one, ``ssao_res_divisor=1``) along
@@ -99,11 +112,12 @@ Phases (each raises on failure; the script then exits non-zero):
    whole-frame raster or SSAO kernel.  Then the interactive loop:
    ``window`` and ``window/2``, the default path on the tiny scene through
    ``run_windowed`` and an OffscreenWindow at ``present_divisor`` 1 and 2,
-   timed in turns with ``App.run`` on the same app and profiled the same
-   way; and ``spawn@grid``, five cube spawns into grid_world(10): the
-   medians of the ``_sync_topology`` ms, of the first frame after a spawn
-   and of the next, and of a full ``prepare`` of the same world.  The
-   ``default`` and ``default@grid`` paths also print their launches and
+   timed in turns with the eager frame and ``App.run`` on the same app
+   and profiled the same way; and ``spawn@grid``, five cube spawns into
+   grid_world(10), none of which captures: the medians of the
+   ``_sync_topology`` ms, of the first frame after a spawn and of the
+   next, and of a full ``prepare`` of the same world.  The ``default``
+   and ``default@grid`` paths also print the eager frame's launches and
    device ms by pass (the functions ``frame_program`` calls, wrapped in
    ``torch.profiler.record_function`` ranges by this script only).  Then
    ``sequence`` (the default path's 16 orbit poses as one
@@ -283,8 +297,10 @@ def bound(n_bytes, n_flops):
 def capture_inputs(cfg, device, frames, want):
     """Render one frame per entry of ``frames`` -- (EngineConfig
     overrides, world factory, camera factory) -- and record what each
-    kernel wrapper got (the first call per kernel).  Returns {kernel:
-    (args, kwargs)}; raises unless every kernel of ``want`` was called."""
+    kernel wrapper got (the first call per kernel: the eager warm-up of
+    the frame's capture, statically binned as the graph is).  Returns
+    {kernel: (args, kwargs)}; raises unless every kernel of ``want`` was
+    called."""
     import mo_renderer_tpu_torch.passes.frame_graph as FG
     import mo_renderer_tpu_torch.passes.gbuffer as GB
     from mo_renderer_tpu_torch import Renderer
@@ -363,9 +379,14 @@ def check_kernels(cfg, device):
     def exact(a, b):
         return (a.double() - b.double()).abs().max().item()
 
+    def live_pairs(binned):
+        return int(binned.tile_count.sum())
+
     def raster_inputs(binned):
-        return nbytes(binned.tri_data, binned.pair_tri, binned.tile_start,
-                      binned.tile_count, binned.bbox)
+        # the pairs in the runs: a statically binned frame's slots past
+        # them are never read
+        return nbytes(binned.tri_data, binned.tile_start, binned.tile_count,
+                      binned.bbox) + 4 * live_pairs(binned)
 
     def candidates(binned):
         """(triangle, pixel) tests this run's data needs: the pixels of
@@ -376,7 +397,8 @@ def check_kernels(cfg, device):
         return int(torch.where(live, area, 0).sum())
 
     def run_stats(binned):
-        return {"pairs": binned.pair_tri.shape[0],
+        return {"pairs": live_pairs(binned),
+                "slots": binned.pair_tri.shape[0],
                 "max_tile_count": int(binned.tile_count.max())}
 
     # each case: kernel, plain, cmp -> (max_abs_err, ok, bar), shape,
@@ -997,8 +1019,9 @@ def check_render_pass(device):
     halves the colour.  The context is at the padded frame size, the frame
     is dimmed, ``present_pass`` runs once and the checkerboard reconstruct
     (K5) does not launch (a pass switches the checkerboard off); ``resize``
-    reaches ``on_swapchain_recreate``.  The card frame holds the golden
-    bar against the CPU's."""
+    reaches ``on_swapchain_recreate``.  On the card the pass runs while
+    the frame is captured (twice: the warm-up and the capture) and not at
+    the replay.  The card frame holds the golden bar against the CPU's."""
     import mo_renderer_tpu_torch.passes.frame_graph as FG
     from mo_renderer_tpu_torch import Renderer, RenderPass, scenes
     from mo_renderer_tpu_torch.kernels import _build
@@ -1040,13 +1063,17 @@ def check_render_pass(device):
             pad = (r.pad_h, r.pad_w)
             k5 = (_build.LAUNCHES["interleave"]
                   + _build.LAUNCHES["interleave_present"])
-            if probe.seen != [(pad, pad, pad)]:
+            # on the card the pass and present_pass run while the frame is
+            # captured (the warm-up, the capture), not at the replay
+            runs = 2 if dev == device else 1
+            if probe.seen != [(pad, pad, pad)] * runs:
                 raise AssertionError(f"{dev}: the pass saw {probe.seen}, "
-                                     f"want the padded frame {pad}")
-            if len(calls) != 1 or k5:
+                                     f"want the padded frame {pad} {runs} "
+                                     "time(s)")
+            if len(calls) != runs or k5:
                 raise AssertionError(f"{dev}: present_pass ran {len(calls)} "
                                      f"times and K5 launched {k5} times "
-                                     "(want 1 and 0)")
+                                     f"(want {runs} and 0)")
             if not (frames[dev][..., :3].astype(int).sum()
                     < 0.6 * full[..., :3].astype(int).sum()):
                 raise AssertionError(f"{dev}: the pass did not dim the frame")
@@ -1058,11 +1085,261 @@ def check_render_pass(device):
     finally:
         FG.present_pass = present_pass
     print(f"[3] render pass: the probe saw {probe.seen[0]} (the padded "
-          "frame) on the card and the CPU, present_pass ran once, K5 0 "
-          "launches, resize reached on_swapchain_recreate (384, 160)",
-          flush=True)
+          "frame) on the card (at the capture: warm-up and graph) and the "
+          "CPU (once), present_pass ran as often, K5 0 launches, resize "
+          "reached on_swapchain_recreate (384, 160)", flush=True)
     golden_bar("256x128 frame with a probe pass", frames[device],
                frames["cpu"])
+
+
+def eager_render_device(r, world):
+    """``Renderer.render_device`` as it ran before its frame was captured:
+    the same host side (topology, transforms, params, the shadow memo, whose
+    recompute replays its graph on a card), then ``frame_program`` op by op
+    with exact binning.  What phases 3 and 4 hold the replayed frame to."""
+    from mo_renderer_tpu_torch.scene.scene_buffers import refresh_transforms
+
+    r._sync_topology(world)
+    r.scene = refresh_transforms(r.scene)
+    params, has_light = r.frame_params(world)
+    quads = r._cached_shadow_quads(params.host_field("light_proj_view"),
+                                   params["light_proj_view"], has_light)
+    rgba, overflow = r._frame(params, quads, has_light)
+    r._note_overflow(overflow)
+    return rgba
+
+
+def eager_rows_render_device(ts, world):
+    """``TileShardedRenderer.render_device`` before its frame was
+    captured: the same host side, then the band program op by op with
+    exact band binning and the bands' counts summed on the device."""
+    from mo_renderer_tpu_torch.scene.scene_buffers import refresh_transforms
+
+    inner = ts._inner
+    inner._sync_topology(world)
+    if inner._prepare_count != ts._prepared_at:
+        ts._rebuild_frame_fn()
+    inner.scene = refresh_transforms(inner.scene)
+    params, has_light = inner.frame_params(world)
+    rgba, overflow = ts._frame(params, has_light, static_bins=False)
+    inner._note_overflow(overflow)
+    return rgba
+
+
+@contextlib.contextmanager
+def eager_frames(renderer):
+    """Over the block, ``renderer.render_device`` (which ``render``,
+    ``App.run`` and ``run_windowed`` call) is the eager frame of
+    ``eager_render_device`` / ``eager_rows_render_device``."""
+    from mo_renderer_tpu_torch.parallel import TileShardedRenderer
+
+    eager = (eager_rows_render_device
+             if isinstance(renderer, TileShardedRenderer)
+             else eager_render_device)
+    renderer.render_device = functools.partial(eager, renderer)
+    try:
+        yield
+    finally:
+        del renderer.render_device
+
+
+@contextlib.contextmanager
+def nccl_world_of_one():
+    """An NCCL ``torch.distributed`` world of one in this process (on
+    127.0.0.1, a free port): its rank group, destroyed after the block."""
+    import torch.distributed as dist
+
+    from mo_renderer_tpu_torch.parallel import make_rank_group
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        yield make_rank_group()
+    finally:
+        dist.destroy_process_group()
+
+
+# phase 3 ``[3] interactive``: path -> (EngineConfig overrides, scene
+# variant, extra passes, row-sharded)
+INTERACTIVE = {
+    "default": ({}, {}, False, False),
+    "reference": ({"fast_sampling": False}, {}, False, False),
+    "megakernel": ({"raster_interp_attrs": True}, {}, False, False),
+    "stacks": (STACKS, {"all_slots": True}, False, False),
+    "rows": (ROWS_OVERRIDES, {}, False, True),
+    "default+pass": ({}, {}, True, False),
+}
+
+
+def check_interactive(device, group, paths=tuple(INTERACTIVE)):
+    """Phase 3, the interactive frame replayed from its CUDA graph, at
+    256x128 on the tiny scene: on each of ``paths`` (the four single-device
+    paths, ``rows`` through ``TileShardedRenderer`` on ``group`` and the
+    default path with an extra pass), 8 ``render_device`` frames with,
+    before each, nothing, a camera move, an entity move, a cube spawn, its
+    despawn, a light move, a camera move and a resize to 320x160.  Each
+    replayed frame equals the eager ``frame_program`` frame on the same
+    state bit for bit (``renderer._frame`` / the band program with exact
+    binning), and its dropped-pair counts the eager counts; a recomputed
+    memoized shadow table equals ``shadow_program``'s.  The frames returned
+    earlier are unchanged at the end.  Captures: one frame graph (and one
+    shadow graph where the shadow is memoized) on the first frame, none
+    for the moves, the spawn, the despawn or the light, one frame graph
+    for the resize; no full prepare.  Then, under ``binned_cap=256`` (below
+    the pair count), two frames: the pending counts equal the eager
+    frames' counts, and ``check_overflow`` raises with them."""
+    import numpy as np
+    import torch
+
+    from mo_renderer_tpu_torch import Renderer, RenderPass, scenes
+    from mo_renderer_tpu_torch.assets.model import Model
+    from mo_renderer_tpu_torch.math.transform import Transform
+    from mo_renderer_tpu_torch.parallel import TileShardedRenderer
+    from mo_renderer_tpu_torch.passes.frame_graph import shadow_program
+    from mo_renderer_tpu_torch.scene.camera import Camera
+    from mo_renderer_tpu_torch.scene.components import DirectionalLight
+
+    class Dim(RenderPass):
+        def render(self, ctx):
+            return dict(ctx, color=ctx["color"] * 0.5)
+
+    def move_camera(world):
+        camera = world.resource(Camera)
+        camera.transform.translation = (
+            np.asarray(camera.transform.translation) + np.float32(
+                [0.1, 0.0, 0.05])).astype(np.float32)
+        camera.refresh_view()
+
+    def move_entity(world):
+        t = next(iter(world.query(Transform, Model)))[0]
+        t.translation = (np.asarray(t.translation)
+                         + np.float32([0.2, 0.0, 0.0])).astype(np.float32)
+
+    def move_light(world):
+        next(lt for lt in world.query(DirectionalLight)
+             if lt.is_shadow_caster).shadow_width += 0.5
+
+    def build(path, **overrides):
+        base, scene_kw, with_pass, rows = INTERACTIVE[path]
+        cfg = scenes.tiny_config(**{**base, **overrides})
+        world = scenes.tiny_world(**scene_kw)
+        world.insert_resource(scenes.camera(cfg))
+        if rows:
+            ren = TileShardedRenderer(cfg, group, device)
+            inner = ren._inner
+        else:
+            ren = inner = Renderer(cfg, device,
+                                   extra_passes=[Dim()] if with_pass else ())
+        ren.prepare(world)
+        return ren, inner, world, rows
+
+    def eager(ren, inner, world, rows, check_table=True):
+        """The eager frame and counts on the state the replay just saw
+        (the host side is cached: nothing is recomputed)."""
+        params, has_light = inner.frame_params(world)
+        if rows:
+            rgba, counts = ren._frame(params, has_light, static_bins=False)
+            return rgba, [int(v) for v in counts], None
+        quads = inner._cached_shadow_quads(
+            params.host_field("light_proj_view"), params["light_proj_view"],
+            has_light)
+        rgba, (g, s) = inner._frame(params, quads, has_light)
+        if quads is not None and check_table:
+            table, _ = shadow_program(
+                inner.scene, params["light_proj_view"], cfg=inner.config,
+                binned_cap=inner._binned_cap)
+            if not torch.equal(table, quads):
+                raise AssertionError(f"{path}: the shadow graph's table "
+                                     "differs from shadow_program's")
+        return rgba, [int(g), int(s)], quads
+
+    def spawn(world):
+        world.cube = world.spawn(_cube(0.6, 0.3, 0.9,
+                                       base_color=(0.2, 0.9, 0.2, 1.0)))
+
+    steps = (("first", None), ("camera", move_camera),
+             ("entity", move_entity), ("spawn", spawn),
+             ("despawn", lambda w: w.despawn(w.cube)),
+             ("light", move_light), ("camera", move_camera),
+             ("resize", None))
+    for path in paths:
+        ren, inner, world, rows = build(path)
+        kept, memo = [], False
+        for what, update in steps:
+            if update is not None:
+                update(world)
+            if what == "resize":
+                ren.resize(320, 160)
+                world.resource(Camera).resize((320, 160))
+            captures = (ren._captures, inner._shadow_captures)
+            frame = ren.render_device(world)
+            kept.append((frame, frame.clone()))
+            got = [int(v) for v in inner._pending_overflow[-1]]
+            want, counts, quads = eager(ren, inner, world, rows)
+            memo = memo or quads is not None
+            if not torch.equal(frame, want) or got != counts:
+                raise AssertionError(
+                    f"{path}, {what}: the replayed frame (counts {got}) "
+                    f"differs from the eager frame (counts {counts})")
+            new = (ren._captures - captures[0],
+                   inner._shadow_captures - captures[1])
+            expect = {"first": (1, int(quads is not None)),
+                      "resize": (1, 0)}.get(what, (0, 0))
+            if new != expect:
+                raise AssertionError(f"{path}, {what}: {new} new (frame, "
+                                     f"shadow) captures, want {expect}")
+        if inner._prepare_count != 1:
+            raise AssertionError(f"{path}: {inner._prepare_count - 1} full "
+                                 "re-prepares")
+        if not all(torch.equal(f, c) for f, c in kept):
+            raise AssertionError(f"{path}: a frame returned earlier changed")
+        ren.check_overflow()
+        graph, n_captures = ren._graph, ren._captures
+
+        # past the capacity: the counts on the device equal the eager ones
+        ren, inner, world, rows = build(path, binned_cap=256)
+        total = np.zeros(2, np.int64)
+        for i in range(2):
+            if i:
+                move_camera(world)
+            shadow_before = inner._shadow_captures, inner._shadow_key
+            ren.render_device(world)
+            _, counts, quads = eager(ren, inner, world, rows,
+                                     check_table=False)
+            total += counts
+            if quads is not None and shadow_before[1] != inner._shadow_key:
+                _, ovf = shadow_program(
+                    inner.scene, inner.frame_params(world)[0][
+                        "light_proj_view"], cfg=inner.config,
+                    binned_cap=inner._binned_cap)
+                total[1] += int(ovf)
+        pending = np.sum([[int(v) for v in o]
+                          for o in inner._pending_overflow], axis=0)
+        if not (np.array_equal(pending, total) and total[0] > 0):
+            raise AssertionError(f"{path}: past a 256-pair cap the replayed "
+                                 f"counts {pending.tolist()} differ from the "
+                                 f"eager counts {total.tolist()}")
+        try:
+            ren.check_overflow()
+        except RuntimeError as err:
+            if f"{total[0]} G-buffer and {total[1]} shadow" not in str(err):
+                raise AssertionError(f"{path}: check_overflow raised "
+                                     f"{err!r}, want the eager counts "
+                                     f"{total.tolist()}") from err
+        else:
+            raise AssertionError(f"{path}: check_overflow did not raise "
+                                 "past the capacity")
+        print(f"[3] interactive, {path}: 8 replayed render_device frames "
+              f"(camera, entity, spawn, despawn, light, camera, resize) "
+              f"equal the eager frames bit for bit and their counts, "
+              f"{'the memoized shadow table equals shadow_program' if memo else 'shadow in the frame'}"
+              f"; frames kept are unchanged; {n_captures} frame graphs "
+              f"captured (first, resize), "
+              f"{'1 shadow graph' if memo else 'no shadow graph'}, 0 for "
+              f"the moves, spawn, despawn and light; replay launches "
+              f"{graph.launches}; past a 256-pair cap the device counts "
+              f"{total.tolist()} equal the eager counts and check_overflow "
+              "raises with them", flush=True)
 
 
 def check_sequences(device):
@@ -1070,8 +1347,8 @@ def check_sequences(device):
     of the four paths and with a probe pass, ``render_sequence_device``
     over K = 4 poses with the light fixed (the memoized shadow) and K = 3
     with it moving per step (a shadow per step, in the graph) equals the
-    eager ``render_device`` frames bit for bit; a second call with the
-    same key captures nothing new.  On the default path also: the static
+    eager frames (``eager_render_device``) bit for bit; a second call with
+    the same key captures nothing new.  On the default path also: the static
     binning's pair table equals the exact one on the card (the frame and
     the shadow map), and with a capacity below the pair count the
     graph's device overflow sum equals the eager frames' sum."""
@@ -1108,7 +1385,7 @@ def check_sequences(device):
             light.shadow_width = width + light_step * i
             light_pv, _ = find_shadow_light(world)
             params.append(build_camera_params(camera, light_pv, r.device))
-            eager.append(r.render_device(world).clone())
+            eager.append(eager_render_device(r, world).clone())
         camera.transform.translation = base.astype(np.float32)
         camera.refresh_view()
         light.shadow_width = width
@@ -1246,7 +1523,9 @@ def check_views(device, group):
 
 def profile_frames(run, n_frames=2):
     """torch.profiler over ``run(n_frames)`` (which renders that many
-    frames): (kernel launches per frame, device kernel ms per frame)."""
+    frames): (host launch calls per frame -- kernel launches, graph
+    launches and the runtime's copies and fills --, device ms per frame,
+    kernels and copies)."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -1254,23 +1533,28 @@ def profile_frames(run, n_frames=2):
     with torch.profiler.profile(activities=acts) as prof:
         run(n_frames)
         torch.cuda.synchronize()
-    launches, device_us = 0, 0.0
+    calls, device_us = 0, 0.0
     for row in prof.key_averages():
-        if row.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
-                       "cuLaunchKernel", "cuLaunchKernelEx"):
-            launches += row.count
+        if row.key in HOST_CALL_ROWS:
+            calls += row.count
         # only the device's own rows (kernels, copies): an op's row and
         # its runtime launch's row repeat the same kernel time
         if row.device_type == torch.autograd.DeviceType.CUDA:
             device_us += row.self_device_time_total
-    return launches / n_frames, device_us / 1e3 / n_frames
+    return calls / n_frames, device_us / 1e3 / n_frames
 
 
 def run_full_frame(device, line, path, n_frames, group=None, warmup=3):
     """Phase 4: one path's 1080p frame through App.run, on the tiny scene
     or (the ``...@grid`` paths) on the stress scene; the ``rows`` paths
-    through TileShardedRenderer on ``group``, each frame fetched to the
-    host as App.run does."""
+    through TileShardedRenderer on ``group``; each frame fetched to the
+    host as App.run does.  ``render_device`` replays the captured frame
+    (the first warm-up frame captures it); ms/frame is timed in turns with
+    the eager frame on the same app (``eager_frames``: replay, eager,
+    replay, eager, ``n_frames`` frames a turn), and both are profiled for
+    host launch calls and device ms per frame.  The launch counts are set
+    to 0 before the warm-up and hold the replayed frames' launches (and
+    the capture's warm-up frame): the eager turns give theirs back."""
     import numpy as np
     import torch
 
@@ -1299,10 +1583,10 @@ def run_full_frame(device, line, path, n_frames, group=None, warmup=3):
     if path in ROWS_PATHS:
         world = make_world()
         world.insert_resource(make_camera(cfg))
-        orbit = scenes.orbit_system(warmup + n_frames)
+        orbit = scenes.orbit_system(warmup + 4 * n_frames + 4)
         ts = TileShardedRenderer(cfg, group, device)
         ts.prepare(world)
-        renderer, present_module = ts._inner, TS
+        renderer, present_module, top = ts._inner, TS, ts
 
         def run(n):
             frame = None
@@ -1314,12 +1598,29 @@ def run_full_frame(device, line, path, n_frames, group=None, warmup=3):
         app = App.new(config=cfg, device=device)
         app.world = make_world()
         app.insert_resource(make_camera(cfg))
-        app.add_runtime_system(scenes.orbit_system(warmup + n_frames))
+        app.add_runtime_system(scenes.orbit_system(warmup + 4 * n_frames
+                                                   + 4))
         app.resumed()
         world, renderer, present_module = app.world, app.renderer, FG
+        top = renderer
 
         def run(n):
             return app.run(num_frames=n)
+
+    def eager(n):
+        # the eager frame launches the same kernels: take its counts back
+        before = dict(_build.LAUNCHES)
+        with eager_frames(top):
+            out = run(n)
+        _build.LAUNCHES.update(before)
+        return out
+
+    def ms_per_frame(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(n_frames)  # render() syncs every frame
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n_frames, out
 
     # a checkerboard frame is quantised inside the reconstruct kernel: it
     # must not go through present_pass's torch ops as well
@@ -1333,20 +1634,23 @@ def run_full_frame(device, line, path, n_frames, group=None, warmup=3):
 
     _build.reset_launches()
     present_module.present_pass = counted_present_pass
+    turns = {"replay": [], "eager": []}
     try:
         run(warmup)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        frame = run(n_frames)  # render() syncs every frame
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / n_frames
+        for _ in range(2):
+            ms, frame = ms_per_frame(run)
+            turns["replay"].append(ms)
+            turns["eager"].append(ms_per_frame(eager)[0])
     finally:
         present_module.present_pass = present_pass
     counts = dict(_build.LAUNCHES)
+    replayed = warmup + 2 * n_frames
     renderer.check_overflow()
-    launches, device_ms = profile_frames(run)
+    calls, device_ms = profile_frames(run)
+    eager_calls, eager_device_ms = profile_frames(eager)
     if path in ("default", "default@grid"):
-        print_passes(path, profile_passes(run), line)
+        print_passes(path, profile_passes(eager), line)
+    ms = statistics.median(turns["replay"])
 
     rgb = frame[..., :3]
     covered = _covered_fraction(renderer, world, cfg)
@@ -1354,14 +1658,19 @@ def run_full_frame(device, line, path, n_frames, group=None, warmup=3):
            if path in ROWS_PATHS else "App.run")
     print(f"[4] {path} 1920x1080 frame: shape {frame.shape}, max "
           f"{rgb.max()}, mean {rgb.mean():.2f}, covered fraction "
-          f"{covered:.4f}, launches over {warmup + n_frames} frames "
-          f"{counts}", flush=True)
-    print(f"[4] {path} steady state: {ms:.3f} ms/frame over {n_frames} "
-          f"frames ({how}, host fetch each frame) on {line}", flush=True)
-    print(f"[4] {path} profile (2 frames, torch.profiler): {launches:.0f} "
-          f"kernel launches/frame, {device_ms:.3f} ms/frame of device "
-          f"kernel time ({device_ms / ms:.1%} of the unprofiled frame)",
-          flush=True)
+          f"{covered:.4f}, launches over {replayed} replayed frames and "
+          f"{top._captures} capture(s) {counts}", flush=True)
+    print(f"[4] {path} steady state ({how}, host fetch each frame): "
+          f"replayed {ms:.3f} ms/frame (turns "
+          f"{'; '.join(f'{t:.3f}' for t in turns['replay'])}), eager frame "
+          f"in turns {'; '.join(f'{t:.3f}' for t in turns['eager'])}, "
+          f"{n_frames} frames a turn; on {line}", flush=True)
+    print(f"[4] {path} profile (2 frames, torch.profiler): replayed "
+          f"{calls:.1f} host launch calls/frame, {device_ms:.3f} ms/frame of "
+          f"device time ({device_ms / ms:.1%} of the unprofiled frame); "
+          f"eager {eager_calls:.0f} host launch calls/frame, "
+          f"{eager_device_ms:.3f} ms/frame of device time; captured launches "
+          f"{top._graph.launches}", flush=True)
     if frame.shape != (1080, 1920, 4) or frame.dtype != np.uint8:
         raise AssertionError(f"frame {frame.shape} {frame.dtype}")
     if rgb.max() == 0:
@@ -1369,20 +1678,30 @@ def run_full_frame(device, line, path, n_frames, group=None, warmup=3):
     if not 0.0 < covered < 1.0:
         raise AssertionError(f"covered fraction {covered}: need sky and "
                              "geometry")
+    if top._captures != 1:
+        raise AssertionError(f"{path}: {top._captures} captures, want 1")
     _check_launches(path, kernels, counts)
+    # every frame's launches are the graph's, plus the capture's warm-up
+    want = {k: replayed * n + 1 for k, n in top._graph.launches.items()}
+    shadow = getattr(renderer._shadow_graph, "launches", {})
+    for k, n in shadow.items():  # the memoized shadow: once
+        want[k] = want.get(k, 0) + n + 1
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        raise AssertionError(f"{path}: launches {got}, want the captured "
+                             f"launches per replayed frame {want}")
     if "interleave_present" in kernels and (
-            counts["interleave_present"] != warmup + n_frames
+            top._graph.launches.get("interleave_present") != 1
             or present_calls):
         raise AssertionError(
             f"{path}: a checkerboard frame takes one reconstruct launch and "
-            f"no present_pass, got {counts['interleave_present']} launches "
-            f"and {present_calls} present_pass calls over {warmup + n_frames} "
-            "frames")
+            f"no present_pass, got {top._graph.launches} captured and "
+            f"{present_calls} present_pass calls")
     if (overrides.get("fast_sampling") is False
-            and counts["raster_depth"] != warmup + n_frames):
+            and top._graph.launches.get("raster_depth") != 1):
         raise AssertionError("the reference path must re-raster the shadow "
                              "map every frame")
-    return counts, ms
+    return counts, ms, top._graph.launches
 
 
 # the functions frame_program calls, by the pass they belong to: phase 4
@@ -1404,6 +1723,10 @@ PASS_FUNCTIONS = {
 }
 LAUNCH_ROWS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                "cuLaunchKernelEx")
+# what a host launch call is: a kernel launch, a graph launch, or a copy
+# or fill the runtime queues (staging copies, the clone, the fetch)
+HOST_CALL_ROWS = LAUNCH_ROWS + ("cudaGraphLaunch", "cudaMemcpyAsync",
+                                "cudaMemsetAsync")
 
 
 def profile_passes(run, n_frames=2):
@@ -1736,6 +2059,7 @@ def run_spawn_path(device, line, n_spawns=5, warmup=3):
         return (time.perf_counter() - t0) * 1e3
 
     _build.reset_launches()
+    captures = (r._captures, r._shadow_captures)
     sync_ms, first_ms, steady_ms = [], [], []
     for i in range(n_spawns):
         world.spawn(_cube(-4.8 + 2.4 * i, 2.5, 0.0,
@@ -1754,6 +2078,10 @@ def run_spawn_path(device, line, n_spawns=5, warmup=3):
                 f"frame after spawn {i} and {k2_next} on the next (want 1, 0)")
     counts = dict(_build.LAUNCHES)
     r.check_overflow()
+    if (r._captures, r._shadow_captures) != captures:
+        raise AssertionError(f"spawn@grid: the spawns captured: (frame, "
+                             f"shadow) captures {captures} -> "
+                             f"{(r._captures, r._shadow_captures)}")
     _check_launches("spawn@grid", PATHS["default"][1], counts)
     prepare_ms = [wall_ms(lambda: r.prepare(world)) for _ in range(5)]
     med = {"sync_topology_ms": statistics.median(sync_ms),
@@ -1768,8 +2096,8 @@ def run_spawn_path(device, line, n_spawns=5, warmup=3):
           f", next frame {med['steady_frame_ms']:.3f} ms "
           f"({[round(t, 3) for t in steady_ms]}); full prepare of the same "
           f"world {med['prepare_ms']:.3f} ms "
-          f"({[round(t, 3) for t in prepare_ms]}); launches {counts}; on "
-          f"{line}", flush=True)
+          f"({[round(t, 3) for t in prepare_ms]}); no capture for the "
+          f"{n_spawns} spawns; launches {counts}; on {line}", flush=True)
     return counts, med
 
 
@@ -1807,25 +2135,33 @@ def run_window_path(device, line, divisor, n_frames=8, warmup=3):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / n_frames
 
+    def eager(n):
+        before = dict(_build.LAUNCHES)
+        with eager_frames(app.renderer):
+            run(n)
+        _build.LAUNCHES.update(before)
+
     _build.reset_launches()
     run(warmup)
-    turns = {"window": [ms_per_frame(run)]}
+    turns = {"window": [ms_per_frame(run)], "eager": [ms_per_frame(eager)]}
     counts = dict(_build.LAUNCHES)
-    turns["app"] = [ms_per_frame(lambda n: app.run(num_frames=n))
-                    for _ in range(2)]
+    turns["app"] = [ms_per_frame(lambda n: app.run(num_frames=n))]
     turns["window"].append(ms_per_frame(run))
+    turns["eager"].append(ms_per_frame(eager))
     ms = statistics.mean(turns["window"])
     app_ms = statistics.mean(turns["app"])
-    launches, device_ms = profile_frames(run)
+    calls, device_ms = profile_frames(run)
     want = (-(-1080 // divisor), -(-1920 // divisor), 4)
     print(f"[4] {path} 1920x1080 (present_divisor {divisor}): presents "
-          f"{window.frame.shape}, {ms:.3f} ms/frame (run_windowed, "
+          f"{window.frame.shape}, {ms:.3f} ms/frame replayed (run_windowed, "
           f"OffscreenWindow; turns {[round(t, 3) for t in turns['window']]})"
-          f", App.run on the same app in turns {app_ms:.3f} ms/frame "
-          f"({[round(t, 3) for t in turns['app']]}), {n_frames} frames a "
-          f"turn, on {line}; profile (2 frames): {launches:.0f} kernel "
-          f"launches/frame, {device_ms:.3f} ms/frame of device kernel time; "
-          f"launches {counts}", flush=True)
+          f", the eager frame in turns "
+          f"{[round(t, 3) for t in turns['eager']]}, App.run on the same app "
+          f"{app_ms:.3f} ms/frame, {n_frames} frames a turn, on {line}; "
+          f"profile (2 frames): {calls:.1f} host launch calls/frame, "
+          f"{device_ms:.3f} ms/frame of device time; "
+          f"{app.renderer._captures} capture(s); launches {counts}",
+          flush=True)
     if window.frame.shape != want:
         raise AssertionError(f"{path}: presented {window.frame.shape}, want "
                              f"{want}")
@@ -2039,36 +2375,36 @@ def main() -> int:
     check_sequences(device)
     # the row-sharded frame's process groups: a world of one, NCCL for the
     # card, and a gloo group of the same world for the CPU comparison
-    import torch.distributed as dist
-
     from mo_renderer_tpu_torch.parallel import make_rank_group
 
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
-                            f"{_free_port()}", world_size=1, rank=0)
-    try:
-        group = make_rank_group()
+    with nccl_world_of_one() as group:
         check_sharded_frames(device, group, make_rank_group(backend="gloo"))
         check_views(device, group)
-        # kernel (or kernel@grid) -> {path: launches during that path's run}
+        check_interactive(device, group)
+        # kernel (or kernel@grid) -> {path: launches during that path's
+        # run}, and {path: its launches in one replay of the frame graph}
         launches = {name: {} for name in kernels}
+        replays = {name: {} for name in kernels}
         for path, n_frames in (("default", 16), ("reference", 8),
                                ("megakernel", 8), ("stacks", 8),
                                ("default@grid", 4), ("reference@grid", 4),
                                ("megakernel@grid", 4), ("rows", 8),
                                ("rows@grid", 4)):
-            counts, _ = run_full_frame(device, line, path, n_frames, group)
+            counts, _, replay = run_full_frame(device, line, path, n_frames,
+                                               group)
             if path in ROWS_PATHS:
                 tag = "@grid" if path.endswith("@grid") else ""
-                for name in ROWS_KERNELS:
-                    if f"{name}{tag}" in launches:
-                        launches[f"{name}{tag}"][path] = counts[name]
+                names = [(f"{name}{tag}", name) for name in ROWS_KERNELS]
             elif path in GRID_PATHS:
-                for name in set(GRID_PATHS[path][1]) & set(GRID_KERNELS):
-                    launches[f"{name}@grid"][path] = counts[name]
+                names = [(f"{name}@grid", name) for name in
+                         set(GRID_PATHS[path][1]) & set(GRID_KERNELS)]
             else:
-                for name in set(kernels) & set(KERNELS):
-                    if name in PATHS[path][1]:
-                        launches[name][path] = counts[name]
+                names = [(name, name) for name in set(kernels) & set(KERNELS)
+                         if name in PATHS[path][1]]
+            for entry, name in names:
+                if entry in launches:
+                    launches[entry][path] = counts[name]
+                    replays[entry][path] = replay.get(name, 0)
         # camera-path sequences (CUDA graph replay) and multi-view
         for path, n_steps in (("sequence", 16), ("sequence@grid", 8)):
             counts, _ = run_sequence_path(device, line, path, n_steps)
@@ -2098,8 +2434,6 @@ def main() -> int:
         for path, counts in check_surface(device, line).items():
             for name in PATHS["default"][1]:
                 launches[name][path] = counts[name]
-    finally:
-        dist.destroy_process_group()
 
     # each kernel on the tiny scene's inputs, then the raster modes and
     # SSAO on the stress scene's; launches are those of the paths that ran
@@ -2110,7 +2444,8 @@ def main() -> int:
             "source": KERNELS[name.split("@")[0]][0],
             "replaces": KERNELS[name.split("@")[0]][1],
             "launches": sum(launches[name].values()),
-            "launches_by_path": launches[name], **result,
+            "launches_by_path": launches[name],
+            "replay_launches_by_path": replays[name], **result,
         }
         for name, result in kernels.items()
     ]}

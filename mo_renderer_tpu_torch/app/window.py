@@ -464,6 +464,8 @@ def run_windowed(app, window: PygameWindow | None = None,
                 app.renderer.resize(*new_size)
                 app.config = app.renderer.config
             app.runtime_schedule.run(app.world)
+            # a frame of its own (on a card, a clone of the replayed
+            # graph's output), so the slice below is a view of it
             rgba_dev = app.renderer.render_device(app.world)
             if present_divisor > 1:
                 rgba_dev = rgba_dev[::present_divisor, ::present_divisor]

@@ -17,14 +17,15 @@ Port of ``mo_renderer_tpu/kernels/raster_setup.py``:
   the rasterizer's later-wins tie rule needs.  The pair count is read on
   the host once per call (the one host sync of a raster pass).  The pairs
   past ``binned_cap`` are dropped and counted in ``overflow``, as the
-  reference does.
+  reference does.  The single-device frame on the CPU bins this way.
 
 - ``bin_triangles(static=True)`` gives the same runs without reading
   anything on the host, so a CUDA graph can capture it: the pairs are
   enumerated into exactly ``binned_cap`` slots (slot -> triangle by
   ``searchsorted`` over the inclusive ``cumsum`` of the pair counts), the
   slots past the true total get a key after the last tile, and
-  ``overflow`` stays a device tensor.  ``pair_capacity`` is the
+  ``overflow`` stays a device tensor.  Every frame on a card bins this
+  way, captured in a CUDA graph.  ``pair_capacity`` is the
   reference's static capacity (``Renderer.prepare``,
   frame_graph.py:481-511), built from its class caps.
 """
@@ -344,8 +345,8 @@ def bin_triangles(
     band_row0 + band_tile_rows) are listed.  Tile ids stay global and the
     run table covers all ``n_tiles_x * n_tiles_y`` tiles (empty outside
     the band), so a band raster reads the same runs it would read from
-    the whole frame's bins; ``overflow`` counts the band's pairs only.
-    The enumeration is exact, so there is no per-band cap."""
+    the whole frame's bins; ``overflow`` counts the band's pairs past
+    ``binned_cap`` (with ``static``, the band fills that many slots)."""
     tri_data, bbox = setup.tri_data, setup.bbox
     dev = tri_data.device
     t = tri_data.shape[0]

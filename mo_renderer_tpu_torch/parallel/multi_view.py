@@ -111,8 +111,9 @@ class MultiViewRenderer:
         """The inner Renderer's topology sync (frame_graph.py:686): a spawn
         or despawn repacks in place, or falls back to a full prepare.
         Nothing of this class binds what prepare derives; the captured
-        sequence frame keys on the inner ``_prepare_count`` and the scene
-        object, so it is captured again after either."""
+        frame keys on the inner Renderer's layout (its ``_prepare_count``
+        and the scene's shapes), so a full prepare captures again and a
+        spawn, a despawn or a move does not."""
         if self._inner.scene is None:
             self.prepare(world)
         self._inner._sync_topology(world)
@@ -130,8 +131,9 @@ class MultiViewRenderer:
 
     def _render(self, world, params):
         """This rank's frames for its CameraParams ``params``: the
-        Renderer's sequence frame (replayed from its CUDA graph on a card),
-        with the memoized shadow when every one has the world's light."""
+        Renderer's captured frame (the one ``render_device`` replays, on a
+        card), with the memoized shadow when every one has the world's
+        light."""
         inner = self._inner
         quads, has_light = inner._sequence_shadow(world, params)
         frames, overflow = inner._render_params(stack_params(params), quads,

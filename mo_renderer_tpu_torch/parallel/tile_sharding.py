@@ -18,7 +18,16 @@ Each rank renders one horizontal band of the padded framebuffer:
 - the shadow map (light space, unrelated to screen rows) is rastered in
   bands too when the map splits into whole bins per rank (K2b, then one
   ``all_gather`` of the map), else on every rank whole;
-- the bands are gathered into the whole frame on every rank.
+- the bands are gathered into the whole frame on every rank, and so are
+  the bands' (2,) dropped-pair counts, summed on the device (the
+  reference's ``overflow.reshape(-1, 2).sum(axis=0)``), so no count is
+  read on the host until the lag window drains it.
+
+Binning is static (``bin_triangles(static=True)``, under the inner
+Renderer's pair capacity), so nothing reads the device on the host: on a
+card the whole frame, collectives included, is captured in a CUDA graph
+keyed on the layout, as the single-device frame is, and replayed per
+frame; on the CPU (gloo) it runs eagerly.
 
 What differs from the single-device frame (the tests hold both): the
 half-resolution upsamplers and the checkerboard reconstruction interpolate
@@ -42,7 +51,14 @@ from ..kernels.decimate import decimate_cols
 from ..kernels.raster_setup import bin_triangles, triangle_setup_from_attrs
 from ..kernels.rasterizer import BIN_H, BIN_W, rasterize
 from ..passes.checkerboard import reconstruct_present
-from ..passes.frame_graph import Renderer, _pcf_build, shadow_program
+from ..passes.frame_graph import (
+    CameraParams,
+    Renderer,
+    _FrameGraph,
+    _pcf_build,
+    overflow_counts,
+    shadow_program,
+)
 from ..passes.gbuffer import gbuffer_pass_fast
 from ..passes.present import present_pass, unpack_rgba8
 from ..passes.shading import shading_pass_fast
@@ -97,7 +113,8 @@ def shadow_bands_divisible(cfg: EngineConfig, n_ranks: int) -> bool:
     return cfg.shadow_map_size % (n_ranks * BIN_H) == 0
 
 
-def _shadow_quads_banded(scene, light_pv, cfg, binned_cap, group: RankGroup):
+def _shadow_quads_banded(scene, light_pv, cfg, binned_cap, group: RankGroup,
+                         static_bins=True):
     """The shadow map in light-space bands: each rank bins and rasters
     ``shadow_map_size / n`` rows (K2b), one ``all_gather`` puts the whole
     map on every rank (any pixel may sample any texel), then the PCF
@@ -116,7 +133,7 @@ def _shadow_quads_banded(scene, light_pv, cfg, binned_cap, group: RankGroup):
     binned = bin_triangles(
         setup, tile_h=BIN_H, tile_w=BIN_W, n_tiles_x=-(-smap // BIN_W),
         n_tiles_y=smap // BIN_H, binned_cap=binned_cap,
-        band_row0=row0, band_tile_rows=bins_per_band,
+        band_row0=row0, band_tile_rows=bins_per_band, static=static_bins,
     )
     _, band, _, _ = rasterize(binned, width=smap, height=smap // group.size,
                               depth_only=True, tile_row_offset=row0)
@@ -140,9 +157,12 @@ def _ssao_halo(z, n_rows, group: RankGroup):
 
 def row_sharded_frame_body(scene, ibl, params, *, cfg, pad_w, pad_h,
                            pad_h_split, binned_cap, has_shadow_light,
-                           slot_map, n_lights, group: RankGroup):
+                           slot_map, n_lights, group: RankGroup,
+                           static_bins=True):
     """This rank's band of the frame: rows ``rank * h`` to ``(rank + 1) *
     h`` of the ``pad_h_split``-row split canvas, ``h = pad_h_split / n``.
+    ``static_bins`` bins under ``binned_cap`` with no host read (what a
+    CUDA graph captures); False enumerates the pairs exactly.
 
     ``pad_h`` is the viewport height, as in the single-device frame, so
     the image is the same; the rows from ``pad_h`` to ``pad_h_split`` have
@@ -160,11 +180,12 @@ def row_sharded_frame_body(scene, ibl, params, *, cfg, pad_w, pad_h,
     if cfg.shadow_enabled and has_shadow_light:
         if shadow_bands_divisible(cfg, group.size):
             shadow_quads, shadow_overflow = _shadow_quads_banded(
-                scene, params["light_proj_view"], cfg, binned_cap, group)
+                scene, params["light_proj_view"], cfg, binned_cap, group,
+                static_bins)
         else:  # the whole map on every rank
             shadow_quads, shadow_overflow = shadow_program(
                 scene, params["light_proj_view"], cfg=cfg,
-                binned_cap=binned_cap)
+                binned_cap=binned_cap, static_bins=static_bins)
 
     setup = triangle_setup_from_attrs(
         scene.tri_attrs, scene.tri_valid, params["proj_view"], pad_w, pad_h,
@@ -175,6 +196,7 @@ def row_sharded_frame_body(scene, ibl, params, *, cfg, pad_w, pad_h,
         setup, tile_h=BIN_H, tile_w=BIN_W, n_tiles_x=-(-pad_w // BIN_W),
         n_tiles_y=pad_h_split // BIN_H, binned_cap=binned_cap,
         band_row0=bin_row0, band_tile_rows=h_local // BIN_H,
+        static=static_bins,
     )
     tri, z, _, _ = rasterize(binned, width=pad_w, height=h_local, slim=True,
                              tile_row_offset=bin_row0)
@@ -226,6 +248,8 @@ class TileShardedRenderer:
         self._inner = Renderer(config, device)
         self._frame_fn = None
         self._prepared_at = None
+        self._graph = None  # the captured sharded frame (on a card)
+        self._captures = 0
 
     @property
     def scene(self):
@@ -241,11 +265,19 @@ class TileShardedRenderer:
         logger.info("tile-sharded renderer: %d rows in %d bands",
                     self._pad_h_split, self.group.size)
 
+    def resize(self, width: int, height: int) -> None:
+        """A new framebuffer size: the inner Renderer's ``resize``, then
+        the band program for the new split (the next frame on a card
+        captures once)."""
+        self._inner.resize(width, height)
+        self.config = self._inner.config
+        self._rebuild_frame_fn()
+
     def _rebuild_frame_fn(self) -> None:
         """Check the prepared scene's path and bind the band program; run
         again after a full re-prepare (a topology change may flip the
-        path).  An incremental repack changes table contents only, and
-        keeps the program."""
+        path) or a resize.  An incremental repack changes table contents
+        only, and keeps the program."""
         inner, cfg = self._inner, self.config
         self._prepared_at = inner._prepare_count
         if not inner._fast:
@@ -267,9 +299,49 @@ class TileShardedRenderer:
             n_lights=inner._n_lights, group=self.group,
         )
 
+    def _frame(self, params, has_light, scene=None, static_bins=True):
+        """The whole frame on every rank: this rank's band, one
+        ``all_gather`` of the bands and one of their (2,) dropped-pair
+        counts, summed on the device.  Returns (rgba (H, W), (2,) int64
+        counts).  ``scene``: the staged scene a graph reads (default: the
+        prepared one)."""
+        inner = self._inner
+        ibl_maps = self.ibl.maps() if self.ibl is not None else None
+        band, (g, s) = self._frame_fn(
+            inner.scene if scene is None else scene, ibl_maps, params,
+            has_shadow_light=has_light, static_bins=static_bins)
+        full = torch.cat(_all_gather(band, self.group))
+        counts = overflow_counts(g, s, band.device)
+        total = torch.stack(_all_gather(counts, self.group)).sum(0)
+        return full[: self.config.height, : self.config.width], total
+
+    def _capture(self, params, has_light):
+        """The captured sharded frame for the inner Renderer's layout key
+        and this split, with the scene staged (``Renderer._capture``
+        does the same for the single-device frame).  The warm-up frame
+        before the capture meets every collective once."""
+        inner = self._inner
+        key = (inner._graph_key(has_light, None), self._pad_h_split,
+               self.group.rank, self.group.size)
+        scene = inner._staged_scene()
+        if self._graph is not None and self._graph.key == key:
+            return self._graph
+        self._graph = None  # free the old graph's memory first
+        ibl_maps = self.ibl.maps() if self.ibl is not None else None
+
+        def frame(p):
+            return self._frame(CameraParams(p), has_light, scene=scene)
+
+        self._graph = _FrameGraph(key, inner.device, frame, params,
+                                  refs=(ibl_maps,))
+        self._captures += 1
+        return self._graph
+
     def render_device(self, world):
         """The whole frame on this rank's device: (H, W) int32 packed
-        rgba8 bits."""
+        rgba8 bits.  On a card: staging copies and one replay of the
+        captured sharded frame, and a clone of its output; its counts
+        stay on the device until the lag window reads them."""
         inner = self._inner
         if self._frame_fn is None:
             self.prepare(world)
@@ -278,16 +350,14 @@ class TileShardedRenderer:
             self._rebuild_frame_fn()
         inner.scene = refresh_transforms(inner.scene)
         params, has_light = inner.frame_params(world)
-        ibl_maps = self.ibl.maps() if self.ibl is not None else None
-        band, overflow = self._frame_fn(self.scene, ibl_maps, params,
-                                        has_shadow_light=has_light)
-        full = torch.cat(_all_gather(band, self.group))
-        # the frame's dropped pairs: the sum over the bands, on the device
-        # until the overflow check reads it
-        ovf = torch.tensor(overflow, dtype=torch.int64, device=band.device)
-        dist.all_reduce(ovf, group=self.group.group)
-        inner._note_overflow(ovf)
-        return full[: self.config.height, : self.config.width]
+        if inner.device.type != "cuda":
+            full, overflow = self._frame(params, has_light)
+        else:
+            graph = self._capture(params.vec, has_light)
+            graph.replay(params.vec)
+            full, overflow = graph.out.clone(), graph.overflow.clone()
+        inner._note_overflow(overflow)
+        return full
 
     def check_overflow(self) -> None:
         self._inner.check_overflow()

@@ -24,13 +24,19 @@
 Extra render passes (``RenderPass``) run between shading and present and
 switch the checkerboard off, so they see full-resolution arrays.
 
-PyTorch runs the frame eagerly on the Renderer's device; the kernels
-launch on the current CUDA stream.  ``render_sequence_device`` renders K
-frames of a camera path with the scene fixed: on a card it captures the
-frame once in a ``torch.cuda.CUDAGraph`` (binning under the static pair
-capacity, ``bin_triangles(static=True)``, so nothing reads the device on
-the host) and replays it per step; elsewhere it loops over the frame.
-Nothing falls back to another path.
+On a card the frame runs as one compiled program, as the reference's
+``jax.jit`` runs it: ``render_device``, ``render_sequence_device`` and
+``MultiViewRenderer`` replay one ``torch.cuda.CUDAGraph`` of the frame
+(binning under the static pair capacity, ``bin_triangles(static=True)``,
+so nothing reads the device on the host), and the memoized shadow is a
+second graph (the reference's ``_shadow_fn``).  A graph is keyed on the
+layout, not on objects: the prepare, the pad size, the config, the
+light, the shadow mode, the IBL maps, the extra passes and the shape of
+every scene field.  Its inputs are buffers it owns, which each call fills
+by device copies (``_Staged``, ``_StagedScene``), so a camera, entity or
+light move, a spawn and a despawn replay the same graph.  On the CPU the
+frame runs eagerly, op by op, with exact binning.  Nothing falls back to
+another path: a capture that fails raises.
 """
 
 from __future__ import annotations
@@ -88,10 +94,13 @@ class RenderPass:
     automatically whenever extra passes are present: a custom pass must
     never silently receive the (H, W/2) parity-shuffled cb domain.
 
-    On a card, ``Renderer.render_sequence_device`` captures the frame, the
-    passes included, in a CUDA graph: a pass that reads a tensor on the
-    host (``.item()``, ``int(t)``, boolean-mask indexing, a host-to-device
-    copy) makes the capture raise, and the error is not caught."""
+    On a card, the Renderer captures the frame, the passes included, in a
+    CUDA graph: ``render`` runs while the frame is captured (once on a
+    side stream to warm up, once into the graph), not at each replay, as
+    a pass in the reference's ``jit`` is traced, not called per frame.  A
+    pass that reads a tensor on the host (``.item()``, ``int(t)``,
+    boolean-mask indexing, a host-to-device copy) makes the capture
+    raise, and the error is not caught."""
 
     def render(self, ctx: dict) -> dict:
         return ctx
@@ -215,14 +224,27 @@ def shadow_map_from_clip(scene, *, cfg, binned_cap, shadow_clip=None,
     return shadow_map, binned.overflow
 
 
-def shadow_program(scene, light_proj_view, *, cfg, binned_cap):
+def shadow_program(scene, light_proj_view, *, cfg, binned_cap,
+                   static_bins=False):
     """The fast path's memoizable shadow: the map from the packed corners
     -> the configured PCF window table.  Returns (table, dropped pair
-    count)."""
+    count); ``static_bins`` bins with no host read."""
     shadow_map, overflow = shadow_map_from_clip(
-        scene, cfg=cfg, binned_cap=binned_cap, light_pv=light_proj_view
+        scene, cfg=cfg, binned_cap=binned_cap, light_pv=light_proj_view,
+        static_bins=static_bins,
     )
     return _pcf_build(cfg)(shadow_map), overflow
+
+
+def overflow_counts(g, s, device):
+    """A frame's (G-buffer, shadow) dropped pairs as one (2,) int64 tensor
+    on ``device``; each count is a 0-d tensor (static binning) or an int,
+    which becomes a fill, never a host-to-device copy."""
+    return torch.stack([
+        v if torch.is_tensor(v)
+        else torch.full((), v, dtype=torch.int64, device=device)
+        for v in (g, s)
+    ])
 
 
 def _pad_edge(a, ph, pw):
@@ -361,8 +383,13 @@ class Renderer(torch.nn.Module):
         self.scene = None
         self.ibl = None
         self._pending_overflow = []
-        self._graph = None  # the captured sequence frame (_FrameGraph)
-        self._captures = 0  # CUDA graphs captured so far
+        # on a card: the captured frame and memoized shadow (_FrameGraph)
+        # and the scene as they read it (_StagedScene)
+        self._graph = None
+        self._shadow_graph = None
+        self._staged = None
+        self._captures = 0  # frame graphs captured so far
+        self._shadow_captures = 0  # shadow graphs captured so far
         # bumped by every full prepare: wrappers that bind what prepare
         # derives (TileShardedRenderer's band program) rebuild on a change
         self._prepare_count = 0
@@ -373,6 +400,8 @@ class Renderer(torch.nn.Module):
     def prepare(self, world) -> None:
         self._world_generation = getattr(world, "generation", None)
         self._prepare_count += 1
+        # the old scene's graphs and staged buffers go before the new pack
+        self._graph = self._shadow_graph = self._staged = None
         cfg = self.config
         self.scene = pack_scene(world, cfg, self.device)
         ibl_res = world.get_resource(IBLResource)
@@ -408,7 +437,6 @@ class Renderer(torch.nn.Module):
         self._params_prev = None
         self._params_fp = None
         self._pending_overflow = []
-        self._graph = None
         logger.info(
             "renderer prepared on %s: %d tris, fb %dx%d (pad %dx%d)",
             self.device, int(self.scene.indices.shape[0]), cfg.width,
@@ -419,8 +447,9 @@ class Renderer(torch.nn.Module):
         """A new framebuffer size (frame_graph.py:636).  The packed scene,
         the IBL maps and the memoized shadow table do not depend on it and
         are kept; ``frame_program`` reads the size on every call, and the
-        captured sequence frame keys on it.  Each extra pass hears of the
-        new size (``on_swapchain_recreate``)."""
+        captured frame keys on it (the next frame captures once; the
+        shadow graph is kept).  Each extra pass hears of the new size
+        (``on_swapchain_recreate``)."""
         self.config = dataclasses.replace(self.config, width=width,
                                           height=height)
         self.pad_w = _round_up(width, self.config.tile_w)
@@ -469,17 +498,27 @@ class Renderer(torch.nn.Module):
     def _cached_shadow_quads(self, key_pv, light_pv, has_light):
         """Shadow table memoized on (light matrix bytes, scene object):
         the scene half is an identity check against a STRONG reference,
-        so a recycled address can never match a stale table."""
+        so a recycled address can never match a stale table.  On a card
+        a recompute replays the shadow graph (``_capture_shadow``) into
+        the table the frame graph reads; elsewhere it runs
+        ``shadow_program``."""
         cfg = self.config
         if not (self._fast and has_light and cfg.shadow_enabled
                 and cfg.shadow_cache):
             return None
         key = np.asarray(key_pv, np.float32).tobytes()
         if key != self._shadow_key or self._shadow_scene is not self.scene:
-            self._shadow_quads, ovf = shadow_program(
-                self.scene, light_pv, cfg=cfg, binned_cap=self._binned_cap
-            )
-            self._note_overflow((0, ovf))
+            if self.device.type == "cuda":
+                graph = self._capture_shadow(light_pv)
+                graph.replay(light_pv)
+                self._shadow_quads = graph.out
+                self._note_overflow(graph.overflow.clone())
+            else:
+                self._shadow_quads, ovf = shadow_program(
+                    self.scene, light_pv, cfg=cfg,
+                    binned_cap=self._binned_cap
+                )
+                self._note_overflow((0, ovf))
             self._shadow_key = key
             self._shadow_scene = self.scene
         return self._shadow_quads
@@ -527,19 +566,30 @@ class Renderer(torch.nn.Module):
         self._params_fp = fp
         return params, has_light
 
-    def _frame(self, params, quads, has_light, static_bins=False):
-        """``frame_program`` on the prepared scene: (rgba, overflow)."""
+    def _frame(self, params, quads, has_light, static_bins=False,
+               scene=None):
+        """``frame_program`` on the prepared scene (or ``scene``, the
+        staged one a graph reads): (rgba, overflow)."""
         ibl_maps = self.ibl.maps() if self.ibl is not None else None
         return frame_program(
-            self.scene, ibl_maps, params, cfg=self.config, pad_w=self.pad_w,
-            pad_h=self.pad_h, binned_cap=self._binned_cap,
-            has_shadow_light=has_light, slot_map=self._slot_map,
-            n_lights=self._n_lights, fast=self._fast, shadow_quads=quads,
+            self.scene if scene is None else scene, ibl_maps, params,
+            cfg=self.config, pad_w=self.pad_w, pad_h=self.pad_h,
+            binned_cap=self._binned_cap, has_shadow_light=has_light,
+            slot_map=self._slot_map, n_lights=self._n_lights,
+            fast=self._fast, shadow_quads=quads,
             extra_passes=self.extra_passes, static_bins=static_bins,
         )
 
     def render_device(self, world):
-        """One frame left on the device: (H, W) int32 packed rgba8 bits."""
+        """One frame left on the device: (H, W) int32 packed rgba8 bits.
+
+        The host side (topology, transforms, camera params, the shadow
+        memo) runs first.  On a card the frame is then staging copies and
+        one replay of the captured frame (``_capture``), and the result is
+        a clone of the graph's output, so a frame the caller keeps is not
+        overwritten by the next; its dropped-pair counts stay on the
+        device until the lag window reads them.  Elsewhere
+        ``frame_program`` runs eagerly."""
         self._sync_topology(world)
         self.scene = refresh_transforms(self.scene)
         params, has_light = self.frame_params(world)
@@ -547,9 +597,14 @@ class Renderer(torch.nn.Module):
             params.host_field("light_proj_view"), params["light_proj_view"],
             has_light,
         )
-        rgba, overflow = self._frame(params, quads, has_light)
-        self._note_overflow(overflow)
-        return rgba
+        if self.device.type != "cuda":
+            rgba, overflow = self._frame(params, quads, has_light)
+            self._note_overflow(overflow)
+            return rgba
+        graph = self._capture(params.vec, quads, has_light)
+        graph.replay(params.vec)
+        self._note_overflow(graph.overflow.clone())
+        return graph.out.clone()
 
     # --- camera-path sequences ----------------------------------------------
     def _sequence_shadow(self, world, params_list):
@@ -576,9 +631,9 @@ class Renderer(torch.nn.Module):
         every step has the world's light (then the memoized table).
 
         ``params_list``: per-step ``CameraParams`` (``build_camera_params``).
-        On a card the frame is captured once in a CUDA graph and replayed
-        per step (see ``_render_params``); frames equal ``render_device``'s
-        bit for bit."""
+        On a card the captured frame of ``render_device`` (same key, same
+        graph) is replayed per step (see ``_render_params``); frames equal
+        ``render_device``'s bit for bit."""
         self._sync_topology(world)
         self.scene = refresh_transforms(self.scene)
         quads, has_light = self._sequence_shadow(world, params_list)
@@ -591,11 +646,10 @@ class Renderer(torch.nn.Module):
         """Frames of the prepared scene for the (N, 64) ``stack`` of camera
         params (``stack_params``): (frames (N, H, W), dropped pairs).
 
-        On a card: the frame (binned with no host read) is captured in a
-        CUDA graph on the first call with this key; then, per step, a
-        device copy of the step's params into the graph's input, one
-        replay, and a copy of its output into ``frames[i]``; the overflow
-        adds up on the device.  A capture that fails raises.  Elsewhere:
+        On a card: per step, a device copy of the step's params into the
+        captured frame's input (``_capture``: the graph of
+        ``render_device``, shared), one replay, a copy of its output into
+        ``frames[i]``, and its counts added up on the device.  Elsewhere:
         a loop over ``frame_program``."""
         n = stack.vec.shape[0]
         if self.device.type != "cuda":
@@ -611,29 +665,92 @@ class Renderer(torch.nn.Module):
         graph = self._capture(steps[0], quads, has_light)
         frames = torch.empty((n, self.config.height, self.config.width),
                              dtype=torch.int32, device=self.device)
-        graph.overflow.zero_()
+        total = torch.zeros(2, dtype=torch.int64, device=self.device)
         for i in range(n):
-            graph.params.copy_(steps[i])
-            graph.replay()
-            frames[i].copy_(graph.rgba)  # the next replay overwrites it
-        return frames, graph.overflow.clone()
+            graph.replay(steps[i])
+            frames[i].copy_(graph.out)  # the next replay overwrites it
+            total += graph.overflow
+        return frames, total
 
-    def _capture(self, first_params, quads, has_light):
-        """The sequence frame's CUDA graph for the current key: the scene,
-        IBL maps, config and pad size, the light, the memoized table and
-        the prepare count (a spawn, a resize or a re-prepare captures
-        again; a second call with the same key does not)."""
+    # --- captured programs (on a card) ----------------------------------
+    def _layout(self):
+        """What a captured program's shapes hang on: the prepare that
+        packed the scene, and the shape and dtype of every scene field.
+        No object's identity: a move, a spawn or a despawn keeps it."""
+        return (self._prepare_count, tuple(
+            (name, tuple(t.shape), t.dtype)
+            for name, t in _scene_fields(self.scene)))
+
+    def _graph_key(self, has_light, quads):
+        """The captured frame's key: the layout, the pad size, the config
+        (its values), the light, whether the shadow is memoized (``quads``
+        given) or rastered in the frame, the IBL maps and the extra
+        passes.  A new camera, entity transform, light matrix, spawn or
+        despawn keeps it; a resize, a full prepare, a light that appears
+        or goes, an extra pass or another shadow mode changes it."""
         ibl_maps = self.ibl.maps() if self.ibl is not None else None
-        refs = (self.scene, ibl_maps, self.config, quads)
-        key = (tuple(id(r) for r in refs), self.pad_w, self.pad_h,
-               has_light, self._prepare_count)
+        return (self._layout(), self.pad_w, self.pad_h,
+                dataclasses.astuple(self.config), has_light,
+                quads is not None, id(ibl_maps),
+                tuple(id(p) for p in self.extra_passes))
+
+    def _staged_scene(self):
+        """The scene as the captured programs read it, staged from
+        ``self.scene`` (``_StagedScene``; a new layout stages anew)."""
+        key = self._layout()
+        if self._staged is None or self._staged.key != key:
+            self._staged = _StagedScene(key, self.scene)
+        self._staged.stage(self.scene)
+        return self._staged.scene
+
+    def _capture(self, params, quads, has_light):
+        """The captured frame for the current key (``_graph_key``), with
+        the scene staged: the first call with a key captures (after
+        freeing the old graph), later calls reuse it.  ``params`` is a
+        (64,) device vector of the first frame, ``quads`` the memoized
+        table or None.  The table is the shadow graph's output, which the
+        frame reads in place: a new shadow graph drops the frame graph
+        (``_capture_shadow``)."""
+        key = self._graph_key(has_light, quads)
+        scene = self._staged_scene()
         if self._graph is not None and self._graph.key == key:
             return self._graph
         self._graph = None  # free the old graph's memory first
-        self._graph = _FrameGraph(self, key, refs, first_params, quads,
-                                  has_light)
+        ibl_maps = self.ibl.maps() if self.ibl is not None else None
+
+        def frame(p):
+            rgba, (g, s) = self._frame(CameraParams(p), quads, has_light,
+                                       static_bins=True, scene=scene)
+            return rgba, overflow_counts(g, s, self.device)
+
+        self._graph = _FrameGraph(
+            key, self.device, frame, params,
+            refs=(ibl_maps, tuple(self.extra_passes), quads))
         self._captures += 1
         return self._graph
+
+    def _capture_shadow(self, light_pv):
+        """The memoized shadow's graph (the reference's ``_shadow_fn``):
+        ``shadow_program`` with static binning on the staged scene, the
+        (4, 4) light matrix its input.  Keyed on the layout and the config
+        but its size, so a resize keeps it."""
+        cfg = self.config
+        key = (self._layout(), dataclasses.astuple(
+            dataclasses.replace(cfg, width=0, height=0)))
+        scene = self._staged_scene()
+        if self._shadow_graph is not None and self._shadow_graph.key == key:
+            return self._shadow_graph
+        self._shadow_graph = self._graph = None  # the frame reads its table
+        cap = self._binned_cap
+
+        def shadow(light):
+            table, ovf = shadow_program(scene, light, cfg=cfg,
+                                        binned_cap=cap, static_bins=True)
+            return table, overflow_counts(0, ovf, self.device)
+
+        self._shadow_graph = _FrameGraph(key, self.device, shadow, light_pv)
+        self._shadow_captures += 1
+        return self._shadow_graph
 
     forward = render_device
 
@@ -644,50 +761,109 @@ class Renderer(torch.nn.Module):
         return frame
 
 
-class _FrameGraph:
-    """One frame of a Renderer captured in a ``torch.cuda.CUDAGraph``.
+# The SceneBuffers fields that a frame-to-frame update replaces with new
+# tensors: a moved entity (refresh_transforms) brings a new mesh_world and
+# mesh_normal_mat, and a move or a spawn (refresh_tri_attrs) a new
+# tri_attrs.  A captured program reads its own copies of these.  Every
+# other field keeps its tensor from one prepare to the next:
+# incremental_repack writes the rows of the vertex, triangle, mesh,
+# material and light tables in place (_write_rows, also into the current
+# mesh_world and mesh_normal_mat, which staging sees by their version),
+# and nothing writes the textures, the stacks or the light count, so a
+# captured program reads them where they are.
+STAGED_FIELDS = ("mesh_world", "mesh_normal_mat", "tri_attrs")
 
-    ``params`` is the graph's (64,) input, ``rgba`` its output (overwritten
-    by each replay) and ``overflow`` a (2,) int64 sum that each replay adds
-    its dropped pairs to.  The frame bins with no host read
-    (``static_bins``).  It runs once eagerly on a side stream first, as
-    capture requires (this also builds the kernel library and fills the
-    per-device table caches).  The kernel wrappers count their launches
-    while the graph is captured, which launches nothing: those counts are
-    taken back, and each replay adds them (``launches``) instead."""
 
-    def __init__(self, renderer, key, refs, first_params, quads, has_light):
-        dev = renderer.device
+def _scene_fields(scene):
+    """(name, tensor) of every SceneBuffers field."""
+    return [(f.name, getattr(scene, f.name))
+            for f in dataclasses.fields(scene)]
+
+
+class _Staged:
+    """An input buffer a captured program reads (``buf``), filled by a
+    device copy from the tensor a call hands it when that is not the
+    tensor copied last, or is but was written in place since (its
+    version counter moved)."""
+
+    def __init__(self, src):
+        self.buf = src.clone()
+        self.src, self.version = src, src._version
+
+    def stage(self, src) -> None:
+        if src is self.src and src._version == self.version:
+            return
+        self.buf.copy_(src)
+        self.src, self.version = src, src._version
+
+
+class _StagedScene:
+    """The scene as the captured programs read it: ``STAGED_FIELDS`` in
+    buffers of its own (``_Staged``), every other field the scene's own
+    tensor.  ``key`` is the layout it was staged for."""
+
+    def __init__(self, key, scene):
         self.key = key
-        self.refs = refs  # keeps the keyed objects (and their ids) alive
-        self.params = first_params.clone()  # the warm-up frame's params
-        self.overflow = torch.zeros(2, dtype=torch.int64, device=dev)
-        params = CameraParams(self.params)
+        self.staged = {name: _Staged(getattr(scene, name))
+                       for name in STAGED_FIELDS}
+        self.scene = dataclasses.replace(
+            scene, **{name: st.buf for name, st in self.staged.items()})
 
-        def frame():
-            rgba, (g, s) = renderer._frame(params, quads, has_light,
-                                           static_bins=True)
-            self.overflow[0] += g
-            if torch.is_tensor(s):  # 0 when the shadow is memoized
-                self.overflow[1] += s
-            return rgba
+    def stage(self, scene) -> None:
+        for name, t in _scene_fields(scene):
+            if name in self.staged:
+                self.staged[name].stage(t)
+            elif t is not getattr(self.scene, name):
+                raise RuntimeError(
+                    f"scene field {name} was replaced without a prepare; "
+                    f"a captured frame reads it in place (only "
+                    f"{', '.join(STAGED_FIELDS)} are staged)")
 
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
+
+class _FrameGraph:
+    """One program (a Renderer's frame or memoized shadow, or the
+    row-sharded frame) captured in a ``torch.cuda.CUDAGraph`` under
+    ``key``.
+
+    ``fn(buf)`` returns (output, (2,) dropped-pair counts); ``buf`` is the
+    program's own input (the camera params or the light matrix,
+    ``_Staged``), filled at each ``replay``.  ``out`` is the output and
+    ``overflow`` this replay's counts, both overwritten by the next
+    replay.  The program runs once eagerly on a side stream first, as
+    capture requires (it builds the kernel library, fills the per-device
+    table caches and meets any collective once).  The kernel wrappers
+    count their launches while the graph is captured, which launches
+    nothing: those counts are taken back, and each replay adds them
+    (``launches``) instead.  ``refs`` keeps what the key names by
+    identity alive."""
+
+    def __init__(self, key, device, fn, first, refs=()):
+        self.key = key
+        self.refs = refs
+        self.input = _Staged(first)
+        self.overflow = torch.zeros(2, dtype=torch.int64, device=device)
+
+        def run():
+            out, counts = fn(self.input.buf)
+            self.overflow.copy_(counts)
+            return out
+
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            frame()
-        torch.cuda.current_stream(dev).wait_stream(side)
+            run()
+        torch.cuda.current_stream(device).wait_stream(side)
         before = dict(_build.LAUNCHES)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
-            self.rgba = frame()
+            self.out = run()
         self.launches = {k: v - before[k] for k, v in _build.LAUNCHES.items()
                          if v != before[k]}
         _build.LAUNCHES.update(before)
-        logger.info("sequence frame captured in a CUDA graph: %s launches",
-                    self.launches)
+        logger.info("captured in a CUDA graph: %s launches", self.launches)
 
-    def replay(self) -> None:
+    def replay(self, src) -> None:
+        self.input.stage(src)
         self.graph.replay()
         for name, n in self.launches.items():
             _build.count(name, n)

@@ -8,7 +8,8 @@ the conftest:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 ``python3 chip_smoke.py`` runs the same checks at 1920x1080.  The
-sequence checks replay each path's CUDA graph against its eager frames,
+interactive and sequence checks replay each path's CUDA graph against its
+eager frames,
 and static binning is held to the exact binning on random soups.  The
 random soups below hold the full-mode raster (K6) and the megakernel (K8)
 to their plain versions away from the frame's own inputs; the cases after
@@ -105,6 +106,24 @@ def test_sequences_and_passes_on_the_card(cuda):
 
     chip_smoke.check_render_pass(cuda)
     chip_smoke.check_sequences(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["default", "reference", "megakernel",
+                                  "stacks", "rows", "default+pass"])
+def test_interactive_replay_equals_eager(cuda, path):
+    """``render_device`` replayed from its layout-keyed CUDA graph equals
+    the eager frame bit for bit through moves, a spawn, a despawn, a light
+    move and a resize, captures once per key, and counts the eager
+    frames' dropped pairs past the capacity (chip_smoke's ``[3]
+    interactive``); the rows path on an NCCL world of one."""
+    import chip_smoke
+
+    if path != "rows":
+        chip_smoke.check_interactive(cuda, None, paths=(path,))
+        return
+    with chip_smoke.nccl_world_of_one() as group:
+        chip_smoke.check_interactive(cuda, group, paths=(path,))
 
 
 @pytest.mark.cuda
