@@ -42,6 +42,17 @@ Phases (each raises on failure; the script then exits non-zero):
    version exactly, and the 4 bands together the whole-frame kernel's
    output bit for bit, from the whole frame's bins and from band-local
    bins; the time is that of the 4 band launches, with each band's own.
+   Then the shading pass ``shading`` (K9, ``csrc/shading.cu``: an
+   even-grid launch and a pixel launch) on the default path's call and,
+   as ``shading@grid``, on grid_world(10)'s (5 lights), held to its plain
+   version at rtol 2e-3 / atol 1e-4 per pixel with the packed frame
+   within 1 LSB on < 1% of pixels; its bytes count the table rows the
+   samples gather once each.  ``check_shading_options`` holds it at the
+   same bar, at 1920x1080, on every knob set of the reference's budget
+   matrix (``scenes.BUDGET_BOUNDS`` on ``scenes.budget_world``: the
+   checkerboard on and off, PCF divisors 1/2/4, both u16 layouts, each
+   spec_* branch), the f32 wide-row PCF table, no IBL, no shadow and a
+   band of the rows path.
 3. Frames at 256x128: the default frame, the reference-path frame
    (fast_sampling=False), the UV1 scene under default flags, the
    megakernel frame (raster_interp_attrs=True, ssao_res_divisor=1), the
@@ -119,7 +130,8 @@ Phases (each raises on failure; the script then exits non-zero):
    next, and of a full ``prepare`` of the same world.  The ``default``
    and ``default@grid`` paths also print the eager frame's launches and
    device ms by pass (the functions ``frame_program`` calls, wrapped in
-   ``torch.profiler.record_function`` ranges by this script only).  Then
+   ``torch.profiler.record_function`` ranges by this script only; K9's
+   device time is added to shading by kernel name).  Then
    ``sequence`` (the default path's 16 orbit poses as one
    ``render_sequence_device`` call, 3 timed calls beside an eager loop
    over the same poses: ms/frame, host launch calls and device kernels per
@@ -187,6 +199,10 @@ KERNELS = {
                           "mo_renderer_tpu/kernels/rasterizer.py:560"),
     "ssao_halo": ("mo_renderer_tpu_torch/csrc/ssao.cu",
                   "mo_renderer_tpu/passes/ssao.py:176"),
+    # no pallas_call: the reference's shading_pass_fast is jnp code that
+    # XLA fuses on the TPU
+    "shading": ("mo_renderer_tpu_torch/csrc/shading.cu",
+                "mo_renderer_tpu/passes/shading.py:717"),
 }
 # the band forms: built from the other kernels' captured inputs
 BAND_KERNELS = ("raster_slim_band", "raster_depth_band", "ssao_halo")
@@ -198,19 +214,20 @@ STACKS = {"attrs_plane_kernel": False, "stack_plane_kernel": True}
 # and the scene variant (scenes.tiny_world keywords)
 PATHS = {
     "default": ({}, ("raster_slim", "raster_depth", "attr_planes", "ssao",
-                     "interleave_present"), {}),
+                     "shading", "interleave_present"), {}),
     "reference": ({"fast_sampling": False},
                   ("raster_full", "raster_depth", "ssao"), {}),
     "megakernel": ({"raster_interp_attrs": True},
-                   ("raster_attrs", "raster_depth", "ssao"), {}),
+                   ("raster_attrs", "raster_depth", "ssao", "shading"), {}),
     "stacks": (STACKS, ("raster_slim", "raster_depth", "stack_planes",
-                        "ssao", "interleave_present"), {"all_slots": True}),
+                        "ssao", "shading", "interleave_present"),
+               {"all_slots": True}),
 }
 
 # the dense inputs of phase 2: the frames of scenes.grid_world that give
 # them (EngineConfig overrides) and the kernels timed on them
 GRID_KERNELS = ("raster_slim", "raster_depth", "raster_full", "ssao",
-                "raster_attrs")
+                "raster_attrs", "shading")
 BAND_GRID_KERNELS = ("raster_slim_band", "raster_depth_band")
 # and the three paths phase 4 drives on that scene
 GRID_PATHS = {
@@ -222,7 +239,7 @@ GRID_PATHS = {
 # kernels it runs, and the scene of each of its phase-4 paths
 ROWS_OVERRIDES = {"ssao_res_divisor": 1}
 ROWS_KERNELS = ("raster_slim_band", "raster_depth_band", "attr_planes",
-                "ssao_halo", "interleave_present")
+                "ssao_halo", "shading", "interleave_present")
 ROWS_PATHS = {"rows": "tiny", "rows@grid": "grid"}
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -246,6 +263,21 @@ SSAO_MUFU_PER_PIXEL = 2  # the linearization's and the radius's division
 SSAO_FP64_PER_PIXEL = 40  # sin in double: reduction and polynomial
 STACK_FLOPS_PER_PIXEL = 6  # the four bilinear weights
 STACK_FLOPS_PER_PLANE = 11  # 4 scales by 1/255, 4 weights, 3 adds
+# K9, from csrc/shading.cu: per pixel the view vector, F0, the combine and
+# the tonemap; per light Cook-Torrance (square roots, divisions and the two
+# powf counted one each); with IBL the SH9 sum, the 13 x 13 Chebyshev
+# environment BRDF (2 x 13 x 13 multiply-adds), the split sum and the
+# upsamples of the even-grid taps; per even-grid tap (mirror, parent or a
+# full-rate one) the reflection, the cube face, an RGBE quad and its
+# bilinear weights; per PCF sample the light projection and 9 taps over a
+# 4 x 4 window
+SHADE_FLOPS_PER_PIXEL = 45
+SHADE_FLOPS_PER_LIGHT = 150
+SHADE_IBL_FLOPS_PER_PIXEL = 950
+SHADE_FLOPS_PER_TAP = 80
+SHADE_FLOPS_PER_PCF_SAMPLE = 280
+SHADING_BAR = ("colour rtol 2e-3 / atol 1e-4 per pixel; packed frame "
+               "<= 1 LSB on < 1% of pixels")
 
 
 def ssao_flop_equivalents(n_pixels, n_taps, n_occluding):
@@ -294,6 +326,126 @@ def bound(n_bytes, n_flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def shading_args(args, kwargs):
+    """A recorded ``shading_pass_fast`` call as the 15 positional
+    arguments its kernel (``_shading_fast_cuda``) and its plain version
+    (``_shading_fast_plain``) take."""
+    import inspect
+
+    from mo_renderer_tpu_torch.passes import shading as Sh
+
+    bound = inspect.signature(Sh.shading_pass_fast).bind(*args, **kwargs)
+    bound.apply_defaults()
+    return tuple(bound.arguments.values())
+
+
+def shading_compare(k, p):
+    """K9's colour against its plain version's at SHADING_BAR: per pixel
+    rtol 2e-3 / atol 1e-4, and the packed frame (``present_pass``) within
+    1 LSB on fewer than 1% of pixels.  (max |err|, ok, bar)."""
+    import torch
+
+    from mo_renderer_tpu_torch.passes.present import present_pass
+
+    diff = torch.where(torch.isnan(k) & torch.isnan(p), 0.0, (k - p).abs())
+    err = diff.nan_to_num(nan=float("inf")).max().item()
+    close = bool(torch.allclose(k, p, rtol=2e-3, atol=1e-4, equal_nan=True))
+
+    def packed(c):
+        return present_pass(c).contiguous().view(torch.uint8).reshape(
+            *c.shape[:2], 4).to(torch.int32)
+
+    lsb = (packed(k) - packed(p)).abs().amax(-1)
+    frac = (lsb > 0).float().mean().item()
+    ok = close and int(lsb.max()) <= 1 and frac < 0.01
+    return err, ok, f"{SHADING_BAR} ({frac:.4%} of pixels differ by 1 LSB)"
+
+
+def shading_work(args):
+    """(bytes, FP32 operations, what else to report) of K9 on ``args``:
+    every G-buffer plane, the depth and SSAO read once, the colour written
+    once, the light rows, SH9 and level tables once, and of the specular
+    and PCF tables the rows this run's samples gather, each counted once
+    (the unique indices, recomputed here with the plain version's
+    helpers)."""
+    import torch
+
+    from mo_renderer_tpu_torch.device import sampling as Sm
+    from mo_renderer_tpu_torch.kernels import brdf
+    from mo_renderer_tpu_torch.passes import shading as Sh
+
+    (gbuf, _, rows, s, lights, n_lights, params, ibl, div, parent, mirror,
+     merged, cb, row_offset, full_height) = args
+    h, w = gbuf.depth.shape
+    n_px = h * w
+    n_l = min(lights.shape[0], n_lights)
+    half = Sh.half_res_geometry(gbuf, cb=cb)
+    n_even = half[3].numel()
+    n_bytes = n_px * 4 * (5 * 3 + 2 + 3) + n_l * lights.shape[1] * 4
+    flops = n_px * (SHADE_FLOPS_PER_PIXEL + SHADE_FLOPS_PER_LIGHT * n_l)
+    gathered = {}  # table -> its rows the samples read
+    if ibl is not None:
+        mq = ibl.specular_quad
+        nl = mq.num_levels
+        sizes, offsets = Sm._level_tables(mq, gbuf.depth.device)
+        n_bytes += 2 * 4 * nl + 9 * 3 * 4
+        flops += n_px * SHADE_IBL_FLOPS_PER_PIXEL
+
+        def tap(pos, n, rough, parent_level):
+            lvl = torch.floor(torch.clamp(rough * Sh.MAX_REFLECTION_LOD,
+                                          0.0, nl - 1)).to(torch.int32)
+            if parent_level:
+                lvl = torch.clamp(lvl + 1, max=nl - 1)
+            face, u, v = Sm.cube_face_uv(
+                brdf.ibl_reflection_dir(pos, n, params["eye_pos"]))
+            return Sm.mipcube_quad_index(sizes, offsets, lvl, face, u, v)[0]
+
+        full = (gbuf.position, gbuf.normal, gbuf.orm[..., 1])
+        if mirror:
+            sky = half[3] >= 1.0
+            dirs = Sh._sky_dirs(h, 2 * w if cb else w, params, stride=2,
+                                row_offset=row_offset,
+                                full_height=full_height)
+        else:
+            sky = gbuf.depth >= 1.0
+            dirs = Sh._sky_dirs(h, w, params, row_offset=row_offset,
+                                full_height=full_height)
+        mirror_idx = torch.where(sky, Sh._env_quad_index(ibl, dirs)[0],
+                                 tap(*(half[:3] if mirror else full), False))
+        table = ("merged" if mirror and parent and merged else "spec")
+        gathered[table] = [mirror_idx]
+        if not (mirror and parent and merged):
+            gathered["spec"].append(tap(*(half[:3] if parent else full),
+                                        True))
+        flops += SHADE_FLOPS_PER_TAP * (
+            (n_even if mirror else n_px) + (n_even if parent else n_px))
+    if rows is not None:
+        pos = gbuf.position if div == 1 else half[0]
+        if div == 4:
+            pos = pos[::2, ::2]
+        lp = torch.cat([pos, torch.ones_like(pos[..., :1])], -1) \
+            @ params["light_proj_view"].t()
+        wc = torch.where(lp[..., 3].abs() > 1e-20, lp[..., 3], 1.0)
+        uv = lp[..., :2] / wc[..., None] * 0.5 + 0.5
+        x0, y0 = [torch.floor(torch.clamp(uv[..., i] * s - 0.5, 1.0, s - 3.0))
+                  .to(torch.int64) for i in (0, 1)]
+        layout = Sh.pcf_layout(rows, s)
+        if layout == Sh.PCF_U16_HALF:
+            idx = [((y0 - 1) >> 1) * (s // 2) + ((x0 - 1) >> 1)]
+        elif layout == Sh.PCF_U16_FULL:
+            idx = [(y0 - 1) * s + x0 - 1]
+        else:
+            idx = [(y0 - 1) * s + x0 - 1, (y0 + 1) * s + x0 - 1]
+        gathered["pcf"] = idx
+        flops += pos[..., 0].numel() * SHADE_FLOPS_PER_PCF_SAMPLE
+    row_bytes = {"spec": 16, "merged": 32, "pcf": 32}
+    unique = {k: int(torch.unique(torch.cat([i.reshape(-1).to(torch.int64)
+                                             for i in v])).numel())
+              for k, v in gathered.items()}
+    n_bytes += sum(row_bytes[k] * n for k, n in unique.items())
+    return n_bytes, flops, {"lights": n_l, "unique_rows": unique}
+
+
 def capture_inputs(cfg, device, frames, want):
     """Render one frame per entry of ``frames`` -- (EngineConfig
     overrides, world factory, camera factory) -- and record what each
@@ -313,6 +465,7 @@ def capture_inputs(cfg, device, frames, want):
         (FG, "ssao_pass_tiles"): FG.ssao_pass_tiles,
         (FG, "reconstruct_present"): FG.reconstruct_present,
         (GB, "stack_planes"): GB.stack_planes,
+        (FG, "shading_pass_fast"): FG.shading_pass_fast,
     }
 
     def recorder(key, fn):
@@ -335,6 +488,8 @@ def capture_inputs(cfg, device, frames, want):
         "interleave_present", originals[(FG, "reconstruct_present")])
     GB.stack_planes = recorder(
         "stack_planes", originals[(GB, "stack_planes")])
+    FG.shading_pass_fast = recorder(
+        "shading", originals[(FG, "shading_pass_fast")])
     try:
         for overrides, make_world, make_camera in frames:
             pcfg = dataclasses.replace(cfg, **overrides)
@@ -366,6 +521,7 @@ def check_kernels(cfg, device):
     from mo_renderer_tpu_torch.parallel import tile_sharding as TS
     from mo_renderer_tpu_torch.passes import checkerboard as CB
     from mo_renderer_tpu_torch.passes import present as P
+    from mo_renderer_tpu_torch.passes import shading as Sh
     from mo_renderer_tpu_torch.passes import ssao as S
 
     results = {}
@@ -704,6 +860,22 @@ def check_kernels(cfg, device):
                        S._ssao_cuda, z, S.NUM_LEVELS, 0, near, far))},
         )
 
+    def shading(seen):
+        """K9 on the frame's own call (the checkerboard domain, the PCF
+        table and divisor, the spec flags and the lights it was given)."""
+        args = shading_args(*seen["shading"])
+        n_bytes, n_flops, extra = shading_work(args)
+        gbuf = args[0]
+        return dict(
+            kernel=lambda: Sh._shading_fast_cuda(*args),
+            plain=lambda: Sh._shading_fast_plain(*args),
+            cmp=shading_compare,
+            shape=f"{tuple(gbuf.depth.shape)} (cb {args[12]}), PCF "
+            f"{tuple(args[2].shape)} {args[2].dtype} / {args[8]}, "
+            f"{extra['lights']} light(s)",
+            bytes=n_bytes, flops=n_flops, extra=extra,
+        )
+
     case_of = {
         "raster_slim": functools.partial(raster, mode="slim"),
         "raster_depth": functools.partial(raster, mode="depth"),
@@ -715,6 +887,7 @@ def check_kernels(cfg, device):
         "raster_slim_band": functools.partial(raster_band, mode="slim"),
         "raster_depth_band": functools.partial(raster_band, mode="depth"),
         "ssao_halo": ssao_halo,  # after raster_slim_band: its depth
+        "shading": shading,
     }
     seen = capture_inputs(
         cfg, device,
@@ -763,6 +936,79 @@ def check_kernels(cfg, device):
             "library_ms": None, **case.get("extra", {}),
         }
     return results
+
+
+def check_shading_options(cfg, device):
+    """Phase 2, K9 beyond the paths' own calls: the kernel against its
+    plain version at SHADING_BAR on every option set its callers pass --
+    each knob set of ``scenes.BUDGET_BOUNDS`` and the full-rate frame on
+    the port's twin of the reference's budget scene (checkerboard on and
+    off, PCF divisors 1/2/4, u16 windows at every texel and at even
+    texels, each spec_* branch, half-rate SSAO), then on the production
+    knob set's call: the f32 wide-row PCF table, no IBL, no shadow, and
+    the second of 4 bands as the rows path shades it (views of the band's
+    G-buffer rows, its first row, the frame's height).  ``cfg`` gives the
+    frame size; returns the number of option sets held."""
+    import mo_renderer_tpu_torch.passes.frame_graph as FG
+    from mo_renderer_tpu_torch import Renderer, scenes
+    from mo_renderer_tpu_torch.passes import shading as Sh
+    from mo_renderer_tpu_torch.passes.gbuffer import GBuffer
+    from mo_renderer_tpu_torch.scene.scene_buffers import find_shadow_light
+
+    base = dataclasses.replace(cfg, checkerboard=False, ssao_res_divisor=1)
+    world = scenes.budget_world()
+    r = Renderer(base, device)
+    r.prepare(world)
+    light_pv, _ = find_shadow_light(world)
+    params = FG.build_camera_params(scenes.camera(base), light_pv, device)
+    ibl = r.ibl.maps()
+    production = scenes.budget_config(base, (4, True, True, True, True, 2,
+                                             True))
+    configs = {str(k): scenes.budget_config(base, k) for k in
+               (scenes.BUDGET_ORACLE, *scenes.BUDGET_BOUNDS)}
+    configs["production, pcf_u16=False"] = dataclasses.replace(
+        production, pcf_u16=False)
+    calls = {}
+    shade = FG.shading_pass_fast
+
+    def record(*args, **kwargs):
+        calls[what] = shading_args(args, kwargs)
+        return shade(*args, **kwargs)
+
+    FG.shading_pass_fast = record
+    try:
+        for what, c in configs.items():
+            FG.frame_program(
+                r.scene, ibl, params, cfg=c, pad_w=r.pad_w, pad_h=r.pad_h,
+                binned_cap=r._binned_cap, has_shadow_light=True,
+                slot_map=r._slot_map, n_lights=r._n_lights, fast=True)
+    finally:
+        FG.shading_pass_fast = shade
+    prod = list(calls[str((4, True, True, True, True, 2, True))])
+    calls["production, no IBL"] = tuple(prod[:7] + [None] + prod[8:])
+    calls["production, no shadow"] = tuple(prod[:2] + [None] + prod[3:])
+    # the rows path's band: views of the G-buffer and SSAO rows
+    gbuf, h = prod[0], prod[0].depth.shape[0]
+    hb = h // 4 // 2 * 2
+    band = GBuffer(*[getattr(gbuf, f.name)[hb:2 * hb]
+                     for f in dataclasses.fields(gbuf)])
+    calls["production, band 2 of 4"] = tuple(
+        [band, prod[1][hb:2 * hb]] + prod[2:13] + [hb, h])
+    layouts = set()
+    for what, args in calls.items():
+        k = Sh._shading_fast_cuda(*args)
+        p = Sh._shading_fast_plain(*args)
+        err, ok, bar = shading_compare(k, p)
+        if args[2] is not None:
+            layouts.add(Sh.pcf_layout(args[2], args[3]))
+        print(f"[2] shading {what}: {tuple(k.shape)}, max |err| {err:.3g} "
+              f"({bar})", flush=True)
+        if not ok:
+            raise AssertionError(f"shading {what}: kernel disagrees with "
+                                 f"its plain version (max |err| {err})")
+    if layouts != {Sh.PCF_U16_HALF, Sh.PCF_U16_FULL, Sh.PCF_F32_WIDE}:
+        raise AssertionError(f"shading: PCF layouts held {layouts}")
+    return len(calls)
 
 
 def check_small_frames(device):
@@ -1682,7 +1928,7 @@ def run_full_frame(device, line, path, n_frames, group=None, warmup=3):
         raise AssertionError(f"{path}: {top._captures} captures, want 1")
     _check_launches(path, kernels, counts)
     # every frame's launches are the graph's, plus the capture's warm-up
-    want = {k: replayed * n + 1 for k, n in top._graph.launches.items()}
+    want = {k: (replayed + 1) * n for k, n in top._graph.launches.items()}
     shadow = getattr(renderer._shadow_graph, "launches", {})
     for k, n in shadow.items():  # the memoized shadow: once
         want[k] = want.get(k, 0) + n + 1
@@ -1735,7 +1981,9 @@ def profile_passes(run, n_frames=2):
     (kernel launches per frame, device ms per frame)}, each pass counted
     without the passes it calls (the shadow's binning and raster count
     as binning and raster); "rest of the frame" is what no range holds
-    (the frame's own ops, the params upload, the fetch)."""
+    (the frame's own ops, the params upload, the fetch).  The hand
+    kernels' launches count in their pass; their device time only where
+    ``PASS_HAND_KERNELS`` names them (K9 in shading)."""
     import torch
 
     import mo_renderer_tpu_torch.passes.frame_graph as FG
@@ -1781,6 +2029,17 @@ def profile_passes(run, n_frames=2):
             by_pass[evt.name[len("pass::"):]][1] += us
     total_n = sum(1 for e in events if e.name in LAUNCH_ROWS)
     total_us = sum(k.duration for e in events for k in e.kernels)
+    # a hand kernel's launch from C is a launch row inside its pass's
+    # range, but its device time is attached to no event: add a pass's own
+    # hand kernels' time to the pass by name
+    attached = {k.name for e in events for k in e.kernels}
+    for name, hand in PASS_HAND_KERNELS.items():
+        us = sum(e.time_range.elapsed_us() for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.name not in attached
+                 and any(k in e.name for k in hand))
+        by_pass[name][1] += us
+        total_us += us
     by_pass["rest of the frame"] = [
         total_n - sum(v[0] for v in by_pass.values()),
         total_us - sum(v[1] for v in by_pass.values())]
@@ -1800,7 +2059,11 @@ def print_passes(path, by_pass, line):
 
 # the __global__ functions of csrc/, as the profiler names their launches
 HAND_KERNELS = ("raster_kernel", "raster_attrs_kernel", "attr_planes_kernel",
-                "ssao_kernel", "reconstruct_kernel", "stack_planes_kernel")
+                "ssao_kernel", "reconstruct_kernel", "stack_planes_kernel",
+                "shade_even_kernel", "shade_pixel_kernel")
+# the hand kernels a pass launches from C, which its profiler range does
+# not hold: they are added to the pass by name
+PASS_HAND_KERNELS = {"shading": ("shade_even_kernel", "shade_pixel_kernel")}
 
 
 def profile_graph_calls(run):
@@ -2368,6 +2631,8 @@ def main() -> int:
           f" s total)", flush=True)
 
     kernels = check_kernels(EngineConfig(width=1920, height=1080), device)
+    kernels["shading"]["option_sets"] = check_shading_options(
+        EngineConfig(width=1920, height=1080), device)
     check_small_frames(device)
     check_topology(device)
     check_window_loop(device)

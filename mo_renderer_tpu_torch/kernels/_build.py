@@ -58,6 +58,7 @@ LAUNCHES: dict[str, int] = {
     "raster_slim_band": 0,
     "raster_depth_band": 0,
     "ssao_halo": 0,
+    "shading": 0,
 }
 
 _lock = threading.Lock()

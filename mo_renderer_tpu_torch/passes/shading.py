@@ -28,8 +28,10 @@ from __future__ import annotations
 
 import torch
 
+import ctypes
+
 from ..device import sampling
-from ..kernels import brdf
+from ..kernels import _build, brdf
 from ..kernels.ibl import sh9_eval
 from ..kernels.tonemap import tonemap_unreal
 
@@ -574,7 +576,25 @@ def shading_pass_fast(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
     (shading.py:717); the three ``spec_*`` flags choose the specular
     branches of ``ibl_ambient_sky_fast``.  A band of a row-sharded frame
     passes its first row (even, so that its row parity is the frame's
-    checkerboard phase) and the frame's height."""
+    checkerboard phase) and the frame's height.
+
+    On a CUDA G-buffer this is the kernel pair of ``csrc/shading.cu``
+    (K9), for every option set; on the CPU it is the PyTorch ops of
+    ``_shading_fast_plain``, the kernel's plain version."""
+    args = (gbuf, ssao, shadow_quad_rows, shadow_size, lights, num_lights,
+            params, ibl, shadow_res_divisor, parent_mip_half_res,
+            mirror_half_res, merged_trilinear, cb, row_offset, full_height)
+    if gbuf.depth.is_cuda:
+        return _shading_fast_cuda(*args)
+    return _shading_fast_plain(*args)
+
+
+def _shading_fast_plain(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
+                        num_lights, params, ibl, shadow_res_divisor,
+                        parent_mip_half_res, mirror_half_res,
+                        merged_trilinear, cb, row_offset, full_height):
+    """shading_pass_fast in PyTorch ops: the CPU's path, and the plain
+    version the kernel is held to on the card."""
     eye = params["eye_pos"]
     lo = shade_lights(gbuf, lights, num_lights, eye)
     # one shared even-grid slice feeds every half-res consumer
@@ -614,3 +634,189 @@ def shading_pass_fast(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
         # skybox where depth == 1, not tonemapped (skybox_fs)
         color = torch.where(sky_mask[..., None], sky, color)
     return torch.clamp(color, 0.0, 1.0)
+
+
+# --- K9: the kernel pair of csrc/shading.cu ----------------------------------
+
+# the PCF table layouts, read off the table as calculate_shadow_fast reads
+# them (csrc/shading.cu kPcf*)
+PCF_NONE, PCF_U16_HALF, PCF_U16_FULL, PCF_F32_WIDE = 0, 1, 2, 3
+PCF_DIVISORS = (1, 2, 4)
+
+
+def pcf_layout(shadow_quad_rows, s: int) -> int:
+    """The layout code of a PCF table for an ``s`` x ``s`` shadow map
+    (sampling.py's builders): u16 windows at every even texel or at every
+    texel, or f32 2x4 wide rows; raises on a table of no layout."""
+    if shadow_quad_rows is None:
+        return PCF_NONE
+    n, width = shadow_quad_rows.shape
+    if shadow_quad_rows.dtype == torch.int32:
+        code = PCF_U16_HALF if n == (s // 2) ** 2 else PCF_U16_FULL
+    elif shadow_quad_rows.dtype == torch.float32:
+        code = PCF_F32_WIDE
+    else:
+        code = None
+    if code is None or width != 8 or (code != PCF_U16_HALF and n != s * s):
+        raise ValueError(
+            f"shading: a PCF table of {tuple(shadow_quad_rows.shape)} "
+            f"{shadow_quad_rows.dtype} rows fits no layout of a {s}^2 map"
+        )
+    return code
+
+
+class ShadeArgs(ctypes.Structure):
+    """csrc/shading.cu's ShadeArgs, field for field."""
+
+    _fields_ = [
+        ("planes", ctypes.c_void_p * 5),
+        ("strides", ctypes.c_longlong * 15),
+        ("depth", ctypes.c_void_p),
+        ("depth_strides", ctypes.c_longlong * 2),
+        ("ssao", ctypes.c_void_p),
+        ("ssao_strides", ctypes.c_longlong * 2),
+        *[(name, ctypes.c_void_p) for name in (
+            "out", "c0h", "c1h", "skyh", "pcf", "lights", "eye", "light_pv",
+            "right", "up", "direction", "near", "near_wh", "sh9",
+            "spec_rows", "merged_rows", "sizes", "offsets", "pcf_rows")],
+        *[(name, ctypes.c_int) for name in (
+            "h", "w", "hh", "wh", "hq", "wq", "cb", "has_ibl",
+            "mirror_half", "parent_half", "merged", "num_levels", "env_size",
+            "env_off", "pcf_layout", "shadow_size", "pcf_div", "row_offset",
+            "full_height", "sky_w", "light_stride", "n_lights")],
+    ]
+
+
+GBUFFER_PLANES = ("position", "normal", "base_color", "emissive", "orm")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def shade_args(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
+               num_lights, params, ibl, shadow_res_divisor,
+               parent_mip_half_res, mirror_half_res, merged_trilinear, cb,
+               row_offset, full_height):
+    """What the kernel pair reads: (ShadeArgs, the tensors it writes and
+    keeps alive -- ``out`` and the even-grid planes --, whether the
+    even-grid launch runs).  Pure Python over the tensors' pointers,
+    shapes and strides: nothing is read from the device, and the outputs
+    come from the caching allocator, so a CUDA graph captures the call."""
+    dev = gbuf.depth.device
+    h, w = gbuf.depth.shape
+    if shadow_res_divisor not in PCF_DIVISORS:
+        raise ValueError(f"shading: shadow_res_divisor {shadow_res_divisor} "
+                         f"is not one of {PCF_DIVISORS}")
+    if ibl is not None and cb and not mirror_half_res:
+        raise NotImplementedError(
+            "checkerboard shading requires spec_mirror_half_res (full-res "
+            "sky rays are not evaluated on the cb domain)"
+        )
+    planes = [getattr(gbuf, k) for k in GBUFFER_PLANES]
+    for k, t in zip(GBUFFER_PLANES, planes):
+        if tuple(t.shape) != (h, w, 3):
+            raise ValueError(f"shading: gbuf.{k} is {tuple(t.shape)}, "
+                             f"expected {(h, w, 3)}")
+    if tuple(ssao.shape) != (h, w):
+        raise ValueError(f"shading: ssao is {tuple(ssao.shape)}, expected "
+                         f"{(h, w)}")
+    layout = pcf_layout(shadow_quad_rows, shadow_size)
+    has_ibl = ibl is not None
+    mirror = has_ibl and mirror_half_res
+    parent = has_ibl and parent_mip_half_res
+    half_pcf = layout != PCF_NONE and shadow_res_divisor > 1
+    hh, wh = (h + 1) // 2, w if cb else (w + 1) // 2
+    hq, wq = ((hh + 1) // 2, (wh + 1) // 2) if shadow_res_divisor == 4 \
+        else (hh, wh)
+
+    def empty(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    keep = {
+        "out": empty((h, w, 3)),
+        "c0h": empty((hh, wh, 3)) if mirror else None,
+        "c1h": empty((hh, wh, 3)) if parent else None,
+        "skyh": empty((hh, wh), torch.uint8) if mirror else None,
+        "pcf": empty((hq, wq)) if half_pcf else None,
+    }
+    if lights.stride(-1) != 1:
+        lights = lights.contiguous()
+    small = {k: params[k].contiguous() for k in (
+        "eye_pos", "light_proj_view", "right", "up", "direction", "near",
+        "near_wh")}
+    keep.update(lights=lights, **small)
+    a = ShadeArgs()
+    a.planes[:] = [t.data_ptr() for t in planes]
+    a.strides[:] = [st for t in planes for st in t.stride()]
+    a.depth, a.depth_strides[:] = gbuf.depth.data_ptr(), gbuf.depth.stride()
+    a.ssao, a.ssao_strides[:] = ssao.data_ptr(), ssao.stride()
+    for k in ("out", "c0h", "c1h", "skyh", "pcf", "lights"):
+        setattr(a, k, _ptr(keep[k]))
+    a.eye, a.light_pv = _ptr(small["eye_pos"]), _ptr(small["light_proj_view"])
+    a.right, a.up = _ptr(small["right"]), _ptr(small["up"])
+    a.direction, a.near = _ptr(small["direction"]), _ptr(small["near"])
+    a.near_wh = _ptr(small["near_wh"])
+    a.h, a.w, a.hh, a.wh, a.hq, a.wq = h, w, hh, wh, hq, wq
+    a.cb, a.has_ibl, a.mirror_half, a.parent_half = cb, has_ibl, mirror, \
+        parent
+    a.merged = mirror and parent and merged_trilinear
+    if has_ibl:
+        mq = ibl.specular_quad
+        sizes, offsets = sampling._level_tables(mq, dev)
+        keep.update(sh9=ibl.irradiance_sh9.contiguous(), sizes=sizes,
+                    offsets=offsets)
+        a.sh9, a.sizes, a.offsets = (_ptr(keep["sh9"]), _ptr(sizes),
+                                     _ptr(offsets))
+        a.spec_rows = _ptr(mq.rows)
+        if a.merged:
+            a.merged_rows = _ptr(ibl.specular_quad_merged.rows)
+        a.num_levels = mq.num_levels
+        a.env_size, a.env_off = int(mq.sizes[0]), int(mq.offsets[0])
+    a.pcf_layout, a.shadow_size = layout, shadow_size
+    a.pcf_div = shadow_res_divisor
+    a.pcf_rows = _ptr(shadow_quad_rows)
+    a.row_offset = row_offset
+    a.full_height = h if full_height is None else full_height
+    a.sky_w = 2 * w if cb else w
+    a.light_stride = lights.stride(0)
+    a.n_lights = min(lights.shape[0], num_lights)
+    return a, keep, mirror or parent or half_pcf
+
+
+def _shading_fast_cuda(*args):
+    """K9: the even-grid launch (when a half-rate tap or the strided PCF
+    runs) and the pixel launch, on the current stream."""
+    gbuf, ssao, rows, _, lights, _, params, ibl = args[:8]
+    tensors = [getattr(gbuf, k) for k in GBUFFER_PLANES] + [
+        gbuf.depth, ssao, lights, params["eye_pos"]] + (
+        [ibl.irradiance_sh9] if ibl is not None else [])
+    dev = gbuf.depth.device
+    for i, t in enumerate(tensors):
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"shading: argument {i} is {t.dtype} on "
+                             f"{t.device}, expected float32 on {dev}")
+    if ibl is not None:
+        _build.require_cuda(
+            "shading", ibl.specular_quad.rows, ibl.specular_quad_merged.rows,
+            dtypes=(torch.int32, torch.int32))
+    if rows is not None:
+        _build.require_cuda("shading", rows)
+    a, keep, even = shade_args(*args)
+    launch_shading(a, even, keep["out"])
+    return keep["out"]
+
+
+def launch_shading(a, even, like):
+    """The C entries of csrc/shading.cu on ``like``'s stream; one count
+    per launch."""
+    lib = _build.library()
+    if lib.mo_shading_args_size() != ctypes.sizeof(ShadeArgs):
+        raise RuntimeError("shading: ShadeArgs does not match csrc/shading.cu")
+    stream = _build.stream_of(like)
+    for name, run in (("mo_shading_even", even), ("mo_shading_pixel", True)):
+        if not run:
+            continue
+        fn = _build.function(name, [ctypes.POINTER(ShadeArgs), _build.P])
+        _build.check("shading", fn(ctypes.byref(a), stream))
+        _build.count("shading")

@@ -13,10 +13,17 @@ samples every slot of the texture stacks.
 cubes and spheres with distinct materials on a textured plane, about 52K
 triangles at the default 10 x 10 grid, which loads the rasterizer and the
 binning where the tiny scene does not.
+
+``budget_world`` is the reference's error-budget stress scene
+(``tests/test_fast_budget.py`` ``_stress_world``): hard shadow edges and a
+roughness 0 -> 1 gradient sphere, on which every knob set of the fast
+path (``BUDGET_BOUNDS``, ``budget_config``) is held to the full-rate
+frame.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -167,6 +174,66 @@ def grid_world(n_grid: int = 10, device=None):
     sponza_scale.spawn_scene(world, n_grid)
     world.insert_resource(tiny_ibl(device))
     return world
+
+
+def budget_world(device=None):
+    """A plane, a tall cube casting a long hard-edged shadow under a low
+    sun, and a metallic sphere whose roughness ramps 0 -> 1 (the whole
+    specular mip chain)."""
+    world = World()
+    world.spawn((
+        Transform.from_xyz(0.0, -0.5, 0.0),
+        procedural_model("plane", size=10.0, roughness=0.3),
+    ))
+    world.spawn((
+        Transform.from_xyz(0.0, 0.5, 0.0),
+        procedural_model("cube", base_color=(0.9, 0.6, 0.3, 1.0)),
+    ))
+    world.spawn((
+        Transform.from_xyz(1.4, 0.1, 0.6),
+        procedural_model("sphere", metallic=1.0, mr_gradient=True,
+                         base_color=(0.9, 0.9, 0.9, 1.0)),
+    ))
+    world.spawn((DirectionalLight(
+        Transform.from_xyz(8.0, 3.0, 2.0).looking_at((0.0, 0.0, 0.0)),
+        (1.0, 1.0, 1.0), 4.0, True,
+    ),))
+    world.insert_resource(tiny_ibl(device))
+    return world
+
+
+# the fast path's knob sets and the deviation each may make from the
+# full-rate frame on budget_world at 256x128 (tests/test_fast_budget.py
+# BOUNDS): (pcf_res_divisor, spec_parent_mip_half_res,
+# spec_mirror_half_res[, spec_merged_trilinear[, checkerboard[,
+# ssao_res_divisor[, pcf_half_anchor]]]]) -> (mean LSB, fraction of
+# channels > 12 LSB)
+BUDGET_BOUNDS = {
+    (2, False, False): (0.35, 0.004),
+    (4, False, False): (0.60, 0.010),
+    (1, True, False): (0.25, 0.004),
+    (1, False, True): (0.35, 0.006),
+    (4, True, True): (1.00, 0.015),
+    (4, True, True, True): (1.10, 0.015),
+    (4, True, True, True, True): (2.80, 0.060),
+    (1, False, False, False, False, 2): (1.20, 0.020),
+    (4, True, True, True, True, 2): (3.20, 0.070),
+    (1, False, False, False, False, 1, True): (0.50, 0.008),
+    (4, True, True, True, True, 2, True): (3.40, 0.075),
+}
+# the full-rate frame they are held to
+BUDGET_ORACLE = (1, False, False)
+
+
+def budget_config(cfg, knobs):
+    """``cfg`` (the full-rate base: no checkerboard, full-rate SSAO) under
+    one knob set of ``BUDGET_BOUNDS``."""
+    divisor, parent, mirror, merged, cb, ssao_div, pcf_half = (
+        tuple(knobs) + (False, False, 1, False)[len(knobs) - 3:])
+    return dataclasses.replace(
+        cfg, pcf_res_divisor=divisor, spec_parent_mip_half_res=parent,
+        spec_mirror_half_res=mirror, spec_merged_trilinear=merged,
+        checkerboard=cb, ssao_res_divisor=ssao_div, pcf_half_anchor=pcf_half)
 
 
 def grid_camera(cfg):

@@ -686,3 +686,102 @@ def test_entry_points_default_to_the_card(cuda):
     cfg = scenes.tiny_config()
     assert Renderer(cfg).device.type == "cuda"
     assert App.new(config=cfg).device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_shading_kernel_holds_every_option_set(cuda):
+    """K9 against its plain version at rtol 2e-3 / atol 1e-4 (the packed
+    frame within 1 LSB on < 1% of pixels) on every knob set of the
+    reference's budget matrix, the three PCF layouts, no IBL, no shadow
+    and a band of the rows path, at 256x128 (chip_smoke's phase 2 runs
+    them at 1080p)."""
+    import chip_smoke
+    from mo_renderer_tpu_torch import scenes
+
+    n = chip_smoke.check_shading_options(scenes.tiny_config(), cuda)
+    assert n == len(scenes.BUDGET_BOUNDS) + 5
+
+
+def _shading_case(cuda, n_lights, cb, seed=0):
+    """A random G-buffer on the card (a quarter of it sky), random SSAO,
+    lights and a PCF table, and the tiny scene's IBL: the arguments of
+    the kernel and its plain version."""
+    import numpy as np
+
+    from mo_renderer_tpu_torch import scenes
+    from mo_renderer_tpu_torch.device import sampling as S
+    from mo_renderer_tpu_torch.passes.gbuffer import GBuffer
+
+    rng = np.random.default_rng(seed)
+    h, w = 36, 50  # an odd even-grid width; the plain version takes even sizes
+
+    def plane(*shape, lo=0.0, hi=1.0):
+        return torch.from_numpy(
+            rng.uniform(lo, hi, shape).astype(np.float32)).to(cuda)
+
+    normal = torch.nn.functional.normalize(plane(h, w, 3, lo=-1.0), dim=-1)
+    depth = plane(h, w, lo=0.5, hi=1.33).clamp(max=1.0)
+    gbuf = GBuffer(base_color=plane(h, w, 3), position=plane(h, w, 3, lo=-2),
+                   normal=normal, emissive=plane(h, w, 3, hi=0.1),
+                   orm=plane(h, w, 3), velocity=plane(h, w, 2), depth=depth,
+                   mask=depth < 1.0)
+    lights = plane(n_lights + 1, 20)
+    lights[:, 0] = torch.tensor([0.0, 1.0, 2.0] * 2, device=cuda)[
+        :n_lights + 1]
+    lights[:, 2] *= 20.0
+    pv = torch.tensor([[0.3, 0.0, 0.1, 0.0], [0.0, 0.3, 0.0, 0.1],
+                       [0.05, 0.02, 0.1, 0.5], [0.0, 0.0, 0.0, 1.0]],
+                      device=cuda)
+    params = {"eye_pos": torch.tensor([0.0, 1.0, -3.0], device=cuda),
+              "light_proj_view": pv,
+              "right": torch.tensor([1.0, 0.0, 0.0], device=cuda),
+              "up": torch.tensor([0.0, 1.0, 0.0], device=cuda),
+              "direction": torch.tensor([0.0, 0.0, 1.0], device=cuda),
+              "near": torch.tensor(0.1, device=cuda),
+              "near_wh": torch.tensor([0.2, 0.1], device=cuda)}
+    rows = S.build_pcf_window_u16_half(plane(64, 64, lo=0.3, hi=0.9))
+    ibl = scenes.tiny_ibl(cuda).maps()
+    return (gbuf, plane(h, w, lo=0.5), rows, 64, lights, n_lights, params,
+            ibl, 2, True, True, True, cb, 0, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_lights", [1, 5])
+@pytest.mark.parametrize("cb", [False, True])
+def test_shading_kernel_on_random_gbuffers(cuda, n_lights, cb):
+    """K9 away from any frame: a random G-buffer whose even grid has an
+    odd width, directional, point and spot lights, against the plain
+    version at the bar."""
+    import chip_smoke
+    from mo_renderer_tpu_torch.passes import shading as Sh
+
+    args = _shading_case(cuda, n_lights, cb)
+    got = Sh._shading_fast_cuda(*args)
+    want = Sh._shading_fast_plain(*args)
+    torch.cuda.synchronize()
+    err, ok, bar = chip_smoke.shading_compare(got, want)
+    assert ok, (err, bar)
+
+
+@pytest.mark.cuda
+def test_shading_never_falls_back_on_the_card(cuda, monkeypatch):
+    """A card G-buffer launches the kernel pair and never the PyTorch
+    ops; the full-rate mirror tap on the checkerboard raises, as the plain
+    version does."""
+    from mo_renderer_tpu_torch.kernels import _build
+    from mo_renderer_tpu_torch.passes import shading as Sh
+
+    args = _shading_case(cuda, 2, True)
+
+    def plain(*a):
+        raise AssertionError("the card ran the PyTorch ops")
+
+    monkeypatch.setattr(Sh, "_shading_fast_plain", plain)
+    before = _build.LAUNCHES["shading"]
+    out = Sh.shading_pass_fast(*args[:7], ibl=args[7], shadow_res_divisor=2,
+                               cb=True)
+    torch.cuda.synchronize()
+    assert out.is_cuda and _build.LAUNCHES["shading"] == before + 2
+    with pytest.raises(NotImplementedError, match="spec_mirror_half_res"):
+        Sh.shading_pass_fast(*args[:7], ibl=args[7], mirror_half_res=False,
+                             cb=True)

@@ -3,16 +3,21 @@ on the same inputs: the PCF table layouts (``pcf_u16``,
 ``pcf_half_anchor``) and the shadow factor each gives, every reachable
 branch of the specular/sky sampler (``spec_parent_mip_half_res``,
 ``spec_mirror_half_res``, ``spec_merged_trilinear``, with and without
-the checkerboard domain), the standalone ``skybox_color_fast``, and SSAO without the tile kernel
+the checkerboard domain), the standalone ``skybox_color_fast``, SSAO without the tile kernel
 (``ssao_pallas=False``: ``ssao_pass``, with ``ssao_pass_exact`` as the
-oracle).  The inputs are the tiny scene's own G-buffer, shadow map and
+oracle), and the whole ``shading_pass_fast`` (the CPU's side of the CUDA
+kernel K9) under the option sets no frame test reaches: five lights of
+all three kinds, each PCF layout and divisor on and off the
+checkerboard, a band of a row-sharded frame, no IBL and no shadow.  The inputs are the tiny scene's own G-buffer, shadow map and
 IBL maps, made by the JAX package and carried over as numpy.
 
 Bars: PCF tables exact.  The shadow factor equal on > 99.9% of pixels
 and within one tap elsewhere (``current > closest`` flips on one ulp, as
 in tests/test_torch_vertex_path.py); the test prints the share that
 differs.  Ambient and sky atol 1e-5 / rtol 1e-5 (float32 sums in another
-order).  SSAO at the bar of tests/test_torch_ssao.py.
+order).  SSAO at the bar of tests/test_torch_ssao.py.  The shaded colour
+at rtol 2e-3 / atol 1e-4 on > 99.5% of pixels, and within one PCF tap
+(0.75 / 9 before the tonemap) elsewhere.
 """
 
 import os
@@ -259,3 +264,114 @@ def test_sample_mipcube_quad_lod_matches_reference(ref):
     got = n(S.sample_mipcube_quad_lod(ref.port_ibl.specular_quad, t(dirs),
                                       t(lod)))
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+# light rows (scene_buffers.GPU_LIGHT_STRIDE columns): type, spot
+# exponent, position, colour, direction, attenuation -- a directional, two
+# point and two spot lights, as many as grid_world's five
+_LIGHTS = [
+    (0.0, 0.0, (0.0, 0.0, 0.0), (1.0, 0.95, 0.9), (-0.5, -1.0, -0.3),
+     (3.0, 0.0, 0.0)),
+    (1.0, 0.0, (1.0, 1.5, 1.0), (0.4, 0.7, 1.0), (0.0, 0.0, 0.0),
+     (1.0, 0.2, 0.1)),
+    (2.0, 8.0, (-1.0, 2.0, 0.5), (1.0, 0.6, 0.3), (0.4, -1.0, -0.2),
+     (1.0, 0.05, 0.02)),
+    (1.0, 0.0, (-2.0, 0.5, -1.5), (0.8, 0.8, 0.6), (0.0, 0.0, 0.0),
+     (0.5, 0.0, 0.3)),
+    (2.0, 30.0, (0.5, 3.0, -0.5), (0.9, 0.9, 1.0), (0.0, -1.0, 0.1),
+     (1.0, 0.0, 0.0)),
+]
+
+
+def _light_rows(n_lights):
+    rows = np.zeros((n_lights + 1, 20), np.float32)  # one padding row
+    for i, (kind, spot, pos, col, d, att) in enumerate(_LIGHTS[:n_lights]):
+        rows[i, 0], rows[i, 2] = kind, spot
+        rows[i, 4:7], rows[i, 8:11], rows[i, 12:15] = pos, col, d
+        rows[i, 16:19] = att
+    return rows
+
+
+BAND = (64, 256)  # a band case: its first row and the frame's height
+_TABLES = {}
+
+
+def _pcf_tables(ref, layout):
+    """(JAX, port) PCF table of ``layout`` on the scene's shadow map, built
+    once per layout."""
+    if layout not in _TABLES:
+        j_build, build = BUILDERS[layout]
+        _TABLES[layout] = (j_build(ref.smap), build(t(ref.smap)))
+    return _TABLES[layout]
+
+# (cb, PCF layout, divisor, (parent, mirror, merged), n_lights, what)
+SHADING_CASES = {
+    "cb f32-rows div4 5-lights": (True, "f32 2x4 rows", 4,
+                                  (True, True, True), 5, None),
+    "cb u16-full div2": (True, "u16 windows", 2, (True, True, False), 1,
+                         None),
+    "cb u16-half div1 3-lights": (True, "u16 half-anchor", 1,
+                                  (False, True, False), 3, None),
+    "full u16-half div4 5-lights": (False, "u16 half-anchor", 4,
+                                    (True, True, True), 5, None),
+    "full f32-rows div2 full-rate taps": (False, "f32 2x4 rows", 2,
+                                          (False, False, False), 2, None),
+    "cb band": (True, "u16 half-anchor", 4, (True, True, True), 5, "band"),
+    "full band full-rate mirror": (False, "u16 windows", 4,
+                                   (True, False, False), 1, "band"),
+    "cb no IBL": (True, "u16 half-anchor", 4, (True, True, True), 5,
+                  "no ibl"),
+    "full no shadow": (False, None, 4, (True, True, True), 5, "no shadow"),
+}
+
+
+@pytest.mark.parametrize("case", list(SHADING_CASES))
+def test_shading_pass_fast_matches_reference(ref, case):
+    cb, layout, divisor, (parent, mirror, merged), n_lights, what = \
+        SHADING_CASES[case]
+    # the whole G-buffer: the ops the tests above ran on it are compiled
+    # already (a band case shades it as the rows of a taller frame)
+    jgb = ref.gbufs[cb]
+    ssao = np.random.default_rng(len(case)).uniform(
+        0.6, 1.0, size=jgb.depth.shape).astype(np.float32)
+    rows = None if layout is None else _pcf_tables(ref, layout)
+    lights = _light_rows(n_lights)
+    band = dict(row_offset=BAND[0], full_height=BAND[1]) if what == "band" \
+        else {}
+    use_ibl = what != "no ibl"
+    flags = dict(shadow_res_divisor=divisor, parent_mip_half_res=parent,
+                 mirror_half_res=mirror, merged_trilinear=merged, cb=cb,
+                 **band)
+    want = n(JSh.shading_pass_fast(
+        jgb, jnp.asarray(ssao), None if rows is None else rows[0], ref.s,
+        jnp.asarray(lights), n_lights, ref.params,
+        ibl=ref.ibl if use_ibl else None, static_light_count=n_lights,
+        **flags))
+    got = n(Sh.shading_pass_fast(
+        _port_gbuf(jgb), t(ssao), None if rows is None else rows[1], ref.s,
+        t(lights), n_lights, ref.port_params,
+        ibl=ref.port_ibl if use_ibl else None, **flags))
+    assert got.shape == want.shape == tuple(jgb.depth.shape) + (3,)
+    sky = n(jgb.depth) >= 1.0
+    assert 0.02 < sky.mean() < 0.98  # sky and geometry both shaded
+    close = np.isclose(got, want, rtol=2e-3, atol=1e-4).all(-1)
+    print(f"{case}: {1 - close.mean():.3%} of pixels outside rtol 2e-3 / "
+          f"atol 1e-4, max |diff| {np.abs(got - want).max():.3g}")
+    assert close.mean() > 0.995
+    np.testing.assert_allclose(got, want, atol=0.75 / 9, rtol=0)
+
+
+def test_shading_cases_cover_every_option():
+    """Between them the cases shade both domains, every PCF layout and
+    divisor, each specular branch, 1-5 lights, a band, no IBL and no
+    shadow."""
+    cases = SHADING_CASES.values()
+    assert {c[0] for c in cases} == {True, False}
+    assert {c[1] for c in cases} == set(BUILDERS) | {None}
+    assert {c[2] for c in cases} == {1, 2, 4}
+    assert {c[3] for c in cases} >= {(True, True, True), (True, True, False),
+                                     (False, True, False),
+                                     (False, False, False),
+                                     (True, False, False)}
+    assert {c[4] for c in cases} >= {1, 5}
+    assert {c[5] for c in cases} == {None, "band", "no ibl", "no shadow"}
