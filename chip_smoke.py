@@ -8,7 +8,9 @@ Phases (each raises on failure; the script then exits non-zero):
 0. Environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions.
 1. Build: compile the CUDA kernels from csrc/ with nvcc (one process per
-   source, all at once).
+   source, all at once, each with its unit's flags); print each hand
+   kernel's registers, stack bytes and static SASS instruction count
+   (FP32 arithmetic and special-function ones apart), from cuobjdump.
 2. Kernels: capture each kernel's inputs from one 1920x1080 frame of the
    asset-free scene on each of the port's four paths (default, reference
    sampling, megakernel, and the texture-stack path on the scene's
@@ -42,12 +44,23 @@ Phases (each raises on failure; the script then exits non-zero):
    version exactly, and the 4 bands together the whole-frame kernel's
    output bit for bit, from the whole frame's bins and from band-local
    bins; the time is that of the 4 band launches, with each band's own.
-   Then the shading pass ``shading`` (K9, ``csrc/shading.cu``: an
-   even-grid launch and a pixel launch) on the default path's call and,
-   as ``shading@grid``, on grid_world(10)'s (5 lights), held to its plain
-   version at rtol 2e-3 / atol 1e-4 per pixel with the packed frame
-   within 1 LSB on < 1% of pixels; its bytes count the table rows the
-   samples gather once each.  ``check_shading_options`` holds it at the
+   Then the shading pass ``shading`` (K9, ``csrc/shading.cu``: one
+   launch, 16 x 32 tiles with their even-grid samples in shared memory)
+   on the default path's call and, as ``shading@grid``, on
+   grid_world(10)'s (5 lights), held to its plain version at rtol 2e-3 /
+   atol 1e-4 per pixel with the packed frame within 1 LSB on < 1% of
+   pixels; its bytes count the table rows the samples gather once each.
+   Its even-grid samples, through the kernel's debug planes, are held to
+   the plain version's sample by sample (``shading_taps_check``: the
+   table rows and sky flags equal, no PCF factor a tap apart).  Then the
+   G-buffer tail ``gbuffer`` (K10, ``csrc/gbuffer.cu``) on the default
+   path's call, and against its plain version on each of its input
+   sources (GBUFFER_SOURCES: the attr_planes planes, the
+   attrs_plane_kernel=False tensors, the megakernel's planes, the stacks
+   path, a band of the default path's G-buffer), each plane at rtol 2e-3
+   / atol 1e-4 and 0 texel rows apart (through its debug output); the
+   same as ``gbuffer@grid`` on grid_world(10)'s calls.
+   ``check_shading_options`` holds K9 at the
    same bar, at 1920x1080, on every knob set of the reference's budget
    matrix (``scenes.BUDGET_BOUNDS`` on ``scenes.budget_world``: the
    checkerboard on and off, PCF divisors 1/2/4, both u16 layouts, each
@@ -130,8 +143,9 @@ Phases (each raises on failure; the script then exits non-zero):
    next, and of a full ``prepare`` of the same world.  The ``default``
    and ``default@grid`` paths also print the eager frame's launches and
    device ms by pass (the functions ``frame_program`` calls, wrapped in
-   ``torch.profiler.record_function`` ranges by this script only; K9's
-   device time is added to shading by kernel name).  Then
+   ``torch.profiler.record_function`` ranges by this script only; K3's,
+   K7's and K10's device time is added to the G-buffer and K9's to
+   shading by kernel name).  Then
    ``sequence`` (the default path's 16 orbit poses as one
    ``render_sequence_device`` call, 3 timed calls beside an eager loop
    over the same poses: ms/frame, host launch calls and device kernels per
@@ -203,7 +217,16 @@ KERNELS = {
     # XLA fuses on the TPU
     "shading": ("mo_renderer_tpu_torch/csrc/shading.cu",
                 "mo_renderer_tpu/passes/shading.py:717"),
+    # no pallas_call either: the reference's _texture_and_assemble and the
+    # velocity lines are jnp code that XLA fuses
+    "gbuffer": ("mo_renderer_tpu_torch/csrc/gbuffer.cu",
+                "mo_renderer_tpu/passes/gbuffer.py:361"),
 }
+# K10's input sources: the default path's attr_planes planes, the
+# attrs_plane_kernel=False branch's tensors, the megakernel's planes, the
+# stacks path (stack_planes planes for the sampled channels) and a band of
+# the row-sharded frame; phase 2 holds each against the plain version
+GBUFFER_SOURCES = ("planes", "torch", "megakernel", "stacks", "band")
 # the band forms: built from the other kernels' captured inputs
 BAND_KERNELS = ("raster_slim_band", "raster_depth_band", "ssao_halo")
 N_BANDS = 4  # the bands phase 2 cuts the 1080p inputs into
@@ -213,21 +236,23 @@ STACKS = {"attrs_plane_kernel": False, "stack_plane_kernel": True}
 # the port's four paths: EngineConfig overrides, the kernels each runs,
 # and the scene variant (scenes.tiny_world keywords)
 PATHS = {
-    "default": ({}, ("raster_slim", "raster_depth", "attr_planes", "ssao",
-                     "shading", "interleave_present"), {}),
+    "default": ({}, ("raster_slim", "raster_depth", "attr_planes",
+                     "gbuffer", "ssao", "shading", "interleave_present"),
+                {}),
     "reference": ({"fast_sampling": False},
                   ("raster_full", "raster_depth", "ssao"), {}),
     "megakernel": ({"raster_interp_attrs": True},
-                   ("raster_attrs", "raster_depth", "ssao", "shading"), {}),
+                   ("raster_attrs", "raster_depth", "gbuffer", "ssao",
+                    "shading"), {}),
     "stacks": (STACKS, ("raster_slim", "raster_depth", "stack_planes",
-                        "ssao", "shading", "interleave_present"),
+                        "gbuffer", "ssao", "shading", "interleave_present"),
                {"all_slots": True}),
 }
 
 # the dense inputs of phase 2: the frames of scenes.grid_world that give
 # them (EngineConfig overrides) and the kernels timed on them
 GRID_KERNELS = ("raster_slim", "raster_depth", "raster_full", "ssao",
-                "raster_attrs", "shading")
+                "raster_attrs", "shading", "gbuffer")
 BAND_GRID_KERNELS = ("raster_slim_band", "raster_depth_band")
 # and the three paths phase 4 drives on that scene
 GRID_PATHS = {
@@ -239,7 +264,7 @@ GRID_PATHS = {
 # kernels it runs, and the scene of each of its phase-4 paths
 ROWS_OVERRIDES = {"ssao_res_divisor": 1}
 ROWS_KERNELS = ("raster_slim_band", "raster_depth_band", "attr_planes",
-                "ssao_halo", "shading", "interleave_present")
+                "gbuffer", "ssao_halo", "shading", "interleave_present")
 ROWS_PATHS = {"rows": "tiny", "rows@grid": "grid"}
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -263,21 +288,81 @@ SSAO_MUFU_PER_PIXEL = 2  # the linearization's and the radius's division
 SSAO_FP64_PER_PIXEL = 40  # sin in double: reduction and polynomial
 STACK_FLOPS_PER_PIXEL = 6  # the four bilinear weights
 STACK_FLOPS_PER_PLANE = 11  # 4 scales by 1/255, 4 weights, 3 adds
-# K9, from csrc/shading.cu: per pixel the view vector, F0, the combine and
-# the tonemap; per light Cook-Torrance (square roots, divisions and the two
-# powf counted one each); with IBL the SH9 sum, the 13 x 13 Chebyshev
-# environment BRDF (2 x 13 x 13 multiply-adds), the split sum and the
-# upsamples of the even-grid taps; per even-grid tap (mirror, parent or a
-# full-rate one) the reflection, the cube face, an RGBE quad and its
+# K9, from csrc/shading.cu: per lit pixel the view vector, F0, the combine
+# and the tonemap; per light Cook-Torrance (square roots, divisions and the
+# two powers counted one each); with IBL the SH9 sum, the 13 x 13
+# Chebyshev environment BRDF (2 x 13 x 13 multiply-adds), the split sum
+# and the upsamples of the even-grid taps; with IBL a sky pixel only the
+# mask-aware upsample of the mirror tap; per even-grid tap (mirror, parent
+# or a full-rate one) the reflection, the cube face, an RGBE quad and its
 # bilinear weights; per PCF sample the light projection and 9 taps over a
 # 4 x 4 window
 SHADE_FLOPS_PER_PIXEL = 45
 SHADE_FLOPS_PER_LIGHT = 150
 SHADE_IBL_FLOPS_PER_PIXEL = 950
+SHADE_FLOPS_PER_SKY_PIXEL = 20
 SHADE_FLOPS_PER_TAP = 80
 SHADE_FLOPS_PER_PCF_SAMPLE = 280
 SHADING_BAR = ("colour rtol 2e-3 / atol 1e-4 per pixel; packed frame "
                "<= 1 LSB on < 1% of pixels")
+
+
+def sass_report(path):
+    """{kernel: {"registers", "stack", "instructions", "fp32", "mufu"}} of
+    the hand kernels compiled into ``path`` (the built library, or a
+    cubin), from ``cuobjdump``: registers and stack bytes a thread, and the
+    static SASS instruction count, of which FP32 arithmetic (FFMA, FMUL,
+    FADD) and special-function (MUFU) instructions."""
+    import re
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+
+    def run(flag):
+        return subprocess.run([tool, flag, path], capture_output=True,
+                              text=True, check=True).stdout
+
+    def name(mangled):
+        """The ``..._kernel`` identifier inside a mangled name (its
+        length prefix told apart from the digits of a hash before it)."""
+        for i in range(len(mangled)):
+            for n_digits in (1, 2):
+                digits = mangled[i:i + n_digits]
+                if not digits.isdigit():
+                    continue
+                n = int(digits)
+                cand = mangled[i + n_digits:i + n_digits + n]
+                if len(cand) == n and cand.endswith("_kernel"):
+                    return cand
+        return mangled
+
+    out = {}
+
+    def entry(mangled):
+        return out.setdefault(name(mangled), {
+            "registers": 0, "stack": 0, "instructions": 0, "fp32": 0,
+            "mufu": 0})
+
+    # a template's instances add up under one name; registers: the most
+    for m in re.finditer(r"Function (\S+):\s*REG:(\d+) STACK:(\d+)",
+                         run("-res-usage")):
+        e = entry(m.group(1))
+        e["registers"] = max(e["registers"], int(m.group(2)))
+        e["stack"] = max(e["stack"], int(m.group(3)))
+    cur = None
+    for line in run("-sass").splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            cur = entry(m.group(1))
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                     line)
+        if m and cur is not None:
+            cur["instructions"] += 1
+            cur["fp32"] += m.group(1) in ("FFMA", "FMUL", "FADD")
+            cur["mufu"] += m.group(1) == "MUFU"
+    return out
 
 
 def ssao_flop_equivalents(n_pixels, n_taps, n_occluding):
@@ -361,13 +446,74 @@ def shading_compare(k, p):
     return err, ok, f"{SHADING_BAR} ({frac:.4%} of pixels differ by 1 LSB)"
 
 
+def shading_taps_check(args):
+    """K9's even-grid samples through its debug planes, against the plain
+    version's on the same call, sample by sample: the table rows the
+    mirror and parent taps read and the sky flags must be equal, the taps
+    within SHADING_BAR's rtol / atol, and no PCF factor may differ by a
+    tap (a tap is 0.75 / 9 of the factor; the count is of samples more
+    than 1e-3 apart).  Returns what was compared, with the counts."""
+    import torch
+
+    from mo_renderer_tpu_torch.passes import shading as Sh
+
+    (gbuf, _, rows, s, _, _, params, ibl, div, parent, mirror, merged, cb,
+     row_offset, full_height) = args
+    _, got = Sh._shading_fast_cuda(*args, debug=True)
+    half = Sh.half_res_geometry(gbuf, cb=cb)
+    h, w = gbuf.depth.shape
+    eye = params["eye_pos"]
+    res = {}
+
+    def close(name, k, p):
+        err = (k - p).abs().max().item() if k.numel() else 0.0
+        res[f"{name}_max_abs_err"] = err
+        if not torch.allclose(k, p, rtol=2e-3, atol=1e-4):
+            raise AssertionError(f"shading: even-grid {name} differs from "
+                                 f"the plain version (max |err| {err})")
+
+    def same(name, k, p):
+        n = int((k != p).sum())
+        res[f"{name}_differ"] = f"{n} of {p.numel()}"
+        if n:
+            raise AssertionError(f"shading: {n} of {p.numel()} even-grid "
+                                 f"{name} differ from the plain version")
+
+    if ibl is not None and mirror:
+        c0h, c1h, sky_h, idx0 = Sh.even_grid_taps(
+            half, eye, ibl, params, h, 2 * w if cb else w, merged and parent,
+            row_offset, full_height)
+        same("mirror rows", got["rows_h"][..., 0], idx0.to(torch.int32))
+        same("sky flags", got["skyh"].bool(), sky_h)
+        close("mirror tap", got["c0h"], c0h)
+        if c1h is not None:
+            same("parent rows", got["rows_h"][..., 1], idx0.to(torch.int32))
+            close("parent tap", got["c1h"], c1h)
+    if ibl is not None and parent and not (mirror and merged):
+        c1h, idx1 = Sh.parent_tap_half(half, eye, ibl)
+        same("parent rows", got["rows_h"][..., 1], idx1.to(torch.int32))
+        close("parent tap", got["c1h"], c1h)
+    if rows is not None and div > 1:
+        pos = half[0][::2, ::2] if div == 4 else half[0]
+        factor = Sh.calculate_shadow_fast(pos, params["light_proj_view"],
+                                          rows, s)
+        n = int(((got["pcf"] - factor).abs() > 1e-3).sum())
+        res["pcf_samples_with_a_differing_tap"] = f"{n} of {factor.numel()}"
+        res["pcf_max_abs_err"] = (got["pcf"] - factor).abs().max().item()
+        if n:
+            raise AssertionError(f"shading: {n} PCF samples differ from the "
+                                 "plain version by a tap")
+    return res
+
+
 def shading_work(args):
     """(bytes, FP32 operations, what else to report) of K9 on ``args``:
-    every G-buffer plane, the depth and SSAO read once, the colour written
-    once, the light rows, SH9 and level tables once, and of the specular
-    and PCF tables the rows this run's samples gather, each counted once
-    (the unique indices, recomputed here with the plain version's
-    helpers)."""
+    the depth of every pixel read once and its colour written once, the
+    other G-buffer planes and SSAO of the lit pixels (with IBL a sky
+    pixel's colour is the sky's: it reads neither) read once, the light
+    rows, SH9 and level tables once, and of the specular and PCF tables
+    the rows this run's samples gather, each counted once (the unique
+    indices, recomputed here with the plain version's helpers)."""
     import torch
 
     from mo_renderer_tpu_torch.device import sampling as Sm
@@ -381,15 +527,19 @@ def shading_work(args):
     n_l = min(lights.shape[0], n_lights)
     half = Sh.half_res_geometry(gbuf, cb=cb)
     n_even = half[3].numel()
-    n_bytes = n_px * 4 * (5 * 3 + 2 + 3) + n_l * lights.shape[1] * 4
-    flops = n_px * (SHADE_FLOPS_PER_PIXEL + SHADE_FLOPS_PER_LIGHT * n_l)
+    n_sky = int((gbuf.depth >= 1.0).sum()) if ibl is not None else 0
+    n_lit = n_px - n_sky
+    n_bytes = (n_px * 4 * (1 + 3) + n_lit * 4 * (5 * 3 + 1)
+               + n_l * lights.shape[1] * 4)
+    flops = (n_lit * (SHADE_FLOPS_PER_PIXEL + SHADE_FLOPS_PER_LIGHT * n_l)
+             + n_sky * SHADE_FLOPS_PER_SKY_PIXEL)
     gathered = {}  # table -> its rows the samples read
     if ibl is not None:
         mq = ibl.specular_quad
         nl = mq.num_levels
         sizes, offsets = Sm._level_tables(mq, gbuf.depth.device)
         n_bytes += 2 * 4 * nl + 9 * 3 * 4
-        flops += n_px * SHADE_IBL_FLOPS_PER_PIXEL
+        flops += n_lit * SHADE_IBL_FLOPS_PER_PIXEL
 
         def tap(pos, n, rough, parent_level):
             lvl = torch.floor(torch.clamp(rough * Sh.MAX_REFLECTION_LOD,
@@ -443,7 +593,243 @@ def shading_work(args):
                                              for i in v])).numel())
               for k, v in gathered.items()}
     n_bytes += sum(row_bytes[k] * n for k, n in unique.items())
-    return n_bytes, flops, {"lights": n_l, "unique_rows": unique}
+    return n_bytes, flops, {"lights": n_l, "sky_pixels": n_sky,
+                            "unique_rows": unique}
+
+
+def tail_source(tri, z, src, params, scene, slot_map, stack_kernel=False):
+    """Which of GBUFFER_SOURCES a ``gbuffer_tail`` call's inputs are (the
+    band is made from the default path's call in phase 2)."""
+    if src.mat_plane is not None:
+        return "megakernel"
+    if stack_kernel:
+        return "stacks"
+    # attr_planes' (C, H, W) planes, permuted: channels H*W apart
+    return "planes" if src.world_pos.stride(-1) != 1 else "torch"
+
+
+def tail_call_args(args, kwargs):
+    """A recorded ``gbuffer_tail`` call as the 8 positional arguments its
+    kernel (``_gbuffer_tail_cuda``) and plain version take."""
+    import inspect
+
+    from mo_renderer_tpu_torch.passes import gbuffer as GB
+
+    bound = inspect.signature(GB.gbuffer_tail).bind(*args, **kwargs)
+    bound.apply_defaults()
+    tri, z, src, params, scene, slot_map, stack_kernel = \
+        bound.arguments.values()
+    return (tri, z, src, params["proj_view"], params["prev_proj_view"],
+            scene, slot_map, stack_kernel)
+
+
+def band_tail_call(seen):
+    """The ``gbuffer_tail`` call of one of 4 bands of the default path's
+    G-buffer (the one with the most covered pixels), as the row-sharded
+    frame makes it: the band's rows of the visibility planes, its first
+    row as ``y0``."""
+    import mo_renderer_tpu_torch.passes.gbuffer as GB
+
+    (tri, z, *rest), kw = seen["gbuffer_pass_fast"]
+    hb = tri.shape[0] // 4 // 2 * 2
+    b = max(range(4), key=lambda b: int((tri[b * hb:(b + 1) * hb] >= 0)
+                                        .sum()))
+    tri, z = tri[b * hb:], z[b * hb:]
+    calls = []
+    tail = GB.gbuffer_tail
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return tail(*args, **kwargs)
+
+    GB.gbuffer_tail = record
+    try:
+        GB.gbuffer_pass_fast(tri[:hb], z[:hb], *rest,
+                             **{**kw, "y0": b * hb})
+    finally:
+        GB.gbuffer_tail = tail
+    return calls[0]
+
+
+GBUFFER_BAR = ("each plane rtol 2e-3 / atol 1e-4, mask equal, depth passed "
+               "through; 0 texel rows differ")
+GBUFFER_FLOPS_PER_PIXEL = 270  # velocity, texel anchor, 11 channels, TBN
+
+
+def gbuffer_compare(k, p):
+    """K10's G-buffer against its plain version's: (max |err|, ok, bar)."""
+    import torch
+
+    from mo_renderer_tpu_torch.passes import gbuffer as GB
+
+    err, ok = 0.0, bool(torch.equal(k.mask, p.mask)) and k.depth is p.depth
+    for f in GB.GBUFFER_OUT:
+        a, b = getattr(k, f), getattr(p, f)
+        ok = ok and a.shape == b.shape and bool(
+            torch.allclose(a, b, rtol=2e-3, atol=1e-4, equal_nan=True))
+        diff = torch.where(torch.isnan(a) & torch.isnan(b), 0.0,
+                           (a - b).abs())
+        err = max(err, diff.nan_to_num(nan=float("inf")).max().item())
+    return err, ok, GBUFFER_BAR
+
+
+def gbuffer_rows(args):
+    """The texture-stack rows of the plain version's bilinear anchors on a
+    ``gbuffer_tail`` call, -1 where nothing is gathered (uncovered pixels,
+    no sampled slot, the stack_planes kernel's path)."""
+    import torch
+
+    from mo_renderer_tpu_torch.assets import materials as M
+    from mo_renderer_tpu_torch.passes import gbuffer as GB
+
+    tri, _, src, _, _, scene, slot_map, stack_kernel = args
+    none = torch.full_like(tri, -1)
+    if stack_kernel or all(p < 0 for p in slot_map):
+        return none
+    used = M.fast_used_cols(slot_map)
+    mat = src.mat_cols
+    if mat is None:
+        mat = scene.materials.index_select(
+            1, GB._column_index(used, tri.device))[
+                torch.round(src.mat_plane).to(torch.int64)]
+    idx, _, _ = GB._stack_anchor(GB._vec(src.uv0),
+                                 mat[..., used.index(M.MAT_STACK_BASE)],
+                                 mat[..., used.index(M.MAT_STACK_SIZE)])
+    return torch.where(tri >= 0, idx, none)
+
+
+def gbuffer_check(args):
+    """K10 against its plain version on one call: (max |err|, ok, bar,
+    the texel rows that differ) -- the rows through the debug output."""
+    from mo_renderer_tpu_torch.passes import gbuffer as GB
+
+    k, keep = GB._gbuffer_tail_cuda(*args, debug=True)
+    err, ok, bar = gbuffer_compare(k, GB._gbuffer_tail_plain(*args))
+    want = gbuffer_rows(args)
+    n = int((keep["row_out"] != want).sum())
+    return err, ok and n == 0, bar, f"{n} of {int((want >= 0).sum())}"
+
+
+def random_tail_call(source, slot_map, device, seed=0, h=16, w=48):
+    """A ``gbuffer_tail`` call (its 8 positional arguments) on random inputs
+    laid out as ``source`` (one of GBUFFER_SOURCES) has them: 6 materials
+    with texture-stack entries of 2 to 16 texels a side, random RGBA8 quads,
+    UVs in [-2, 3) (the REPEAT wrap both ways), handedness -1, 0 or 1,
+    about one pixel in 8 uncovered, material ids with some exact halves
+    (rounding half to even).  Made with numpy from ``seed``."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from mo_renderer_tpu_torch.assets import materials as M
+
+    rng = np.random.default_rng(seed)
+    used = M.fast_used_cols(slot_map)
+    sizes = np.array([4, 8, 16, 2, 8, 4])
+    bases = np.concatenate([[0], np.cumsum(sizes ** 2)[:-1]])
+    n_rows = int((sizes ** 2).sum())
+    mats = rng.uniform(0.0, 1.0, (len(sizes), M.MATERIAL_STRIDE))
+    mats[:, M.MAT_STACK_BASE] = bases
+    mats[:, M.MAT_STACK_SIZE] = sizes
+    mats = mats.astype(np.float32)
+
+    def quads(width):
+        return rng.integers(-2 ** 31, 2 ** 31, (n_rows, width),
+                            dtype=np.int64).astype(np.int32)
+
+    hh = h + 4 if source == "band" else h  # a band: rows 2.. of a frame
+    tri = rng.integers(-1, 7, (hh, w)).astype(np.int32)
+    mat_id = rng.integers(0, len(sizes), (hh, w))
+    mat_f = mat_id + rng.choice([0.0, 0.25, -0.25, 0.5, -0.5], (hh, w))
+    mat_f = np.clip(mat_f, 0.0, len(sizes) - 1).astype(np.float32)
+    mat_id = np.rint(mat_f).astype(np.int64)  # what torch.round picks
+    geo = rng.normal(size=(12, hh, w)).astype(np.float32)
+    uv = rng.uniform(-2.0, 3.0, (2, hh, w)).astype(np.float32)
+    handed = rng.choice([-1.0, 0.0, 1.0], (hh, w)).astype(np.float32)
+    cols = mats[mat_id][..., list(used)].transpose(2, 0, 1)
+    # projections whose w row keeps every point in front of the camera
+    # (w in about [0.6, 1.4]), as a frame's do
+    pv = rng.normal(size=(2, 4, 4))
+    pv[:, 3, :3] *= 0.1
+    pv[:, 3, 3] = 1.0
+    pv = pv.astype(np.float32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    scene = types.SimpleNamespace(
+        materials=t(mats), texture_stack_a=t(quads(8)),
+        texture_stack_b=t(quads(8)), texture_stack_c=t(quads(4)))
+    from mo_renderer_tpu_torch.passes import gbuffer as GB
+
+    if source in ("planes", "band"):
+        # attr_planes' layout: wp, n, t, bt, uv, mat_id, handed, columns
+        planes = t(np.concatenate([geo, uv, mat_f[None], handed[None],
+                                   cols]))
+
+        def vec(a, b):
+            return planes[a:b].permute(1, 2, 0)
+
+        src = GB.TailInputs(vec(0, 3), vec(3, 6), vec(6, 9), vec(9, 12),
+                            vec(12, 14), planes[15],
+                            mat_cols=vec(16, planes.shape[0]))
+        if source == "band":  # views of rows 2 .. h + 2
+            src = GB.TailInputs(
+                *[getattr(src, f)[2:h + 2] for f in (
+                    "world_pos", "n_in", "t_in", "bt_in", "uv0", "handed")],
+                mat_cols=src.mat_cols[2:h + 2])
+    elif source in ("torch", "stacks"):
+        # the attrs_plane_kernel=False branch: (H, W, k) tensors, the
+        # material columns a slice of the gathered rows
+        row = t(np.concatenate([geo, uv, handed[None], cols, uv],
+                               ).transpose(1, 2, 0))
+        src = GB.TailInputs(row[..., 0:3], row[..., 3:6], row[..., 6:9],
+                            row[..., 9:12], row[..., 12:14], row[..., 14],
+                            mat_cols=row[..., 15:15 + len(used)])
+    else:
+        planes = [t(p) for p in np.concatenate([geo, uv])]
+        src = GB.TailInputs(tuple(planes[0:3]), tuple(planes[3:6]),
+                            tuple(planes[6:9]), tuple(planes[9:12]),
+                            tuple(planes[12:14]), t(np.abs(handed)),
+                            handed_abs=False, mat_plane=t(mat_f))
+    tri_t = t(tri)[2:h + 2] if source == "band" else t(tri)
+    z = t(rng.uniform(0.0, 1.0, tri_t.shape).astype(np.float32))
+    return (tri_t, z, src, t(pv[0]), t(pv[1]), scene, tuple(slot_map),
+            source == "stacks")
+
+
+def gbuffer_work(args):
+    """(bytes, FP32 operations, covered pixels) of K10 on ``args``: the
+    ids of every pixel read, the attribute channels and material columns
+    of the covered pixels (or their material ids, and the used columns of
+    the table once), the stack rows this run gathers (each row's quads
+    once) or the stack_planes planes, the outputs written once."""
+    import torch
+
+    from mo_renderer_tpu_torch.assets import materials as M
+    from mo_renderer_tpu_torch.passes import gbuffer as GB
+
+    tri, _, src, _, _, scene, slot_map, stack_kernel = args
+    n_px = tri.numel()
+    covered = int((tri >= 0).sum())
+    n_mat = len(M.fast_used_cols(slot_map))
+    n_sampled = sum(1 for p in slot_map if p >= 0)
+    n_bytes = 4 * n_px + 4 * 32 + covered * 4 * GB.N_GEO
+    if src.mat_cols is not None:
+        n_bytes += covered * 4 * n_mat
+    else:
+        n_bytes += covered * 4 + scene.materials.shape[0] * 4 * n_mat
+    if stack_kernel:
+        n_planes = sum(len(c) for k, c in enumerate(
+            (GB.SLOT_CHANNELS)) if slot_map[k] >= 0)
+        n_bytes += covered * 4 * n_planes
+    elif n_sampled:
+        rows = gbuffer_rows(args)
+        n_rows = int(torch.unique(rows[rows >= 0]).numel())
+        n_bytes += n_rows * 16 * n_sampled
+    n_bytes += n_px * (4 * 17 + 1)
+    return n_bytes, covered * GBUFFER_FLOPS_PER_PIXEL, covered
 
 
 def capture_inputs(cfg, device, frames, want):
@@ -466,6 +852,8 @@ def capture_inputs(cfg, device, frames, want):
         (FG, "reconstruct_present"): FG.reconstruct_present,
         (GB, "stack_planes"): GB.stack_planes,
         (FG, "shading_pass_fast"): FG.shading_pass_fast,
+        (GB, "gbuffer_tail"): GB.gbuffer_tail,
+        (FG, "gbuffer_pass_fast"): FG.gbuffer_pass_fast,
     }
 
     def recorder(key, fn):
@@ -474,6 +862,8 @@ def capture_inputs(cfg, device, frames, want):
             if key == "raster":
                 name = ("raster_depth" if kw.get("depth_only") else
                         "raster_slim" if kw.get("slim") else "raster_full")
+            elif key == "gbuffer":
+                name = f"gbuffer/{tail_source(*args, **kw)}"
             seen.setdefault(name, (args, kw))
             return fn(*args, **kw)
         return wrapped
@@ -490,6 +880,9 @@ def capture_inputs(cfg, device, frames, want):
         "stack_planes", originals[(GB, "stack_planes")])
     FG.shading_pass_fast = recorder(
         "shading", originals[(FG, "shading_pass_fast")])
+    GB.gbuffer_tail = recorder("gbuffer", originals[(GB, "gbuffer_tail")])
+    FG.gbuffer_pass_fast = recorder(
+        "gbuffer_pass_fast", originals[(FG, "gbuffer_pass_fast")])
     try:
         for overrides, make_world, make_camera in frames:
             pcfg = dataclasses.replace(cfg, **overrides)
@@ -520,6 +913,7 @@ def check_kernels(cfg, device):
     from mo_renderer_tpu_torch.kernels import stack_planes as SP
     from mo_renderer_tpu_torch.parallel import tile_sharding as TS
     from mo_renderer_tpu_torch.passes import checkerboard as CB
+    from mo_renderer_tpu_torch.passes import gbuffer as GB
     from mo_renderer_tpu_torch.passes import present as P
     from mo_renderer_tpu_torch.passes import shading as Sh
     from mo_renderer_tpu_torch.passes import ssao as S
@@ -865,6 +1259,7 @@ def check_kernels(cfg, device):
         table and divisor, the spec flags and the lights it was given)."""
         args = shading_args(*seen["shading"])
         n_bytes, n_flops, extra = shading_work(args)
+        extra["even_grid"] = shading_taps_check(args)
         gbuf = args[0]
         return dict(
             kernel=lambda: Sh._shading_fast_cuda(*args),
@@ -874,6 +1269,37 @@ def check_kernels(cfg, device):
             f"{tuple(args[2].shape)} {args[2].dtype} / {args[8]}, "
             f"{extra['lights']} light(s)",
             bytes=n_bytes, flops=n_flops, extra=extra,
+        )
+
+    def gbuffer(seen):
+        """K10 on the default path's call; on every source's call (the
+        band's from the default path's) against its plain version with the
+        texel rows through the debug output, reported as ``sources``."""
+        calls = {src: tail_call_args(*seen[f"gbuffer/{src}"])
+                 for src in GBUFFER_SOURCES if f"gbuffer/{src}" in seen}
+        calls["band"] = tail_call_args(*band_tail_call(seen))
+        sources = {}
+        for src, a in calls.items():
+            err, ok, bar, rows = gbuffer_check(a)
+            sources[src] = {"shape": list(a[0].shape), "max_abs_err": err,
+                            "texel_rows_differ": rows}
+            print(f"[2] gbuffer {src}: {tuple(a[0].shape)}, max |err| "
+                  f"{err:.3g} ({bar}), texel rows differ: {rows}",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"gbuffer {src}: kernel disagrees "
+                                     f"with its plain version (max |err| "
+                                     f"{err}, texel rows differ {rows})")
+        args = calls["planes"]
+        n_bytes, n_flops, covered = gbuffer_work(args)
+        return dict(
+            kernel=lambda: GB._gbuffer_tail_cuda(*args),
+            plain=lambda: GB._gbuffer_tail_plain(*args),
+            cmp=gbuffer_compare,
+            shape=f"{tuple(args[0].shape)}, {covered} covered, slot map "
+            f"{args[6]}",
+            bytes=n_bytes, flops=n_flops,
+            extra={"covered": covered, "sources": sources},
         )
 
     case_of = {
@@ -888,19 +1314,27 @@ def check_kernels(cfg, device):
         "raster_depth_band": functools.partial(raster_band, mode="depth"),
         "ssao_halo": ssao_halo,  # after raster_slim_band: its depth
         "shading": shading,
+        "gbuffer": gbuffer,
     }
+    # K10's sources: each path's own, and the attrs_plane_kernel=False
+    # branch on its own (the stacks path is that branch with K7)
+    tail_want = {f"gbuffer/{src}" for src in GBUFFER_SOURCES[:4]}
     seen = capture_inputs(
         cfg, device,
         [(overrides, functools.partial(scenes.tiny_world, **scene_kw),
-          scenes.camera) for overrides, _, scene_kw in PATHS.values()],
-        set(KERNELS) - {"interleave", *BAND_KERNELS},
+          scenes.camera) for overrides, _, scene_kw in PATHS.values()]
+        + [({"attrs_plane_kernel": False}, scenes.tiny_world,
+            scenes.camera)],
+        set(KERNELS) - {"interleave", "gbuffer", *BAND_KERNELS} | tail_want,
     )
     cases = {name: build(seen) for name, build in case_of.items()}
     seen = capture_inputs(
         cfg, device,
         [(overrides, scenes.grid_world, scenes.grid_camera)
-         for overrides, _ in GRID_PATHS.values()],
-        GRID_KERNELS,
+         for overrides, _ in GRID_PATHS.values()]
+        + [(overrides, scenes.grid_world, scenes.grid_camera)
+           for overrides in ({"attrs_plane_kernel": False}, STACKS)],
+        set(GRID_KERNELS) - {"gbuffer"} | tail_want,
     )
     for name in GRID_KERNELS + BAND_GRID_KERNELS:
         # the plain raster walks 4096 pairs x 4096 pixels at a time: a few
@@ -1002,7 +1436,7 @@ def check_shading_options(cfg, device):
         if args[2] is not None:
             layouts.add(Sh.pcf_layout(args[2], args[3]))
         print(f"[2] shading {what}: {tuple(k.shape)}, max |err| {err:.3g} "
-              f"({bar})", flush=True)
+              f"({bar}); even grid {shading_taps_check(args)}", flush=True)
         if not ok:
             raise AssertionError(f"shading {what}: kernel disagrees with "
                                  f"its plain version (max |err| {err})")
@@ -1960,7 +2394,7 @@ PASS_FUNCTIONS = {
     "binning": ("_bin",),
     "raster (K1/K6/K8)": ("rasterize", "rasterize_attrs"),
     "decimate": ("decimate_cols",),
-    "G-buffer (K3/K7)": ("gbuffer_pass_fast", "gbuffer_pass",
+    "G-buffer (K3/K7/K10)": ("gbuffer_pass_fast", "gbuffer_pass",
                          "gbuffer_pass_from_planes"),
     "SSAO (K4)": ("ssao_pass_tiles", "ssao_pass", "_pad_edge", "_even_grid",
                   "_upsample_to_cb", "_upsample_pow2"),
@@ -1983,7 +2417,8 @@ def profile_passes(run, n_frames=2):
     as binning and raster); "rest of the frame" is what no range holds
     (the frame's own ops, the params upload, the fetch).  The hand
     kernels' launches count in their pass; their device time only where
-    ``PASS_HAND_KERNELS`` names them (K9 in shading)."""
+    ``PASS_HAND_KERNELS`` names them (K3, K7 and K10 in the G-buffer, K9
+    in shading)."""
     import torch
 
     import mo_renderer_tpu_torch.passes.frame_graph as FG
@@ -2060,10 +2495,14 @@ def print_passes(path, by_pass, line):
 # the __global__ functions of csrc/, as the profiler names their launches
 HAND_KERNELS = ("raster_kernel", "raster_attrs_kernel", "attr_planes_kernel",
                 "ssao_kernel", "reconstruct_kernel", "stack_planes_kernel",
-                "shade_even_kernel", "shade_pixel_kernel")
+                "shade_kernel", "gbuffer_kernel")
 # the hand kernels a pass launches from C, which its profiler range does
 # not hold: they are added to the pass by name
-PASS_HAND_KERNELS = {"shading": ("shade_even_kernel", "shade_pixel_kernel")}
+PASS_HAND_KERNELS = {
+    "G-buffer (K3/K7/K10)": ("attr_planes_kernel", "stack_planes_kernel",
+                             "gbuffer_kernel"),
+    "shading": ("shade_kernel",),
+}
 
 
 def profile_graph_calls(run):
@@ -2629,6 +3068,8 @@ def main() -> int:
     print(f"[1] built {len(_build.sources())} CUDA sources in "
           f"{_build.build_seconds:.1f} s (load {time.perf_counter() - t0:.1f}"
           f" s total)", flush=True)
+    for kernel, res in sass_report(_build.build()).items():
+        print(f"[1] {kernel}: {json.dumps(res)}", flush=True)
 
     kernels = check_kernels(EngineConfig(width=1920, height=1080), device)
     kernels["shading"]["option_sets"] = check_shading_options(

@@ -6,48 +6,81 @@
 // The reference has no pallas_call here: XLA fuses the jnp code into a few
 // fusions on the TPU.  The port's plain version (passes/shading.py,
 // _shading_fast_plain) runs it as ~2400 PyTorch ops a frame at 1080p, each
-// one pass over a (H, W, 3) plane; this pair of kernels is all of it.
+// one pass over a (H, W, 3) plane; this kernel is all of it.
 //
 // What bounds it on this card: bytes in principle -- per shading pixel 15
 // floats of G-buffer planes, the depth and SSAO read once, 3 floats
 // written, plus one or two table rows gathered per even-grid sample (~80 B
 // a pixel, ~0.03 ms at the 1088 x 960 checkerboard frame) -- in practice
-// arithmetic and latency: every pixel evaluates the lights, SH9 and the
-// 13 x 13 Chebyshev environment BRDF (~700 FP32 operations), and the
-// table rows are dependent gathers.
+// instruction throughput and latency: a lit pixel evaluates the lights,
+// SH9 and the 13 x 13 Chebyshev environment BRDF, ~1000 FP32 operations,
+// and the table rows are dependent gathers.  Measured on the card
+// (PERF.md), the two phases below barely overlap and resident warps are
+// what the kernel runs short of.
 //
-// Design: two launches, both one thread per sample.
-// 1. The even-grid kernel (shade_even_kernel), one thread per sample
-//    (2i, sx*j) of the shading domain (sx = 1 on the checkerboard domain,
-//    2 on a full frame): the mirror/sky tap c0h (the sky samples re-pointed
-//    at mip 0 of the specular table, the environment), the parent-mip tap
-//    c1h (from the merged child+parent row, or its own row), the sky flag,
-//    and the PCF factor on the divisor's grid (divisor 4: the samples with
-//    i and j even).  Each goes to a small plane the wrapper allocates.
-// 2. The pixel kernel (shade_pixel_kernel), one thread per pixel of the
-//    shading domain: the lights, SH9 irradiance, the environment BRDF (its
-//    338 coefficients in __constant__ memory: every lane of a warp reads the
-//    same one, a broadcast), the split-sum ambient, the upsamples of the
-//    even-grid planes (the mask-aware one for the mirror tap), the combine,
-//    tonemap, sky select and clamp.  The full-rate taps of the spec_* flags
-//    and the full-rate PCF (divisor 1) are evaluated here per pixel.
+// Design: one launch; a block of 512 threads owns a tile of 16 rows x 32
+// columns of the shading domain, at 64 registers a thread (two blocks an
+// SM: __launch_bounds__).
+// 1. The block loads the per-frame constants into shared memory once: the
+//    light rows, light_pv, SH9, the eye and the camera basis, the specular
+//    chain's level tables.
+// 2. It evaluates the even-grid samples (2i, sx*j) of its tile plus the
+//    one row and column past it that the upsamples and the mask-aware taps
+//    read (sx = 1 on the checkerboard domain, 2 on a full frame), into
+//    shared memory: the mirror/sky tap c0 (the sky samples re-pointed at
+//    mip 0 of the specular table, the environment), the parent-mip tap c1
+//    (from the merged child+parent row, or its own row), the sky flag, and
+//    the PCF factor on the divisor's grid (divisor 2: the even grid;
+//    divisor 4: the samples with i and j even, on their own grid, from a
+//    warp of their own).  A halo sample is evaluated by each block that
+//    reads it: ~13-27% more even-grid work, none of it through device
+//    memory.
+// 3. After a barrier, one thread a pixel.  With IBL a sky pixel (depth >=
+//    1) keeps the sky colour, the mirror tap, which is all it reads: the
+//    plain version computes the lights and the ambient there too and then
+//    discards them (where(sky_mask, sky, ...)).  Any other pixel: the
+//    lights, SH9 irradiance, the environment BRDF (its 338 coefficients in
+//    __constant__ memory: every lane of a warp reads the same one, a
+//    broadcast operand of the fused multiply-add), the split-sum ambient,
+//    the upsamples of the tile's even-grid samples (the mask-aware one for
+//    the mirror tap), the combine, tonemap and clamp.  The full-rate taps of
+//    the spec_* flags and the full-rate PCF (divisor 1) are evaluated here.
 // The G-buffer planes and SSAO are read where they are, through their
 // strides: no copy of a view.  Nothing is read on the host and nothing is
-// allocated here, so a CUDA graph captures both launches.
+// allocated here, so a CUDA graph captures the launch.  The even-grid
+// samples reach device memory only through the optional debug pointers
+// (null on the frame's path), which a check holds against the plain
+// version sample by sample.
 //
-// Arithmetic follows the plain version operation by operation, each
-// rounding once (the library builds with -fmad=false; IEEE sqrtf and
-// division, powf for the Fresnel and spot terms, exp2f for RGBE), with two
-// exceptions where the plain version's order is a library's: the matrix
-// products of the light projection and of SH9 (cuBLAS) are fused
-// multiply-add chains in k order.  The PCF compare `current > closest` is
-// the one discontinuity of the pass, so the light projection must round
-// as the plain version's matrix product does.
+// Arithmetic: this unit alone builds with -fmad=true -prec-div=false
+// -prec-sqrt=false (kernels/_build.py UNIT_FLAGS): the compiler contracts a
+// multiply and an add into one fused multiply-add, which rounds once where
+// the plain version rounds twice, and divides and takes square roots to
+// within 2 ulps; c ** 5 is four products and the spot cone's power
+// __powf.  The lights, SH9, the environment BRDF, the split sum, the
+// upsamples and the tonemap move by a few ulps, inside the pass's bar.
+// Every value that feeds a compare or an integer is computed with the
+// pinned helpers below (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn,
+// __fsqrt_rn: never contracted, always correctly rounded), so it rounds
+// once per operation as the plain version's torch op does:
+// - the light projection and every PCF tap (shadow_fast): its texel anchor,
+//   the tap fractions and the compare `current > closest`, the pass's one
+//   hard discontinuity;
+// - the reflection direction, its cube face and face coordinates, and the
+//   texel index and fractions of every specular tap (reflection_dir,
+//   cube_face_uv, quad_index), on the even grid and at full rate;
+// - the sky rays and the environment texel they pick (sky_dir, env_index);
+// - the mip level floor(clamp(roughness * 7)): one multiply, which nothing
+//   contracts.
+// The sky flag is depth >= 1, a compare of the input itself.  Where the
+// plain version's order is a library's, the kernel follows the card's: the
+// light projection and SH9 (cuBLAS matrix products) are fused multiply-add
+// chains in k order.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-// What the two kernels read, filled by passes/shading.py shade_args (its
+// What the kernel reads, filled by passes/shading.py shade_args (its
 // ShadeArgs ctypes structure mirrors this one field for field).
 struct ShadeArgs {
   // G-buffer planes on the shading domain (H, W, 3): position, normal,
@@ -59,10 +92,12 @@ struct ShadeArgs {
   const float* ssao;  // (H, W)
   long long ssao_strides[2];
   float* out;         // (H, W, 3) contiguous
-  float* c0h;         // (Hh, Wh, 3): mirror / sky tap on the even grid
-  float* c1h;         // (Hh, Wh, 3): parent-mip tap on the even grid
-  uint8_t* skyh;      // (Hh, Wh): depth >= 1 on the even grid
-  float* pcf;         // (Hq, Wq): PCF factor on the divisor's grid
+  // debug outputs, null on the frame's path: the even-grid samples
+  float* c0h;       // (Hh, Wh, 3): mirror / sky tap on the even grid
+  float* c1h;       // (Hh, Wh, 3): parent-mip tap on the even grid
+  uint8_t* skyh;    // (Hh, Wh): depth >= 1 on the even grid
+  float* pcf;       // (Hq, Wq): PCF factor on the divisor's grid
+  int* rows_h;      // (Hh, Wh, 2): the mirror tap's table row, the parent's
   const float* lights;
   const float* eye;       // (3,)
   const float* light_pv;  // (4, 4) row-major
@@ -99,12 +134,28 @@ constexpr int kLightPos = 4;
 constexpr int kLightColor = 8;
 constexpr int kLightDir = 12;
 constexpr int kLightAtt = 16;
+constexpr int kLightCols = kLightAtt + 3;  // the columns the kernel reads
 
 // the PCF table layouts (passes/shading.py PCF_*)
 // (2, u16 windows at every texel, is the remaining case)
 constexpr int kPcfNone = 0;
 constexpr int kPcfU16Half = 1;
 constexpr int kPcfF32Wide = 3;
+
+// the tile: 16 x 32 pixels of the shading domain, one thread each; its
+// even-grid samples with the row and column past them (the checkerboard
+// domain's even grid has the tile's width, a full frame's half of it), and
+// at divisor 4 the PCF grid's.  Two blocks an SM cap a thread at 64
+// registers: more warps in flight paid more than the registers (PERF.md).
+constexpr int kTileH = 16;
+constexpr int kTileW = 32;
+constexpr int kThreads = kTileH * kTileW;
+constexpr int kMinBlocks = 2;  // resident blocks an SM must fit (registers)
+constexpr int kEvenH = kTileH / 2 + 1;
+constexpr int kEvenW = kTileW + 1;
+constexpr int kMaxLevels = 16;
+// the light rows' shared memory (dynamic), at most
+constexpr int kMaxLightBytes = 40 * 1024;
 
 constexpr int kDeg = 12;
 
@@ -187,6 +238,49 @@ __device__ __forceinline__ V3 normalize_eps(V3 v) {
   return divs(v, maxf(sqrtf(dot3(v, v)), (float)1e-20));
 }
 
+// ---- pinned arithmetic: one rounding per operation, never contracted ----
+
+__device__ __forceinline__ float pmul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float padd(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float psub(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ float pdiv(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ V3 padd3(V3 a, V3 b) {
+  return v3(padd(a.x, b.x), padd(a.y, b.y), padd(a.z, b.z));
+}
+__device__ __forceinline__ V3 psub3(V3 a, V3 b) {
+  return v3(psub(a.x, b.x), psub(a.y, b.y), psub(a.z, b.z));
+}
+__device__ __forceinline__ V3 pscale3(V3 a, float s) {
+  return v3(pmul(a.x, s), pmul(a.y, s), pmul(a.z, s));
+}
+__device__ __forceinline__ float pdot3(V3 a, V3 b) {
+  return padd(padd(pmul(a.x, b.x), pmul(a.y, b.y)), pmul(a.z, b.z));
+}
+__device__ __forceinline__ V3 pnormalize_eps(V3 v) {
+  const float s = maxf(__fsqrt_rn(pdot3(v, v)), (float)1e-20);
+  return v3(pdiv(v.x, s), pdiv(v.y, s), pdiv(v.z, s));
+}
+
+// The per-frame constants, in shared memory once per block.
+struct FrameConsts {
+  float eye[3];
+  float light_pv[16];
+  float right[3], up[3], direction[3];
+  float near_;
+  float near_wh[2];
+  float sh9[27];
+  int sizes[kMaxLevels];
+  int offsets[kMaxLevels];
+};
+
 __device__ __forceinline__ V3 plane3(const ShadeArgs& a, int k, int y, int x) {
   const float* p = a.planes[k] + y * a.strides[k][0] + x * a.strides[k][1];
   const long long c = a.strides[k][2];
@@ -197,6 +291,9 @@ __device__ __forceinline__ float plane_c(const ShadeArgs& a, int k, int y,
   return a.planes[k][y * a.strides[k][0] + x * a.strides[k][1] +
                      c * a.strides[k][2]];
 }
+__device__ __forceinline__ float depth_at(const ShadeArgs& a, int y, int x) {
+  return a.depth[y * a.depth_strides[0] + x * a.depth_strides[1]];
+}
 
 // ---- sampling (device/sampling.py) ----------------------------------------
 
@@ -205,7 +302,7 @@ struct FaceUV {
   float u, v;
 };
 
-// cube_face_uv: the GL cube sampling rule
+// cube_face_uv: the GL cube sampling rule (pinned)
 __device__ FaceUV cube_face_uv(V3 d) {
   const float ax = fabsf(d.x), ay = fabsf(d.y), az = fabsf(d.z);
   const bool is_x = (ax >= ay) && (ax >= az);
@@ -217,8 +314,8 @@ __device__ FaceUV cube_face_uv(V3 d) {
   const float sc = is_x ? (d.x >= 0.0f ? -d.z : d.z)
                         : (is_y ? d.x : (d.z >= 0.0f ? d.x : -d.x));
   const float tc = is_y ? (d.y >= 0.0f ? d.z : -d.z) : -d.y;
-  r.u = (sc / ma + 1.0f) * 0.5f;
-  r.v = (tc / ma + 1.0f) * 0.5f;
+  r.u = pmul(padd(pdiv(sc, ma), 1.0f), 0.5f);
+  r.v = pmul(padd(pdiv(tc, ma), 1.0f), 0.5f);
   return r;
 }
 
@@ -229,25 +326,30 @@ struct QuadIndex {
 };
 
 // mipcube_quad_index_anchor / bilinear_weights(CLAMP_TO_EDGE) of one
-// s x s face at row offset ``off``
+// s x s face at row offset ``off`` (pinned)
 __device__ QuadIndex quad_index(int off, int s, FaceUV c) {
   const float sf = (float)s;
-  const float x = c.u * sf - 0.5f;
-  const float y = c.v * sf - 0.5f;
+  const float x = psub(pmul(c.u, sf), 0.5f);
+  const float y = psub(pmul(c.v, sf), 0.5f);
   const float x0 = floorf(x);
   const float y0 = floorf(y);
   QuadIndex q;
-  q.fx = x0 < 0.0f ? 0.0f : x - x0;
-  q.fy = y0 < 0.0f ? 0.0f : y - y0;
+  q.fx = x0 < 0.0f ? 0.0f : psub(x, x0);
+  q.fy = y0 < 0.0f ? 0.0f : psub(y, y0);
   q.x0 = min(max((int)x0, 0), s - 1);
   q.y0 = min(max((int)y0, 0), s - 1);
   q.idx = off + c.face * s * s + q.y0 * s + q.x0;
   return q;
 }
 
-__device__ __forceinline__ QuadIndex mip_quad_index(const ShadeArgs& a,
+__device__ __forceinline__ QuadIndex mip_quad_index(const FrameConsts& k,
                                                     int level, FaceUV c) {
-  return quad_index(a.offsets[level], a.sizes[level], c);
+  return quad_index(k.offsets[level], k.sizes[level], c);
+}
+
+// the mip level of the mirror tap, floor(clamp(roughness * 7, 0, nl - 1))
+__device__ __forceinline__ int mip_level(float rough, int nl) {
+  return (int)floorf(clampf(pmul(rough, 7.0f), 0.0f, (float)(nl - 1)));
 }
 
 // unpack_rgbe
@@ -283,10 +385,22 @@ __constant__ float kSh[5] = {(float)0.282095, (float)0.488603,
                              (float)1.092548, (float)0.315392,
                              (float)0.546274};
 
-// ibl_reflection_dir: reflect(V, N) with V = normalize(eye - pos)
+// ibl_reflection_dir: reflect(V, N) with V = normalize(eye - pos) (pinned)
 __device__ __forceinline__ V3 reflection_dir(V3 pos, V3 n, V3 eye) {
-  const V3 v = normalize_eps(sub(eye, pos));
-  return sub(v, scale(n, 2.0f * dot3(n, v)));
+  const V3 v = pnormalize_eps(psub3(eye, pos));
+  return psub3(v, pscale3(n, pmul(2.0f, pdot3(n, v))));
+}
+
+// c ** 5 as products: what powf(c, 5) rounds once, within a few ulps
+__device__ __forceinline__ float pow5(float c) {
+  const float c2 = c * c;
+  return (c2 * c2) * c;
+}
+
+// x ** e for the spot cone, x >= 0: exp2(e * log2(x)) on the special
+// function unit; powf's x ** 0 = 1 kept where log2(0) * 0 would be a NaN
+__device__ __forceinline__ float spot_pow(float x, float e) {
+  return e == 0.0f ? 1.0f : __powf(x, e);
 }
 
 __device__ __forceinline__ float schlick_ggx(float ndotv, float k) {
@@ -310,7 +424,7 @@ __device__ V3 surface_shading(V3 pos, V3 base, V3 n, float metallic,
   const V3 l_pos = divs(ptl, d);
   const V3 l = is_dir ? l_dir : l_pos;
   const float att_poly = (a0 + a1 * d) + (a2 * d) * d;
-  const float spot = powf(maxf(dot3(l_pos, l_dir), 0.0f), row[kLightSpot]);
+  const float spot = spot_pow(maxf(dot3(l_pos, l_dir), 0.0f), row[kLightSpot]);
   const float attenuation =
       is_dir ? a0 : (is_point ? 1.0f / att_poly : spot / att_poly);
   const V3 hv = normalize_eps(add(v, l));
@@ -330,7 +444,7 @@ __device__ V3 surface_shading(V3 pos, V3 base, V3 n, float metallic,
   const float g = schlick_ggx(ndotv, k) * schlick_ggx(ndotl, k);
   // fresnel_schlick
   const float c = clampf(1.0f - maxf(dot3(hv, v), 0.0f), 0.0f, 1.0f);
-  const float c5 = powf(c, 5.0f);
+  const float c5 = pow5(c);
   const V3 f = add(f0, scale(v3(1.0f - f0.x, 1.0f - f0.y, 1.0f - f0.z), c5));
   const float om = 1.0f - metallic;
   const V3 kd = scale(v3(1.0f - f.x, 1.0f - f.y, 1.0f - f.z), om);
@@ -399,26 +513,31 @@ __device__ V3 sh9_eval(const float* co, V3 d) {
 
 // ---- sky rays (_sky_dirs) and the environment row (_env_quad_index) ---------
 
-__device__ V3 sky_dir(const ShadeArgs& a, int row, int col) {
-  const float v = ((float)(row + a.row_offset) + 0.5f) / (float)a.full_height;
-  const float u = ((float)col + 0.5f) / (float)a.sky_w;
-  const float y = v * 2.0f - 1.0f;
-  const float x = u * 2.0f - 1.0f;
-  const float hw = a.near_wh[0] / 2.0f;
-  const float hh = a.near_wh[1] / 2.0f;
-  const float nr = a.near_[0];
-  const V3 d = sub(add(scale(load3(a.right), x * hw), scale(load3(a.up), y * hh)),
-                   scale(load3(a.direction), nr));
-  const float inv = 1.0f / sqrtf(maxf(dot3(d, d), (float)1e-20));
-  return scale(d, inv);
+// (pinned)
+__device__ V3 sky_dir(const ShadeArgs& a, const FrameConsts& k, int row,
+                      int col) {
+  const float v = pdiv(padd((float)(row + a.row_offset), 0.5f),
+                       (float)a.full_height);
+  const float u = pdiv(padd((float)col, 0.5f), (float)a.sky_w);
+  const float y = psub(pmul(v, 2.0f), 1.0f);
+  const float x = psub(pmul(u, 2.0f), 1.0f);
+  const float hw = pdiv(k.near_wh[0], 2.0f);
+  const float hh = pdiv(k.near_wh[1], 2.0f);
+  const V3 d = psub3(padd3(pscale3(load3(k.right), pmul(x, hw)),
+                           pscale3(load3(k.up), pmul(y, hh))),
+                     pscale3(load3(k.direction), k.near_));
+  const float inv = pdiv(1.0f, __fsqrt_rn(maxf(pdot3(d, d), (float)1e-20)));
+  return pscale3(d, inv);
 }
 
-__device__ __forceinline__ QuadIndex env_index(const ShadeArgs& a, int row,
+__device__ __forceinline__ QuadIndex env_index(const ShadeArgs& a,
+                                               const FrameConsts& k, int row,
                                                int col) {
-  return quad_index(a.env_off, a.env_size, cube_face_uv(sky_dir(a, row, col)));
+  return quad_index(a.env_off, a.env_size,
+                    cube_face_uv(sky_dir(a, k, row, col)));
 }
 
-// ---- PCF (calculate_shadow_fast) --------------------------------------------
+// ---- PCF (calculate_shadow_fast), pinned throughout -------------------------
 
 __constant__ float kPoisson[9][2] = {
     {(float)-0.94201624, (float)-0.39906216},
@@ -436,33 +555,39 @@ __device__ __forceinline__ float select3(int k, float v0, float v1, float v2) {
   return k == 0 ? v0 : (k == 1 ? v1 : v2);
 }
 
-__device__ float shadow_fast(const ShadeArgs& a, V3 p) {
-  const float* m = a.light_pv;
+// a * (1 - f) + b * f
+__device__ __forceinline__ float plerp(float a, float b, float f) {
+  return padd(pmul(a, psub(1.0f, f)), pmul(b, f));
+}
+
+__device__ float shadow_fast(const ShadeArgs& a, const FrameConsts& k, V3 p) {
+  const float* m = k.light_pv;
   float lp[4];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
+  for (int r = 0; r < 4; ++r) {
     // [p, 1] @ light_pv.t(): the matrix product's multiply-add chain
-    float acc = p.x * m[4 * k];
-    acc = fmaf(p.y, m[4 * k + 1], acc);
-    acc = fmaf(p.z, m[4 * k + 2], acc);
-    lp[k] = fmaf(1.0f, m[4 * k + 3], acc);
+    float acc = pmul(p.x, m[4 * r]);
+    acc = fmaf(p.y, m[4 * r + 1], acc);
+    acc = fmaf(p.z, m[4 * r + 2], acc);
+    lp[r] = fmaf(1.0f, m[4 * r + 3], acc);
   }
   const float wc = fabsf(lp[3]) > (float)1e-20 ? lp[3] : 1.0f;
-  const float px = lp[0] / wc, py = lp[1] / wc, pz = lp[2] / wc;
-  const float uvx = px * 0.5f + 0.5f;
-  const float uvy = py * 0.5f + 0.5f;
+  const float px = pdiv(lp[0], wc), py = pdiv(lp[1], wc),
+              pz = pdiv(lp[2], wc);
+  const float uvx = padd(pmul(px, 0.5f), 0.5f);
+  const float uvy = padd(pmul(py, 0.5f), 0.5f);
   const bool beyond_far = pz > 1.0f;
-  const float current = pz - (float)0.000005;
+  const float current = psub(pz, (float)0.000005);
 
   const int s = a.shadow_size;
   const float sf = (float)s;
   const float hi = (float)(s - 3);
-  const float xf = clampf(uvx * sf - 0.5f, 1.0f, hi);
-  const float yf = clampf(uvy * sf - 0.5f, 1.0f, hi);
+  const float xf = clampf(psub(pmul(uvx, sf), 0.5f), 1.0f, hi);
+  const float yf = clampf(psub(pmul(uvy, sf), 0.5f), 1.0f, hi);
   const float x0 = floorf(xf);
   const float y0 = floorf(yf);
-  const float ax = xf - x0;
-  const float ay = yf - y0;
+  const float ax = psub(xf, x0);
+  const float ay = psub(yf, y0);
   const int x0i = (int)x0;
   const int y0i = (int)y0;
 
@@ -493,7 +618,7 @@ __device__ float shadow_fast(const ShadeArgs& a, V3 p) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const unsigned wv = (unsigned)words[(r * 4 + c) / 2];
-        phys[r][c] = (float)((wv >> (16 * (c & 1))) & 0xFFFFu) * inv;
+        phys[r][c] = pmul((float)((wv >> (16 * (c & 1))) & 0xFFFFu), inv);
       }
     }
     // the half anchor: logical texel (r, c) lives at physical (r + ry,
@@ -515,12 +640,12 @@ __device__ float shadow_fast(const ShadeArgs& a, V3 p) {
   float shadow = 0.0f;
 #pragma unroll
   for (int t = 0; t < 9; ++t) {
-    const float sx = ax + kPoisson[t][0];
-    const float sy = ay + kPoisson[t][1];
+    const float sx = padd(ax, kPoisson[t][0]);
+    const float sy = padd(ay, kPoisson[t][1]);
     const float kx = floorf(sx);
     const float ky = floorf(sy);
-    const float fx = sx - kx;
-    const float fy = sy - ky;
+    const float fx = psub(sx, kx);
+    const float fy = psub(sy, ky);
     const int cx = (int)kx + 1;
     const int cy = (int)ky + 1;
     float rows[4];
@@ -528,125 +653,79 @@ __device__ float shadow_fast(const ShadeArgs& a, V3 p) {
     for (int r = 0; r < 4; ++r) {
       const float left = select3(cx, win[r][0], win[r][1], win[r][2]);
       const float right = select3(cx, win[r][1], win[r][2], win[r][3]);
-      rows[r] = left * (1.0f - fx) + right * fx;
+      rows[r] = plerp(left, right, fx);
     }
     const float top = select3(cy, rows[0], rows[1], rows[2]);
     const float bot = select3(cy, rows[1], rows[2], rows[3]);
-    const float closest = top * (1.0f - fy) + bot * fy;
-    shadow = shadow + (current > closest ? 1.0f : 0.0f);
+    const float closest = plerp(top, bot, fy);
+    shadow = padd(shadow, current > closest ? 1.0f : 0.0f);
   }
-  shadow = shadow / 9.0f;
-  const float result = (1.0f - shadow) * 0.75f + 0.25f;
+  shadow = pdiv(shadow, 9.0f);
+  const float result = padd(pmul(psub(1.0f, shadow), 0.75f), 0.25f);
   return beyond_far ? 1.0f : result;
 }
 
-// ---- upsamples (_upsample_pow2, _upsample_to_cb, _mask_aware) ---------------
+// ---- the tile's even-grid samples in shared memory --------------------------
 
-// _upsample_pow2 of an (ha, wa, C) plane at output (y, x): rows by fy,
-// then columns by fx; each output is a[i]*(1 - k/f) + a[i+1]*(k/f) per
-// axis, the last sample repeated
-template <int C>
-__device__ void up_pow2(const float* a, int ha, int wa, int y, int x, int fy,
-                        int fx, float* out) {
-  const int i = y / fy, ky = y - i * fy;
-  const int j = x / fx, kx = x - j * fx;
-  const int i1 = min(i + 1, ha - 1), j1 = min(j + 1, wa - 1);
-  const float wy1 = (float)ky / (float)fy, wy0 = 1.0f - wy1;
-  const float wx1 = (float)kx / (float)fx, wx0 = 1.0f - wx1;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    float r0, r1;
-    if (fy == 1) {
-      r0 = a[((size_t)i * wa + j) * C + c];
-      r1 = a[((size_t)i * wa + j1) * C + c];
-    } else {
-      r0 = a[((size_t)i * wa + j) * C + c] * wy0 +
-           a[((size_t)i1 * wa + j) * C + c] * wy1;
-      r1 = a[((size_t)i * wa + j1) * C + c] * wy0 +
-           a[((size_t)i1 * wa + j1) * C + c] * wy1;
-    }
-    out[c] = fx == 1 ? r0 : r0 * wx0 + r1 * wx1;
-  }
+struct Tile {
+  float c0[kEvenH * kEvenW * 3];  // mirror / sky tap
+  float c1[kEvenH * kEvenW * 3];  // parent-mip tap
+  float pcf[kEvenH * kEvenW];     // PCF factor on the divisor's grid
+  uint8_t sky[kEvenH * kEvenW];   // depth >= 1
+};
+
+// Where a block's even-grid (and PCF-grid) samples start, and the width of
+// its rows in shared memory.
+struct TileGrid {
+  int i0, j0, ew;  // the even grid
+  int qi0, qj0, qw;  // the PCF grid at divisor 4
+};
+
+__device__ __forceinline__ TileGrid tile_grid(const ShadeArgs& a, int y0,
+                                              int x0) {
+  TileGrid g;
+  g.i0 = y0 / 2;
+  g.j0 = a.cb ? x0 : x0 / 2;
+  g.ew = a.cb ? kEvenW : kTileW / 2 + 1;
+  g.qi0 = y0 / 4;
+  g.qj0 = a.cb ? x0 / 2 : x0 / 4;
+  g.qw = a.cb ? kTileW / 2 + 1 : kTileW / 4 + 1;
+  return g;
 }
 
-// the upsample of an even-grid plane to the shading domain: _upsample_to_cb
-// with (fy, fxc) on the checkerboard domain (odd rows average the right
-// neighbour, clamped at the domain's last column), else _upsample_pow2
-template <int C>
-__device__ void upsample(const ShadeArgs& a, const float* p, int ha, int wa,
-                         int y, int x, int fy, int fx, float* out) {
-  if (!a.cb) {
-    up_pow2<C>(p, ha, wa, y, x, fy, fx, out);
-    return;
-  }
-  up_pow2<C>(p, ha, wa, y, x, fy, fx / 2, out);
-  if (y & 1) {
-    float r[C];
-    up_pow2<C>(p, ha, wa, y, min(x + 1, a.w - 1), fy, fx / 2, r);
-#pragma unroll
-    for (int c = 0; c < C; ++c) out[c] = (out[c] + r[c]) * 0.5f;
-  }
+__device__ __forceinline__ void store3(float* p, V3 v) {
+  p[0] = v.x;
+  p[1] = v.y;
+  p[2] = v.z;
 }
 
-// the mirror tap: the bilinear upsample of c0h, except where its four
-// samples straddle the sky silhouette: there the first of the phases
-// (0,0), (0,1), (1,0), (1,1) whose sky flag matches the pixel's
-__device__ V3 mirror_tap(const ShadeArgs& a, int y, int x, bool sky) {
-  float up[3];
-  upsample<3>(a, a.c0h, a.hh, a.wh, y, x, 2, 2, up);
-  const int i = y >> 1;
-  const int j = a.cb ? x : (x >> 1);
-  int si[4], sj[4];
-  bool m[4];
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    si[p] = min(i + (p >> 1), a.hh - 1);
-    sj[p] = min(j + (p & 1), a.wh - 1);
-    m[p] = a.skyh[(size_t)si[p] * a.wh + sj[p]] != 0;
-  }
-  const bool uniform = (m[0] == m[1]) && (m[0] == m[2]) && (m[0] == m[3]);
-  if (!uniform) {
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      if (m[p] == sky) {
-        return load3(a.c0h + ((size_t)si[p] * a.wh + sj[p]) * 3);
-      }
-    }
-  }
-  return v3(up[0], up[1], up[2]);
-}
-
-// ---- the two kernels ---------------------------------------------------------
-
-__global__ void shade_even_kernel(ShadeArgs a) {
-  const int n = a.hh * a.wh;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int i = idx / a.wh;
-  const int j = idx - i * a.wh;
+// Even-grid sample (i, j), slot ``e`` of the tile: the mirror/sky tap, the
+// sky flag, the parent tap and, at divisor 2, the PCF factor; written to
+// the debug planes too when ``own`` (the block's own samples, not its halo).
+__device__ void even_sample(const ShadeArgs& a, const FrameConsts& k,
+                            Tile& t, int e, int i, int j, bool own) {
   const int y = 2 * i;
   const int x = a.cb ? j : 2 * j;
+  const size_t gi = (size_t)i * a.wh + j;
   const V3 pos = plane3(a, 0, y, x);
-
   if (a.has_ibl && (a.mirror_half || a.parent_half)) {
     const V3 n = plane3(a, 1, y, x);
-    const V3 eye = load3(a.eye);
-    const float rough = plane_c(a, 4, y, x, 1);
     const int nl = a.num_levels;
-    const int l0 = (int)floorf(clampf(rough * 7.0f, 0.0f, (float)(nl - 1)));
-    const FaceUV fc = cube_face_uv(reflection_dir(pos, n, eye));
+    const int l0 = mip_level(plane_c(a, 4, y, x, 1), nl);
+    const FaceUV fc = cube_face_uv(reflection_dir(pos, n, load3(k.eye)));
     bool c1_done = false;
+    int row0 = -1, row1 = -1;
     if (a.mirror_half) {
-      QuadIndex q = mip_quad_index(a, l0, fc);
-      const bool sky =
-          a.depth[y * a.depth_strides[0] + x * a.depth_strides[1]] >= 1.0f;
+      QuadIndex q = mip_quad_index(k, l0, fc);
+      const bool sky = depth_at(a, y, x) >= 1.0f;
       if (sky) {
-        const QuadIndex e = env_index(a, y, 2 * j);
-        q.idx = e.idx;
-        q.fx = e.fx;
-        q.fy = e.fy;
+        const QuadIndex en = env_index(a, k, y, 2 * j);
+        q.idx = en.idx;
+        q.fx = en.fx;
+        q.fy = en.fy;
       }
       V3 c0;
+      row0 = q.idx;
       if (a.merged) {
         const int* row = a.merged_rows + (size_t)q.idx * 8;
         c0 = quad_lerp_rgbe(row, q.fx, q.fy);
@@ -656,56 +735,163 @@ __global__ void shade_even_kernel(ShadeArgs a) {
         const float fpx = last ? q.fx : ((float)(q.x0 & 1) + q.fx) * 0.5f;
         const float fpy = last ? q.fy : ((float)(q.y0 & 1) + q.fy) * 0.5f;
         const V3 c1 = quad_lerp_rgbe(row + 4, fpx, fpy);
-        float* o1 = a.c1h + (size_t)idx * 3;
-        o1[0] = c1.x;
-        o1[1] = c1.y;
-        o1[2] = c1.z;
+        store3(t.c1 + 3 * e, c1);
+        if (own && a.c1h != nullptr) store3(a.c1h + gi * 3, c1);
+        row1 = q.idx;
         c1_done = true;
       } else {
         c0 = quad_lerp_rgbe(a.spec_rows + (size_t)q.idx * 4, q.fx, q.fy);
       }
-      float* o0 = a.c0h + (size_t)idx * 3;
-      o0[0] = c0.x;
-      o0[1] = c0.y;
-      o0[2] = c0.z;
-      a.skyh[idx] = sky ? 1 : 0;
+      store3(t.c0 + 3 * e, c0);
+      t.sky[e] = sky ? 1 : 0;
+      if (own && a.c0h != nullptr) {
+        store3(a.c0h + gi * 3, c0);
+        a.skyh[gi] = sky ? 1 : 0;
+      }
     }
     if (a.parent_half && !c1_done) {
       const int l1 = min(l0 + 1, nl - 1);
-      const QuadIndex q = mip_quad_index(a, l1, fc);
+      const QuadIndex q = mip_quad_index(k, l1, fc);
       const V3 c1 = quad_lerp_rgbe(a.spec_rows + (size_t)q.idx * 4, q.fx, q.fy);
-      float* o1 = a.c1h + (size_t)idx * 3;
-      o1[0] = c1.x;
-      o1[1] = c1.y;
-      o1[2] = c1.z;
+      store3(t.c1 + 3 * e, c1);
+      if (own && a.c1h != nullptr) store3(a.c1h + gi * 3, c1);
+      row1 = q.idx;
+    }
+    if (own && a.rows_h != nullptr) {
+      a.rows_h[2 * gi] = row0;
+      a.rows_h[2 * gi + 1] = row1;
     }
   }
+  if (a.pcf_layout != kPcfNone && a.pcf_div == 2) {
+    const float f = shadow_fast(a, k, pos);
+    t.pcf[e] = f;
+    if (own && a.pcf != nullptr) a.pcf[gi] = f;
+  }
+}
 
-  if (a.pcf_layout != kPcfNone && a.pcf_div > 1) {
-    if (a.pcf_div == 2) {
-      a.pcf[idx] = shadow_fast(a, pos);
-    } else if (((i | j) & 1) == 0) {
-      a.pcf[(size_t)(i >> 1) * a.wq + (j >> 1)] = shadow_fast(a, pos);
+// ---- upsamples (_upsample_pow2, _upsample_to_cb, _mask_aware) ---------------
+
+// _upsample_pow2 of a grid of (ha, wa) samples, C channels, held in shared
+// memory from sample (ti0, tj0) in rows of ``tw``, at output (y, x): rows
+// by fy, then columns by fx; each output is a[i]*(1 - k/f) + a[i+1]*(k/f)
+// per axis, the last sample repeated.  Where the column weight k/f is 0
+// the output is the left sample itself (v0 * 1 + v1 * 0), so the right one
+// is not read: at a checkerboard tile's last odd-row pixel it lies past the
+// tile.
+template <int C>
+__device__ void up_pow2(const float* t, int tw, int ti0, int tj0, int ha,
+                        int wa, int y, int x, int fy, int fx, float* out) {
+  const int i = y / fy, ky = y - i * fy;
+  const int j = x / fx, kx = x - j * fx;
+  const int i1 = min(i + 1, ha - 1), j1 = min(j + 1, wa - 1);
+  // k / f for f in {1, 2, 4}, exactly
+  const float wy1 = (float)ky * (fy == 4 ? 0.25f : 0.5f), wy0 = 1.0f - wy1;
+  const float wx1 = (float)kx * (fx == 4 ? 0.25f : 0.5f), wx0 = 1.0f - wx1;
+  const int r0 = (i - ti0) * tw, r1 = (i1 - ti0) * tw;
+  const int c0 = j - tj0, c1 = j1 - tj0;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float v0 = fy == 1 ? t[(r0 + c0) * C + c]
+                             : t[(r0 + c0) * C + c] * wy0 +
+                                   t[(r1 + c0) * C + c] * wy1;
+    if (kx == 0) {
+      out[c] = v0;
+    } else {
+      const float v1 = fy == 1 ? t[(r0 + c1) * C + c]
+                               : t[(r0 + c1) * C + c] * wy0 +
+                                     t[(r1 + c1) * C + c] * wy1;
+      out[c] = v0 * wx0 + v1 * wx1;
     }
   }
 }
 
-__global__ void shade_pixel_kernel(ShadeArgs a) {
-  const int n = a.h * a.w;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int y = idx / a.w;
-  const int x = idx - y * a.w;
+// the upsample of a grid's samples to the shading domain: _upsample_to_cb
+// with (fy, fxc) on the checkerboard domain (odd rows average the right
+// neighbour, clamped at the domain's last column), else _upsample_pow2
+template <int C>
+__device__ void upsample(const ShadeArgs& a, const float* t, int tw, int ti0,
+                         int tj0, int ha, int wa, int y, int x, int fy,
+                         int fx, float* out) {
+  if (!a.cb) {
+    up_pow2<C>(t, tw, ti0, tj0, ha, wa, y, x, fy, fx, out);
+    return;
+  }
+  up_pow2<C>(t, tw, ti0, tj0, ha, wa, y, x, fy, fx / 2, out);
+  if (y & 1) {
+    float r[C];
+    up_pow2<C>(t, tw, ti0, tj0, ha, wa, y, min(x + 1, a.w - 1), fy, fx / 2,
+               r);
+#pragma unroll
+    for (int c = 0; c < C; ++c) out[c] = (out[c] + r[c]) * 0.5f;
+  }
+}
 
+// the mirror tap: the bilinear upsample of c0, except where its four
+// samples straddle the sky silhouette: there the first of the phases
+// (0,0), (0,1), (1,0), (1,1) whose sky flag matches the pixel's
+__device__ V3 mirror_tap(const ShadeArgs& a, const Tile& t,
+                         const TileGrid& g, int y, int x, bool sky) {
+  float up[3];
+  upsample<3>(a, t.c0, g.ew, g.i0, g.j0, a.hh, a.wh, y, x, 2, 2, up);
+  const int i = y >> 1;
+  const int j = a.cb ? x : (x >> 1);
+  int e[4];
+  bool m[4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int si = min(i + (p >> 1), a.hh - 1);
+    const int sj = min(j + (p & 1), a.wh - 1);
+    e[p] = (si - g.i0) * g.ew + (sj - g.j0);
+    m[p] = t.sky[e[p]] != 0;
+  }
+  const bool uniform = (m[0] == m[1]) && (m[0] == m[2]) && (m[0] == m[3]);
+  if (!uniform) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      if (m[p] == sky) return load3(t.c0 + 3 * e[p]);
+    }
+  }
+  return v3(up[0], up[1], up[2]);
+}
+
+// ---- the pixel -------------------------------------------------------------
+
+__device__ __forceinline__ void store_clamped(const ShadeArgs& a, int y,
+                                              int x, V3 col) {
+  float* o = a.out + ((size_t)y * a.w + x) * 3;
+  o[0] = clampf(col.x, 0.0f, 1.0f);
+  o[1] = clampf(col.y, 0.0f, 1.0f);
+  o[2] = clampf(col.z, 0.0f, 1.0f);
+}
+
+// the sky pixel's colour: the mirror tap, which sky samples point at the
+// environment
+__device__ V3 sky_tap(const ShadeArgs& a, const FrameConsts& k,
+                      const Tile& t, const TileGrid& g, int y, int x) {
+  if (a.mirror_half) return mirror_tap(a, t, g, y, x, true);
+  const QuadIndex e = env_index(a, k, y, x);
+  return quad_lerp_rgbe(a.spec_rows + (size_t)e.idx * 4, e.fx, e.fy);
+}
+
+__device__ void shade_pixel(const ShadeArgs& a, const FrameConsts& k,
+                            const float* lights, const Tile& t,
+                            const TileGrid& g, int y, int x) {
+  const float depth = depth_at(a, y, x);
+  if (a.has_ibl && depth >= 1.0f) {
+    // the frame keeps the sky colour here (the plain version's
+    // where(sky_mask, sky, ...)): the lights and the ambient it computes
+    // at a sky pixel are discarded, so they are not evaluated
+    store_clamped(a, y, x, sky_tap(a, k, t, g, y, x));
+    return;
+  }
   const V3 pos = plane3(a, 0, y, x);
   const V3 nrm = plane3(a, 1, y, x);
   const V3 base = plane3(a, 2, y, x);
   const V3 emis = plane3(a, 3, y, x);
   const V3 orm = plane3(a, 4, y, x);
   const float occlusion = orm.x, rough = orm.y, metallic = orm.z;
-  const float depth = a.depth[y * a.depth_strides[0] + x * a.depth_strides[1]];
   const float ao = a.ssao[y * a.ssao_strides[0] + x * a.ssao_strides[1]];
-  const V3 eye = load3(a.eye);
+  const V3 eye = load3(k.eye);
 
   const V3 v = normalize_eps(sub(eye, pos));
   const V3 f0 = add(v3(kF0, kF0, kF0),
@@ -715,63 +901,57 @@ __global__ void shade_pixel_kernel(ShadeArgs a) {
   V3 lo = v3(0.0f, 0.0f, 0.0f);
   for (int l = 0; l < a.n_lights; ++l) {
     lo = add(lo, surface_shading(pos, base, nrm, metallic, rough, v, f0,
-                                 a.lights + (size_t)l * a.light_stride));
+                                 lights + l * kLightCols));
   }
 
   float shadow = 1.0f;
   if (a.pcf_layout != kPcfNone) {
     if (a.pcf_div == 1) {
-      shadow = shadow_fast(a, pos);
+      shadow = shadow_fast(a, k, pos);
+    } else if (a.pcf_div == 2) {
+      upsample<1>(a, t.pcf, g.ew, g.i0, g.j0, a.hq, a.wq, y, x, 2, 2,
+                  &shadow);
     } else {
-      upsample<1>(a, a.pcf, a.hq, a.wq, y, x, a.pcf_div, a.pcf_div, &shadow);
+      upsample<1>(a, t.pcf, g.qw, g.qi0, g.qj0, a.hq, a.wq, y, x, 4, 4,
+                  &shadow);
     }
   }
 
   V3 ambient = v3(0.0f, 0.0f, 0.0f);
-  V3 sky_color = v3(0.0f, 0.0f, 0.0f);
-  const bool sky = depth >= 1.0f;
-  if (a.has_ibl) {
+  if (a.has_ibl) {  // not a sky pixel
     const int nl = a.num_levels;
-    const float lod = clampf(rough * 7.0f, 0.0f, (float)(nl - 1));
+    const float lod = clampf(pmul(rough, 7.0f), 0.0f, (float)(nl - 1));
     const float l0f = floorf(lod);
     const int l0 = (int)l0f;
     const float f = lod - l0f;
-    V3 r = v3(0.0f, 0.0f, 0.0f);
     FaceUV fc;
     if (!a.mirror_half || !a.parent_half) {
-      r = reflection_dir(pos, nrm, eye);
-      fc = cube_face_uv(r);
+      fc = cube_face_uv(reflection_dir(pos, nrm, eye));
     }
     V3 c0, c1;
     if (a.mirror_half) {
-      c0 = mirror_tap(a, y, x, sky);
+      c0 = mirror_tap(a, t, g, y, x, false);
     } else {
-      QuadIndex q = mip_quad_index(a, l0, fc);
-      if (sky) {
-        const QuadIndex e = env_index(a, y, x);
-        q.idx = e.idx;
-        q.fx = e.fx;
-        q.fy = e.fy;
-      }
+      const QuadIndex q = mip_quad_index(k, l0, fc);
       c0 = quad_lerp_rgbe(a.spec_rows + (size_t)q.idx * 4, q.fx, q.fy);
     }
     if (a.parent_half) {
       float u[3];
-      upsample<3>(a, a.c1h, a.hh, a.wh, y, x, 2, 2, u);
+      upsample<3>(a, t.c1, g.ew, g.i0, g.j0, a.hh, a.wh, y, x, 2, 2, u);
       c1 = v3(u[0], u[1], u[2]);
     } else {
-      const QuadIndex q = mip_quad_index(a, min(l0 + 1, nl - 1), fc);
+      const QuadIndex q = mip_quad_index(k, min(l0 + 1, nl - 1), fc);
       c1 = quad_lerp_rgbe(a.spec_rows + (size_t)q.idx * 4, q.fx, q.fy);
     }
-    // prefiltered = c0 * (1 - f) + c1 * f (garbage at sky pixels, masked)
+    // prefiltered = c0 * (1 - f) + c1 * f
     const V3 pref = add(scale(c0, 1.0f - f), scale(c1, f));
-    const V3 irr = sh9_eval(a.sh9, nrm);
+    const V3 irr = sh9_eval(k.sh9, nrm);
     // _ambient / image_based_lighting
     const float ndotv = maxf(dot3(nrm, v), 0.0f);
     float lut0, lut1;
     env_brdf_poly(ndotv, rough, &lut0, &lut1);
     const float c = clampf(1.0f - ndotv, 0.0f, 1.0f);
-    const float c5 = powf(c, 5.0f);
+    const float c5 = pow5(c);
     const float om_r = 1.0f - rough;
     // torch.maximum passes a NaN on
     const V3 fmax = v3(om_r != om_r || om_r > f0.x ? om_r : f0.x,
@@ -783,7 +963,6 @@ __global__ void shade_pixel_kernel(ShadeArgs a) {
     const V3 diffuse = mul(irr, base);
     const V3 spec = mul(pref, add(scale(fr, lut0), v3(lut1, lut1, lut1)));
     ambient = scale(add(mul(kd, diffuse), spec), occlusion);
-    sky_color = c0;
   }
 
   // (ambient + lo * shadow) * ssao + emissive, tonemap_unreal, sky, clamp
@@ -791,34 +970,98 @@ __global__ void shade_pixel_kernel(ShadeArgs a) {
   col = add(col, emis);
   col = v3(col.x / (col.x + kTm0) * kTm1, col.y / (col.y + kTm0) * kTm1,
            col.z / (col.z + kTm0) * kTm1);
-  if (a.has_ibl && sky) col = sky_color;
-  float* o = a.out + (size_t)idx * 3;
-  o[0] = clampf(col.x, 0.0f, 1.0f);
-  o[1] = clampf(col.y, 0.0f, 1.0f);
-  o[2] = clampf(col.z, 0.0f, 1.0f);
+  store_clamped(a, y, x, col);
 }
 
-constexpr int kThreads = 256;
+// ---- the kernel --------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    shade_kernel(const ShadeArgs a) {
+  __shared__ FrameConsts k;
+  __shared__ Tile t;
+  extern __shared__ float lights[];  // n_lights rows of kLightCols
+  const int tid = threadIdx.x;
+
+  // 1. the per-frame constants
+  for (int i = tid; i < a.n_lights * kLightCols; i += kThreads) {
+    const int l = i / kLightCols;
+    lights[i] = a.lights[(size_t)l * a.light_stride + (i - l * kLightCols)];
+  }
+  if (tid < 3) {
+    k.eye[tid] = a.eye[tid];
+    k.right[tid] = a.right[tid];
+    k.up[tid] = a.up[tid];
+    k.direction[tid] = a.direction[tid];
+  }
+  if (tid < 16) k.light_pv[tid] = a.light_pv[tid];
+  if (tid < 2) k.near_wh[tid] = a.near_wh[tid];
+  if (tid == 0) k.near_ = a.near_[0];
+  if (a.has_ibl) {
+    if (tid < 27) k.sh9[tid] = a.sh9[tid];
+    if (tid < a.num_levels) {
+      k.sizes[tid] = a.sizes[tid];
+      k.offsets[tid] = a.offsets[tid];
+    }
+  }
+  __syncthreads();
+
+  // 2. the even-grid samples of the tile and its halo, then (divisor 4)
+  // the PCF grid's
+  const int y0 = blockIdx.y * kTileH;
+  const int x0 = blockIdx.x * kTileW;
+  const TileGrid g = tile_grid(a, y0, x0);
+  const bool taps = a.has_ibl && (a.mirror_half || a.parent_half);
+  const bool pcf = a.pcf_layout != kPcfNone;
+  const int n_even = (taps || (pcf && a.pcf_div == 2)) ? kEvenH * g.ew : 0;
+  const int n_quad = (pcf && a.pcf_div == 4) ? (kTileH / 4 + 1) * g.qw : 0;
+  // the PCF grid's samples start on a warp of their own: no warp runs both
+  const int q0 = (n_even + 31) & ~31;
+  for (int s = tid; s < q0 + n_quad; s += kThreads) {
+    if (s < n_even) {
+      const int ti = s / g.ew, tj = s - ti * g.ew;
+      const int i = g.i0 + ti, j = g.j0 + tj;
+      if (i < a.hh && j < a.wh) {
+        even_sample(a, k, t, s, i, j, ti < kEvenH - 1 && tj < g.ew - 1);
+      }
+    } else if (s >= q0) {
+      const int q = s - q0;
+      const int ti = q / g.qw, tj = q - ti * g.qw;
+      const int i = g.qi0 + ti, j = g.qj0 + tj;
+      if (i < a.hq && j < a.wq) {
+        const float f =
+            shadow_fast(a, k, plane3(a, 0, 4 * i, a.cb ? 2 * j : 4 * j));
+        t.pcf[q] = f;
+        if (a.pcf != nullptr && ti < kTileH / 4 && tj < g.qw - 1) {
+          a.pcf[(size_t)i * a.wq + j] = f;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. the tile's pixels
+  const int y = y0 + tid / kTileW;
+  const int x = x0 + tid % kTileW;
+  if (y < a.h && x < a.w) shade_pixel(a, k, lights, t, g, y, x);
+}
 
 }  // namespace
 
-// The even-grid launch: mirror / sky tap, parent tap, sky flags and the
-// PCF factor on the divisor's grid.
-extern "C" int mo_shading_even(const ShadeArgs* args, void* stream) {
-  const int n = args->hh * args->wh;
-  if (n > 0) {
-    shade_even_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                        (cudaStream_t)stream>>>(*args);
+// One launch over the shading domain on ``stream``; returns
+// cudaGetLastError() after it, or cudaErrorInvalidValue for arguments the
+// kernel does not take.
+extern "C" int mo_shading(const ShadeArgs* args, void* stream) {
+  const size_t light_bytes =
+      (size_t)args->n_lights * kLightCols * sizeof(float);
+  if (light_bytes > (size_t)kMaxLightBytes ||
+      (args->has_ibl && args->num_levels > kMaxLevels)) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
-}
-
-// The pixel launch: everything else, to the clamped colour.
-extern "C" int mo_shading_pixel(const ShadeArgs* args, void* stream) {
-  const int n = args->h * args->w;
-  if (n > 0) {
-    shade_pixel_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                         (cudaStream_t)stream>>>(*args);
+  if (args->h > 0 && args->w > 0) {
+    const dim3 grid((args->w + kTileW - 1) / kTileW,
+                    (args->h + kTileH - 1) / kTileH);
+    shade_kernel<<<grid, kThreads, light_bytes, (cudaStream_t)stream>>>(
+        *args);
   }
   return (int)cudaGetLastError();
 }

@@ -31,15 +31,30 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# -fmad=false: no multiply-add contraction anywhere, so each kernel rounds
-# once per operation exactly like its plain PyTorch twin (the rasterizer's
-# exact-on-edge pixels and the SSAO hash noise depend on it; where a
-# kernel wants a fused multiply-add it calls fmaf explicitly).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false",
+    "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
 )
+# Multiply-add contraction, per unit.  -fmad=false is the rule: each kernel
+# rounds once per operation exactly like its plain PyTorch twin (the
+# rasterizer's exact-on-edge pixels, the SSAO hash noise and the G-buffer
+# tail's texel index depend on it; where a kernel wants a fused multiply-add
+# it calls fmaf explicitly).  The units listed here contract, and divide
+# and take square roots to within 2 ulps instead of rounding them
+# correctly: their results are continuous in the arithmetic, held to a
+# tolerance, and each pins with __fmul_rn / __fadd_rn / __fsub_rn /
+# __fdiv_rn / __fsqrt_rn every operation that feeds a compare or an
+# integer (csrc/shading.cu lists them).
+FMAD_DEFAULT = ("-fmad=false",)
+UNIT_FLAGS = {
+    "shading.cu": ("-fmad=true", "-prec-div=false", "-prec-sqrt=false"),
+}
+
+
+def unit_flags(unit: str) -> tuple:
+    """The nvcc flags of one csrc/ unit."""
+    return NVCC_FLAGS + UNIT_FLAGS.get(os.path.basename(unit), FMAD_DEFAULT)
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -59,6 +74,7 @@ LAUNCHES: dict[str, int] = {
     "raster_depth_band": 0,
     "ssao_halo": 0,
     "shading": 0,
+    "gbuffer": 0,
 }
 
 _lock = threading.Lock()
@@ -100,6 +116,7 @@ def _nvcc() -> str:
 
 def _library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr((FMAD_DEFAULT, sorted(UNIT_FLAGS.items()))).encode())
     for path in sources():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -146,7 +163,7 @@ def build() -> str:
     t0 = time.perf_counter()
     try:
         _run_all([
-            [nvcc, *NVCC_FLAGS, "-c", "-o", o, u]
+            [nvcc, *unit_flags(u), "-c", "-o", o, u]
             for u, o in zip(units, objs)
         ])
         tmp = f"{so}.{tag}"

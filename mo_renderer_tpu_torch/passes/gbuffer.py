@@ -11,19 +11,23 @@ reference sampling path's ``gbuffer_pass``, the fast path's
   the ``attr_planes`` kernel (row gather + perspective-correct
   interpolation) or, with ``attrs_plane_kernel`` off, through the same
   math as torch ops (the reference's non-kernel branch, which takes the
-  bitangent as cross(n, t) * handedness); then the material columns that
-  ride the attribute rows drive the texture-stack sampling of the
-  sampled slots (one row gather per slot group and the bilinear filter
-  of the packed RGBA8 quads as torch ops, or both fused in the
-  ``stack_planes`` kernel with ``stack_plane_kernel`` on), factor
-  application and TBN normal mapping.
+  bitangent as cross(n, t) * handedness); then ``gbuffer_tail``: the
+  velocity, the material columns that ride the attribute rows driving the
+  texture-stack sampling of the sampled slots (the sampled channels from
+  the ``stack_planes`` kernel with ``stack_plane_kernel`` on), factor
+  application, TBN normal mapping and assembly.
 - ``gbuffer_pass_from_planes`` takes the planes the raster megakernel
-  already interpolated and runs the same texturing tail, always with the
-  torch-op stack sampling (the reference passes it no stack kernel).
+  already interpolated and runs the same tail, the material row fetched
+  by the material-id plane (the reference passes it no stack kernel).
+
+On a card the tail is one hand kernel, K10 (``csrc/gbuffer.cu``), for
+every input source; its plain version, ``_gbuffer_tail_plain`` with
+``_texture_and_assemble``, is what the CPU runs.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -31,8 +35,10 @@ import torch
 
 from ..assets import materials as M
 from ..device import sampling
+from ..kernels import _build
 from ..kernels.attr_planes import attr_planes, pixel_ndc
-from ..kernels.stack_planes import out_spec, stack_planes
+from ..kernels.stack_planes import SLOT_CHANNELS, _INV255, out_spec, \
+    stack_planes
 from ..kernels.tonemap import srgb_to_linear
 from .vertex_stage import (
     TRI_HANDED,
@@ -54,6 +60,34 @@ class GBuffer:
     velocity: torch.Tensor  # (H, W, 2)
     depth: torch.Tensor  # (H, W)
     mask: torch.Tensor  # (H, W) bool: covered pixels
+
+
+@dataclasses.dataclass
+class TailInputs:
+    """What the fast path's G-buffer tail reads per pixel, as the caller
+    has it: ``world_pos``, ``n_in``, ``t_in``, ``bt_in`` (3 channels) and
+    ``uv0`` (2), each an (H, W, k) tensor or a tuple of k (H, W) planes;
+    ``handed``, the (H, W) handedness (has_tangent is |handed| > 0.5), or
+    with ``handed_abs`` off the megakernel's has-tangent plane (> 0.5);
+    the material columns as ``mat_cols`` (H, W, n) in
+    ``materials.fast_used_cols`` order, or as the megakernel's
+    ``mat_plane`` of material ids, whose rows the tail fetches from
+    ``scene.materials``."""
+
+    world_pos: object
+    n_in: object
+    t_in: object
+    bt_in: object
+    uv0: object
+    handed: torch.Tensor
+    handed_abs: bool = True
+    mat_cols: torch.Tensor | None = None
+    mat_plane: torch.Tensor | None = None
+
+
+def _vec(x):
+    """An (H, W, k) tensor of a TailInputs field."""
+    return torch.stack(x, dim=-1) if isinstance(x, tuple) else x
 
 
 def _normalize(v, eps=1e-20):
@@ -159,9 +193,7 @@ def gbuffer_pass_fast(tri, z, scene, tri_attrs, params, slot_map: tuple,
     bitangent as cross(n, t) * handedness.  ``stack_kernel``
     (``EngineConfig.stack_plane_kernel``): the sampled slots' channels
     come from the ``stack_planes`` kernel."""
-    covered = tri >= 0
     pv = params["proj_view"]
-    prev_pv = params["prev_proj_view"]
     used_cols = M.fast_used_cols(slot_map)
     if full_wh is None:
         full_wh = (tri.shape[1] * (2 if cb else 1), tri.shape[0])
@@ -174,11 +206,9 @@ def gbuffer_pass_fast(tri, z, scene, tri_attrs, params, slot_map: tuple,
         def vec(a, b):
             return planes[a:b].permute(1, 2, 0)
 
-        world_pos, n_in, t_in, bt_in = (vec(0, 3), vec(3, 6), vec(6, 9),
-                                        vec(9, 12))
-        uv0 = vec(12, 14)
-        has_tangent = planes[15].abs() > 0.5
-        mat_cols = vec(16, planes.shape[0])
+        src = TailInputs(vec(0, 3), vec(3, 6), vec(6, 9), vec(9, 12),
+                         vec(12, 14), planes[15],
+                         mat_cols=vec(16, planes.shape[0]))
     else:
         row = sampling.take_rows(tri_attrs, torch.clamp(tri, min=0))
 
@@ -201,18 +231,52 @@ def gbuffer_pass_fast(tri, z, scene, tri_attrs, params, slot_map: tuple,
         t_in = interp(TRI_T0, 3)
         uv0 = interp(TRI_UV0, 2)
         handed = row[..., TRI_HANDED]
-        has_tangent = handed.abs() > 0.5
         # the rows carry no corner bitangents: B = cross(N, T) * tangent.w
         bt_in = torch.linalg.cross(n_in, t_in, dim=-1) * handed[..., None]
-        mat_cols = row[..., TRI_STRIDE : TRI_STRIDE + len(used_cols)]
+        src = TailInputs(world_pos, n_in, t_in, bt_in, uv0, handed,
+                         mat_cols=row[..., TRI_STRIDE:
+                                      TRI_STRIDE + len(used_cols)])
+    return gbuffer_tail(tri, z, src, params, scene, slot_map,
+                        stack_kernel=stack_kernel)
 
+
+def gbuffer_tail(tri, z, src: TailInputs, params, scene, slot_map: tuple,
+                 stack_kernel: bool = False) -> GBuffer:
+    """The fast path's tail after the attribute planes: velocity, material
+    columns, texture-stack sampling (the sampled channels from the
+    ``stack_planes`` kernel when ``stack_kernel``), factors, TBN normal
+    mapping and assembly, on the domain of ``tri`` (its mask: tri >= 0).
+
+    On a CUDA ``tri`` this is the kernel of ``csrc/gbuffer.cu`` (K10), on
+    every input source; on the CPU it is the PyTorch ops of
+    ``_gbuffer_tail_plain``, the kernel's plain version."""
+    args = (tri, z, src, params["proj_view"], params["prev_proj_view"],
+            scene, slot_map, stack_kernel)
+    if tri.is_cuda:
+        return _gbuffer_tail_cuda(*args)
+    return _gbuffer_tail_plain(*args)
+
+
+def _gbuffer_tail_plain(tri, z, src, pv, prev_pv, scene, slot_map,
+                        stack_kernel):
+    """gbuffer_tail in PyTorch ops: the CPU's path, and the plain version
+    the kernel is held to on the card."""
+    covered = tri >= 0
+    world_pos = _vec(src.world_pos)
     # clip positions are linear in world pos: interpolate-then-project
     wp1 = torch.cat([world_pos, torch.ones_like(world_pos[..., :1])], -1)
     velocity = _ndc01(wp1 @ pv.t()) - _ndc01(wp1 @ prev_pv.t())
+    handed = src.handed.abs() if src.handed_abs else src.handed
+    mat_cols = src.mat_cols
+    if mat_cols is None:
+        mat_id = torch.round(src.mat_plane).to(torch.int64)
+        used = _column_index(M.fast_used_cols(slot_map),
+                             scene.materials.device)
+        mat_cols = scene.materials.index_select(1, used)[mat_id]
     return _texture_and_assemble(
-        covered, z, world_pos, n_in, t_in, bt_in, uv0, has_tangent,
-        velocity, scene, slot_map, mat_cols=mat_cols,
-        stack_kernel=stack_kernel,
+        covered, z, world_pos, _vec(src.n_in), _vec(src.t_in),
+        _vec(src.bt_in), _vec(src.uv0), handed > 0.5, velocity, scene,
+        slot_map, mat_cols=mat_cols, stack_kernel=stack_kernel,
     )
 
 
@@ -257,24 +321,9 @@ def _texture_and_assemble(covered, z, world_pos, n_in, t_in, bt_in, uv0,
 
     n_sampled = sum(1 for p in slot_map if p >= 0)
     if n_sampled > 0:
-        base = col(M.MAT_STACK_BASE).to(torch.int32)
-        se_f = col(M.MAT_STACK_SIZE)
-        se_i = se_f.to(torch.int32)
-        x = uv0[..., 0] * se_f - 0.5
-        y = uv0[..., 1] * se_f - 0.5
-        x0 = torch.floor(x)
-        y0 = torch.floor(y)
-        fx = x - x0
-        fy = y - y0
-        # REPEAT wrap: stack sizes are powers of two
-        x0i = x0.to(torch.int32) & (se_i - 1)
-        y0i = y0.to(torch.int32) & (se_i - 1)
-        idx = base + y0i * se_i + x0i
-        groups = [scene.texture_stack_a]
-        if n_sampled > 2:
-            groups.append(scene.texture_stack_b)
-        if n_sampled > 4:
-            groups.append(scene.texture_stack_c)
+        idx, fx, fy = _stack_anchor(uv0, col(M.MAT_STACK_BASE),
+                                    col(M.MAT_STACK_SIZE))
+        groups = _stack_groups(scene, slot_map)
         if stack_kernel:
             spec, plane_of = out_spec(slot_map, [g.shape[1] for g in groups])
             sk_planes = stack_planes(idx, fx, fy, groups, spec)
@@ -347,21 +396,41 @@ def gbuffer_pass_from_planes(tri, z, attrs, mat_plane, ht_plane, scene,
     material columns are fetched by the material-id plane, then the fast
     path's texturing tail runs.  ``attrs``: 14 (H, W) planes ordered
     wp.xyz, n.xyz, t.xyz, bt.xyz, uv0.uv."""
-    def vec(a, b):
-        return torch.stack(attrs[a:b], dim=-1)
+    src = TailInputs(tuple(attrs[0:3]), tuple(attrs[3:6]),
+                     tuple(attrs[6:9]), tuple(attrs[9:12]),
+                     tuple(attrs[12:14]), ht_plane, handed_abs=False,
+                     mat_plane=mat_plane)
+    return gbuffer_tail(tri, z, src, params, scene, slot_map)
 
-    world_pos = vec(0, 3)
-    pv = params["proj_view"]
-    prev_pv = params["prev_proj_view"]
-    wp1 = torch.cat([world_pos, torch.ones_like(world_pos[..., :1])], -1)
-    velocity = _ndc01(wp1 @ pv.t()) - _ndc01(wp1 @ prev_pv.t())
-    mat_id = torch.round(mat_plane).to(torch.int64)
-    used = _column_index(M.fast_used_cols(slot_map), scene.materials.device)
-    return _texture_and_assemble(
-        tri >= 0, z, world_pos, vec(3, 6), vec(6, 9), vec(9, 12),
-        vec(12, 14), ht_plane > 0.5, velocity, scene, slot_map,
-        mat_cols=scene.materials.index_select(1, used)[mat_id],
-    )
+
+def _stack_anchor(uv0, stack_base, stack_size):
+    """The texture-stack row of each pixel's bilinear anchor texel and its
+    fractions (fx, fy): per-material native sizes, REPEAT wrap."""
+    base = stack_base.to(torch.int32)
+    se_f = stack_size
+    se_i = se_f.to(torch.int32)
+    x = uv0[..., 0] * se_f - 0.5
+    y = uv0[..., 1] * se_f - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    # REPEAT wrap: stack sizes are powers of two
+    x0i = x0.to(torch.int32) & (se_i - 1)
+    y0i = y0.to(torch.int32) & (se_i - 1)
+    return base + y0i * se_i + x0i, fx, fy
+
+
+def _stack_groups(scene, slot_map):
+    """The texture-stack group tables the sampled slots of ``slot_map``
+    read (two slots a group)."""
+    n_sampled = sum(1 for p in slot_map if p >= 0)
+    groups = [scene.texture_stack_a]
+    if n_sampled > 2:
+        groups.append(scene.texture_stack_b)
+    if n_sampled > 4:
+        groups.append(scene.texture_stack_c)
+    return groups
 
 
 @functools.lru_cache(maxsize=16)
@@ -370,3 +439,200 @@ def _column_index(cols: tuple, device):
     ``device``, made once: indexing with a Python list would copy it to
     the device on every frame, which a CUDA graph cannot capture."""
     return torch.tensor(cols, dtype=torch.int64, device=device)
+
+
+# --- K10: the kernel of csrc/gbuffer.cu --------------------------------------
+
+N_GEO = 15  # kGeo: wp 0-2, n 3-5, t 6-8, bt 9-11, uv0 12-13, handedness 14
+MAX_MAT = 31  # kMaxMat: fast_used_cols with every slot constant
+SLOT_CONST, SLOT_GATHER, SLOT_PLANES = 0, 1, 2  # GbufArgs.slot_kind
+GBUFFER_OUT = ("base_color", "position", "normal", "emissive", "orm",
+               "velocity")
+
+
+class GbufArgs(ctypes.Structure):
+    """csrc/gbuffer.cu's GbufArgs, field for field."""
+
+    _fields_ = [
+        ("ch", ctypes.c_void_p * (N_GEO + MAX_MAT)),
+        ("st", ctypes.c_longlong * (2 * (N_GEO + MAX_MAT))),
+        ("tri", ctypes.c_void_p),
+        ("tri_st", ctypes.c_longlong * 2),
+        ("mat_id", ctypes.c_void_p),
+        ("mat_id_st", ctypes.c_longlong * 2),
+        ("materials", ctypes.c_void_p),
+        ("mat_stride", ctypes.c_int),
+        ("n_materials", ctypes.c_int),
+        ("mat_col", ctypes.c_int * MAX_MAT),
+        ("groups", ctypes.c_void_p * 3),
+        ("group_words", ctypes.c_int * 3),
+        ("group_rows", ctypes.c_int * 3),
+        ("sk", ctypes.c_void_p),
+        ("slot_kind", ctypes.c_int * 5),
+        ("slot_group", ctypes.c_int * 5),
+        ("slot_word", ctypes.c_int * 5),
+        ("slot_plane", ctypes.c_int * 15),
+        *[(name, ctypes.c_int) for name in (
+            "col_stack_base", "col_stack_size", "col_base_factor",
+            "col_emissive_factor", "col_metallic", "col_roughness")],
+        ("col_const", ctypes.c_int * 5),
+        ("pv", ctypes.c_void_p),
+        ("prev_pv", ctypes.c_void_p),
+        ("inv255", ctypes.c_float),
+        ("ht_abs", ctypes.c_int),
+        ("h", ctypes.c_int),
+        ("w", ctypes.c_int),
+        ("out", ctypes.c_void_p * 6),
+        ("mask", ctypes.c_void_p),
+        ("row_out", ctypes.c_void_p),
+    ]
+
+
+def _channels(x, k):
+    """The k (H, W) channel planes of a TailInputs field, as views."""
+    return list(x) if isinstance(x, tuple) else [x[..., c] for c in range(k)]
+
+
+def tail_args(tri, src, pv, prev_pv, scene, slot_map, sk=None,
+              plane_of=None, debug=False):
+    """What K10 reads: (GbufArgs, the tensors it writes and keeps alive).
+    ``sk``/``plane_of``: the stack_planes kernel's planes and their
+    (slot, channel) index, on the stacks path.  ``debug``: also keep
+    ``row_out``, each pixel's texture-stack row (-1 where none is
+    gathered).  Pure Python over the tensors' pointers, shapes and
+    strides: nothing is read from the device, and the outputs come from
+    the caching allocator, so a CUDA graph captures the call."""
+    h, w = tri.shape
+    dev = tri.device
+    used = M.fast_used_cols(slot_map)
+    col_pos = {c: i for i, c in enumerate(used)}
+    geo = (_channels(src.world_pos, 3) + _channels(src.n_in, 3)
+           + _channels(src.t_in, 3) + _channels(src.bt_in, 3)
+           + _channels(src.uv0, 2) + [src.handed])
+    mat = [] if src.mat_cols is None else _channels(src.mat_cols,
+                                                   src.mat_cols.shape[-1])
+    if src.mat_cols is None and src.mat_plane is None:
+        raise ValueError("gbuffer: no material columns and no material ids")
+    if src.mat_cols is not None and len(mat) != len(used):
+        raise ValueError(f"gbuffer: {len(mat)} material columns, expected "
+                         f"{len(used)} for slot map {slot_map}")
+    if len(used) > MAX_MAT:
+        raise ValueError(f"gbuffer: {len(used)} material columns, the "
+                         f"kernel takes {MAX_MAT}")
+    planes = geo + mat + ([src.mat_plane] if src.mat_cols is None else [])
+    for i, t in enumerate(planes):
+        if (tuple(t.shape) != (h, w) or t.dtype != torch.float32
+                or t.device != dev):
+            raise ValueError(f"gbuffer: input plane {i} is {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}, expected "
+                             f"float32 {(h, w)} on {dev}")
+    if tri.dtype != torch.int32:
+        raise TypeError(f"gbuffer: tri is {tri.dtype}, expected int32")
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    keep = {k: empty(h, w, 2 if k == "velocity" else 3)
+            for k in GBUFFER_OUT}
+    keep["mask"] = empty(h, w, dtype=torch.bool)
+    if debug:
+        keep["row_out"] = empty(h, w, dtype=torch.int32)
+    small = {"pv": pv.contiguous(), "prev_pv": prev_pv.contiguous()}
+    keep.update(small)
+    a = GbufArgs()
+    a.ch[:len(geo) + len(mat)] = [t.data_ptr() for t in geo + mat]
+    a.st[:2 * (len(geo) + len(mat))] = [s for t in geo + mat
+                                        for s in t.stride()]
+    a.tri, a.tri_st[:] = tri.data_ptr(), tri.stride()
+    if src.mat_cols is None:
+        mats = scene.materials
+        if mats.dtype != torch.float32 or mats.stride(-1) != 1 \
+                or mats.device != dev:
+            raise ValueError("gbuffer: scene.materials must be float32 "
+                             f"rows on {dev}")
+        a.mat_id, a.mat_id_st[:] = src.mat_plane.data_ptr(), \
+            src.mat_plane.stride()
+        a.materials, a.mat_stride = mats.data_ptr(), mats.stride(0)
+        a.n_materials = mats.shape[0]
+        a.mat_col[:len(used)] = used
+    groups = _stack_groups(scene, slot_map)
+    if sk is None and any(p >= 0 for p in slot_map):
+        for g in groups:
+            if (g.dtype != torch.int32 or g.dim() != 2 or g.shape[1] % 4
+                    or not g.is_contiguous() or g.data_ptr() % 16
+                    or g.device != dev):
+                raise ValueError(
+                    f"gbuffer: stack group {tuple(g.shape)} {g.dtype} must "
+                    f"be (rows, 4k) int32, contiguous, 16-byte aligned")
+        a.groups[:len(groups)] = [g.data_ptr() for g in groups]
+        a.group_words[:len(groups)] = [g.shape[1] for g in groups]
+        a.group_rows[:len(groups)] = [g.shape[0] for g in groups]
+        spec, plane_of_gather = out_spec(slot_map,
+                                         [g.shape[1] for g in groups])
+    elif sk is not None:
+        if (tuple(sk.shape[1:]) != (h, w) or not sk.is_contiguous()
+                or sk.dtype != torch.float32 or sk.device != dev):
+            raise ValueError(f"gbuffer: stack planes {tuple(sk.shape)} "
+                             f"must be contiguous float32 (n, {h}, {w})")
+        a.sk = sk.data_ptr()
+    for k, p in enumerate(slot_map):
+        if p < 0:
+            a.slot_kind[k] = SLOT_CONST
+            a.col_const[k] = col_pos[M.MAT_CONST_BASE + 4 * k]
+        elif sk is None:
+            g, word, _ = spec[plane_of_gather[(k, SLOT_CHANNELS[k][0])]]
+            a.slot_kind[k], a.slot_group[k], a.slot_word[k] = (
+                SLOT_GATHER, g, word)
+        else:
+            a.slot_kind[k] = SLOT_PLANES
+            for c in range(3):
+                a.slot_plane[3 * k + c] = plane_of.get((k, c), -1)
+    a.col_stack_base = col_pos[M.MAT_STACK_BASE]
+    a.col_stack_size = col_pos[M.MAT_STACK_SIZE]
+    a.col_base_factor = col_pos[M.MAT_BASE_COLOR_FACTOR]
+    a.col_emissive_factor = col_pos[M.MAT_EMISSIVE_FACTOR]
+    a.col_metallic = col_pos[M.MAT_METALLIC_FACTOR]
+    a.col_roughness = col_pos[M.MAT_ROUGHNESS_FACTOR]
+    a.pv, a.prev_pv = small["pv"].data_ptr(), small["prev_pv"].data_ptr()
+    a.inv255 = _INV255
+    a.ht_abs = src.handed_abs
+    a.h, a.w = h, w
+    a.out[:] = [keep[k].data_ptr() for k in GBUFFER_OUT]
+    a.mask = keep["mask"].data_ptr()
+    a.row_out = keep["row_out"].data_ptr() if debug else None
+    return a, keep
+
+
+def _gbuffer_tail_cuda(tri, z, src, pv, prev_pv, scene, slot_map,
+                       stack_kernel, debug=False):
+    """K10 on the current stream, behind the stack_planes kernel on the
+    stacks path (it reads that kernel's planes).  ``debug``: return
+    (GBuffer, the kept tensors of ``tail_args``)."""
+    sk = plane_of = None
+    if stack_kernel and any(p >= 0 for p in slot_map):
+        if src.mat_cols is None:
+            raise ValueError("gbuffer: the stack kernel needs the material "
+                             "columns as planes")
+        col_pos = {c: i for i, c in enumerate(M.fast_used_cols(slot_map))}
+        idx, fx, fy = _stack_anchor(
+            _vec(src.uv0), src.mat_cols[..., col_pos[M.MAT_STACK_BASE]],
+            src.mat_cols[..., col_pos[M.MAT_STACK_SIZE]])
+        groups = _stack_groups(scene, slot_map)
+        spec, plane_of = out_spec(slot_map, [g.shape[1] for g in groups])
+        sk = stack_planes(idx, fx, fy, groups, spec)
+    a, keep = tail_args(tri, src, pv, prev_pv, scene, slot_map, sk,
+                        plane_of, debug)
+    launch_gbuffer(a, keep["mask"])
+    gbuf = GBuffer(**{k: keep[k] for k in GBUFFER_OUT}, depth=z,
+                   mask=keep["mask"])
+    return (gbuf, keep) if debug else gbuf
+
+
+def launch_gbuffer(a, like):
+    """The C entry of csrc/gbuffer.cu on ``like``'s stream; one count."""
+    lib = _build.library()
+    if lib.mo_gbuffer_args_size() != ctypes.sizeof(GbufArgs):
+        raise RuntimeError("gbuffer: GbufArgs does not match csrc/gbuffer.cu")
+    fn = _build.function("mo_gbuffer", [ctypes.POINTER(GbufArgs), _build.P])
+    _build.check("gbuffer", fn(ctypes.byref(a), _build.stream_of(like)))
+    _build.count("gbuffer")

@@ -482,38 +482,12 @@ def ibl_ambient_sky_fast(gbuf, eye_pos, ibl, camera_basis,
 
     c1 = None
     if mirror_half_res:
-        pos_h, n_h, rough_h, depth_h = half_geo
-        rh = brdf.ibl_reflection_dir(pos_h, n_h, eye_pos)
-        l0h = torch.floor(
-            torch.clamp(rough_h * MAX_REFLECTION_LOD, 0.0, nl - 1)
-        ).to(torch.int32)
-        fh, uh, vh = sampling.cube_face_uv(rh)
-        idx0, fx0, fy0, x0i, y0i = sampling.mipcube_quad_index_anchor(
-            sizes, offsets, l0h, fh, uh, vh
-        )
-        sky_h = depth_h >= 1.0
-        eidx, efx, efy = _env_quad_index(
-            ibl, _sky_dirs(h, sky_w, camera_basis, stride=2,
-                           row_offset=row_offset, full_height=full_height)
-        )
-        idx0 = torch.where(sky_h, eidx, idx0)
-        fx0 = torch.where(sky_h, efx, fx0)
-        fy0 = torch.where(sky_h, efy, fy0)
-        if merged_trilinear and parent_mip_half_res:
-            # one 32-byte row: child quad + parent quad (the sky pixels'
-            # parent lanes are garbage, masked out through f)
-            rows8 = sampling.take_rows(ibl.specular_quad_merged.rows, idx0)
-            c0h = sampling.quad_lerp_rgbe(rows8[..., :4], fx0, fy0)
-            last = l0h >= nl - 1
-            fpx = torch.where(last, fx0,
-                              ((x0i & 1).to(fx0.dtype) + fx0) * 0.5)
-            fpy = torch.where(last, fy0,
-                              ((y0i & 1).to(fy0.dtype) + fy0) * 0.5)
-            c1 = upsample(sampling.quad_lerp_rgbe(rows8[..., 4:], fpx, fpy))
-        else:
-            c0h = sampling.quad_lerp_rgbe(
-                sampling.take_rows(mq.rows, idx0), fx0, fy0
-            )
+        c0h, c1h, sky_h, _ = even_grid_taps(
+            half_geo, eye_pos, ibl, camera_basis, h, sky_w,
+            merged_trilinear and parent_mip_half_res, row_offset,
+            full_height)
+        if c1h is not None:
+            c1 = upsample(c1h)
         if cb:
             c0 = _upsample_to_cb_mask_aware(c0h, sky_h, sky_mask, h, w)
         else:
@@ -536,21 +510,7 @@ def ibl_ambient_sky_fast(gbuf, eye_pos, ibl, camera_basis,
         )
 
     if c1 is None and parent_mip_half_res:
-        pos_h, n_h, rough_h = half_geo[:3]
-        r2 = brdf.ibl_reflection_dir(pos_h, n_h, eye_pos)
-        l1h = torch.clamp(
-            torch.floor(
-                torch.clamp(rough_h * MAX_REFLECTION_LOD, 0.0, nl - 1)
-            ).to(torch.int32) + 1,
-            max=nl - 1,
-        )
-        f2, u2, v2 = sampling.cube_face_uv(r2)
-        idx1, fx1, fy1 = sampling.mipcube_quad_index(
-            sizes, offsets, l1h, f2, u2, v2
-        )
-        c1 = upsample(sampling.quad_lerp_rgbe(
-            sampling.take_rows(mq.rows, idx1), fx1, fy1
-        ))
+        c1 = upsample(parent_tap_half(half_geo, eye_pos, ibl)[0])
     elif c1 is None:
         r1 = brdf.ibl_reflection_dir(gbuf.position, gbuf.normal, eye_pos)
         face1, u1, v1 = sampling.cube_face_uv(r1)
@@ -567,6 +527,69 @@ def ibl_ambient_sky_fast(gbuf, eye_pos, ibl, camera_basis,
     return _ambient(gbuf, eye_pos, irradiance, prefiltered), c0, sky_mask
 
 
+def even_grid_taps(half_geo, eye_pos, ibl, camera_basis, height, sky_w,
+                   merged, row_offset=0, full_height=None):
+    """The mirror tap on the even grid (``half_res_geometry``'s planes),
+    the sky samples re-pointed at the environment: (c0h, the merged
+    parent tap c1h or None, the sky flags, the table rows the mirror tap
+    reads).  ``merged``: both taps from one row of the child+parent
+    table, the parent's fractions from the child anchor's parity."""
+    mq = ibl.specular_quad
+    nl = mq.num_levels
+    pos_h, n_h, rough_h, depth_h = half_geo
+    sizes, offsets = sampling._level_tables(mq, depth_h.device)
+    rh = brdf.ibl_reflection_dir(pos_h, n_h, eye_pos)
+    l0h = torch.floor(
+        torch.clamp(rough_h * MAX_REFLECTION_LOD, 0.0, nl - 1)
+    ).to(torch.int32)
+    fh, uh, vh = sampling.cube_face_uv(rh)
+    idx0, fx0, fy0, x0i, y0i = sampling.mipcube_quad_index_anchor(
+        sizes, offsets, l0h, fh, uh, vh
+    )
+    sky_h = depth_h >= 1.0
+    eidx, efx, efy = _env_quad_index(
+        ibl, _sky_dirs(height, sky_w, camera_basis, stride=2,
+                       row_offset=row_offset, full_height=full_height)
+    )
+    idx0 = torch.where(sky_h, eidx, idx0)
+    fx0 = torch.where(sky_h, efx, fx0)
+    fy0 = torch.where(sky_h, efy, fy0)
+    if not merged:
+        return (sampling.quad_lerp_rgbe(sampling.take_rows(mq.rows, idx0),
+                                        fx0, fy0), None, sky_h, idx0)
+    # one 32-byte row: child quad + parent quad (the sky pixels' parent
+    # lanes are garbage, masked out through f)
+    rows8 = sampling.take_rows(ibl.specular_quad_merged.rows, idx0)
+    c0h = sampling.quad_lerp_rgbe(rows8[..., :4], fx0, fy0)
+    last = l0h >= nl - 1
+    fpx = torch.where(last, fx0, ((x0i & 1).to(fx0.dtype) + fx0) * 0.5)
+    fpy = torch.where(last, fy0, ((y0i & 1).to(fy0.dtype) + fy0) * 0.5)
+    return (c0h, sampling.quad_lerp_rgbe(rows8[..., 4:], fpx, fpy), sky_h,
+            idx0)
+
+
+def parent_tap_half(half_geo, eye_pos, ibl):
+    """The parent-mip tap (mip l0 + 1) from its own row on the even grid:
+    (c1h, the table rows it reads)."""
+    mq = ibl.specular_quad
+    nl = mq.num_levels
+    pos_h, n_h, rough_h = half_geo[:3]
+    sizes, offsets = sampling._level_tables(mq, pos_h.device)
+    r2 = brdf.ibl_reflection_dir(pos_h, n_h, eye_pos)
+    l1h = torch.clamp(
+        torch.floor(
+            torch.clamp(rough_h * MAX_REFLECTION_LOD, 0.0, nl - 1)
+        ).to(torch.int32) + 1,
+        max=nl - 1,
+    )
+    f2, u2, v2 = sampling.cube_face_uv(r2)
+    idx1, fx1, fy1 = sampling.mipcube_quad_index(
+        sizes, offsets, l1h, f2, u2, v2
+    )
+    return (sampling.quad_lerp_rgbe(sampling.take_rows(mq.rows, idx1), fx1,
+                                    fy1), idx1)
+
+
 def shading_pass_fast(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
                       num_lights: int, params, ibl=None,
                       shadow_res_divisor=1, parent_mip_half_res=True,
@@ -578,7 +601,7 @@ def shading_pass_fast(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
     passes its first row (even, so that its row parity is the frame's
     checkerboard phase) and the frame's height.
 
-    On a CUDA G-buffer this is the kernel pair of ``csrc/shading.cu``
+    On a CUDA G-buffer this is the kernel of ``csrc/shading.cu``
     (K9), for every option set; on the CPU it is the PyTorch ops of
     ``_shading_fast_plain``, the kernel's plain version."""
     args = (gbuf, ssao, shadow_quad_rows, shadow_size, lights, num_lights,
@@ -636,12 +659,17 @@ def _shading_fast_plain(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
     return torch.clamp(color, 0.0, 1.0)
 
 
-# --- K9: the kernel pair of csrc/shading.cu ----------------------------------
+# --- K9: the kernel of csrc/shading.cu ---------------------------------------
 
 # the PCF table layouts, read off the table as calculate_shadow_fast reads
 # them (csrc/shading.cu kPcf*)
 PCF_NONE, PCF_U16_HALF, PCF_U16_FULL, PCF_F32_WIDE = 0, 1, 2, 3
 PCF_DIVISORS = (1, 2, 4)
+# what csrc/shading.cu keeps in shared memory: the light rows' columns it
+# reads (kLightCols), their bytes (kMaxLightBytes), the specular levels
+LIGHT_COLS = 19
+MAX_LIGHT_BYTES = 40 * 1024
+MAX_LEVELS = 16
 
 
 def pcf_layout(shadow_quad_rows, s: int) -> int:
@@ -676,7 +704,8 @@ class ShadeArgs(ctypes.Structure):
         ("ssao", ctypes.c_void_p),
         ("ssao_strides", ctypes.c_longlong * 2),
         *[(name, ctypes.c_void_p) for name in (
-            "out", "c0h", "c1h", "skyh", "pcf", "lights", "eye", "light_pv",
+            "out", "c0h", "c1h", "skyh", "pcf", "rows_h", "lights", "eye",
+            "light_pv",
             "right", "up", "direction", "near", "near_wh", "sh9",
             "spec_rows", "merged_rows", "sizes", "offsets", "pcf_rows")],
         *[(name, ctypes.c_int) for name in (
@@ -697,10 +726,13 @@ def _ptr(t):
 def shade_args(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
                num_lights, params, ibl, shadow_res_divisor,
                parent_mip_half_res, mirror_half_res, merged_trilinear, cb,
-               row_offset, full_height):
-    """What the kernel pair reads: (ShadeArgs, the tensors it writes and
-    keeps alive -- ``out`` and the even-grid planes --, whether the
-    even-grid launch runs).  Pure Python over the tensors' pointers,
+               row_offset, full_height, debug=False):
+    """What the kernel reads: (ShadeArgs, the tensors it writes and keeps
+    alive -- ``out`` and, with ``debug``, the even-grid samples the kernel
+    keeps in shared memory: the mirror/sky tap ``c0h``, the parent tap
+    ``c1h``, the sky flags ``skyh``, the table rows the two taps read
+    ``rows_h``, and the PCF factor ``pcf`` on the divisor's grid, each where
+    the options evaluate it).  Pure Python over the tensors' pointers,
     shapes and strides: nothing is read from the device, and the outputs
     come from the caching allocator, so a CUDA graph captures the call."""
     dev = gbuf.depth.device
@@ -721,6 +753,9 @@ def shade_args(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
     if tuple(ssao.shape) != (h, w):
         raise ValueError(f"shading: ssao is {tuple(ssao.shape)}, expected "
                          f"{(h, w)}")
+    if lights.shape[1] < LIGHT_COLS:
+        raise ValueError(f"shading: light rows of {lights.shape[1]} "
+                         f"columns, the kernel reads {LIGHT_COLS}")
     layout = pcf_layout(shadow_quad_rows, shadow_size)
     has_ibl = ibl is not None
     mirror = has_ibl and mirror_half_res
@@ -730,15 +765,17 @@ def shade_args(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
     hq, wq = ((hh + 1) // 2, (wh + 1) // 2) if shadow_res_divisor == 4 \
         else (hh, wh)
 
-    def empty(shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
+    def empty(shape, dtype=torch.float32, want=True):
+        return torch.empty(shape, dtype=dtype, device=dev) \
+            if want and debug else None
 
     keep = {
-        "out": empty((h, w, 3)),
-        "c0h": empty((hh, wh, 3)) if mirror else None,
-        "c1h": empty((hh, wh, 3)) if parent else None,
-        "skyh": empty((hh, wh), torch.uint8) if mirror else None,
-        "pcf": empty((hq, wq)) if half_pcf else None,
+        "out": torch.empty((h, w, 3), dtype=torch.float32, device=dev),
+        "c0h": empty((hh, wh, 3), want=mirror),
+        "c1h": empty((hh, wh, 3), want=parent),
+        "skyh": empty((hh, wh), torch.uint8, want=mirror),
+        "rows_h": empty((hh, wh, 2), torch.int32, want=mirror or parent),
+        "pcf": empty((hq, wq), want=half_pcf),
     }
     if lights.stride(-1) != 1:
         lights = lights.contiguous()
@@ -751,7 +788,7 @@ def shade_args(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
     a.strides[:] = [st for t in planes for st in t.stride()]
     a.depth, a.depth_strides[:] = gbuf.depth.data_ptr(), gbuf.depth.stride()
     a.ssao, a.ssao_strides[:] = ssao.data_ptr(), ssao.stride()
-    for k in ("out", "c0h", "c1h", "skyh", "pcf", "lights"):
+    for k in ("out", "c0h", "c1h", "skyh", "rows_h", "pcf", "lights"):
         setattr(a, k, _ptr(keep[k]))
     a.eye, a.light_pv = _ptr(small["eye_pos"]), _ptr(small["light_proj_view"])
     a.right, a.up = _ptr(small["right"]), _ptr(small["up"])
@@ -781,12 +818,18 @@ def shade_args(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
     a.sky_w = 2 * w if cb else w
     a.light_stride = lights.stride(0)
     a.n_lights = min(lights.shape[0], num_lights)
-    return a, keep, mirror or parent or half_pcf
+    if has_ibl and a.num_levels > MAX_LEVELS:
+        raise ValueError(f"shading: {a.num_levels} specular levels, the "
+                         f"kernel takes {MAX_LEVELS}")
+    if a.n_lights * LIGHT_COLS * 4 > MAX_LIGHT_BYTES:
+        raise ValueError(f"shading: {a.n_lights} lights, the kernel takes "
+                         f"{MAX_LIGHT_BYTES // (4 * LIGHT_COLS)}")
+    return a, keep
 
 
-def _shading_fast_cuda(*args):
-    """K9: the even-grid launch (when a half-rate tap or the strided PCF
-    runs) and the pixel launch, on the current stream."""
+def _shading_fast_cuda(*args, debug=False):
+    """K9: one launch on the current stream.  ``debug``: also write the
+    even-grid samples (shade_args) and return (colour, the kept tensors)."""
     gbuf, ssao, rows, _, lights, _, params, ibl = args[:8]
     tensors = [getattr(gbuf, k) for k in GBUFFER_PLANES] + [
         gbuf.depth, ssao, lights, params["eye_pos"]] + (
@@ -802,21 +845,16 @@ def _shading_fast_cuda(*args):
             dtypes=(torch.int32, torch.int32))
     if rows is not None:
         _build.require_cuda("shading", rows)
-    a, keep, even = shade_args(*args)
-    launch_shading(a, even, keep["out"])
-    return keep["out"]
+    a, keep = shade_args(*args, debug=debug)
+    launch_shading(a, keep["out"])
+    return (keep["out"], keep) if debug else keep["out"]
 
 
-def launch_shading(a, even, like):
-    """The C entries of csrc/shading.cu on ``like``'s stream; one count
-    per launch."""
+def launch_shading(a, like):
+    """The C entry of csrc/shading.cu on ``like``'s stream; one count."""
     lib = _build.library()
     if lib.mo_shading_args_size() != ctypes.sizeof(ShadeArgs):
         raise RuntimeError("shading: ShadeArgs does not match csrc/shading.cu")
-    stream = _build.stream_of(like)
-    for name, run in (("mo_shading_even", even), ("mo_shading_pixel", True)):
-        if not run:
-            continue
-        fn = _build.function(name, [ctypes.POINTER(ShadeArgs), _build.P])
-        _build.check("shading", fn(ctypes.byref(a), stream))
-        _build.count("shading")
+    fn = _build.function("mo_shading", [ctypes.POINTER(ShadeArgs), _build.P])
+    _build.check("shading", fn(ctypes.byref(a), _build.stream_of(like)))
+    _build.count("shading")

@@ -22,9 +22,13 @@ near-plane triangles across a band border, from whole and band-local
 bins, each band also against the whole-frame kernel); of the SSAO
 kernel's (ragged planes, a row offset, three widths) and of its halo
 form's (K4b: bands shorter than their halo, ragged bands, against the
-whole-image kernel); and of the reconstruct
+whole-image kernel); of the reconstruct
 kernel's two entries (planes of odd or unaligned width, strips that end
-inside a warp, one row).
+inside a warp, one row); of the shading kernel's (K9: random G-buffers,
+its even-grid samples through the debug planes, one launch, no
+fallback); and of the G-buffer tail's (K10: random inputs laid out as
+each of its five sources has them, through its debug rows, no
+fallback on any fast path's frame).
 """
 
 import os
@@ -765,7 +769,7 @@ def test_shading_kernel_on_random_gbuffers(cuda, n_lights, cb):
 
 @pytest.mark.cuda
 def test_shading_never_falls_back_on_the_card(cuda, monkeypatch):
-    """A card G-buffer launches the kernel pair and never the PyTorch
+    """A card G-buffer launches the kernel, once, and never the PyTorch
     ops; the full-rate mirror tap on the checkerboard raises, as the plain
     version does."""
     from mo_renderer_tpu_torch.kernels import _build
@@ -781,7 +785,83 @@ def test_shading_never_falls_back_on_the_card(cuda, monkeypatch):
     out = Sh.shading_pass_fast(*args[:7], ibl=args[7], shadow_res_divisor=2,
                                cb=True)
     torch.cuda.synchronize()
-    assert out.is_cuda and _build.LAUNCHES["shading"] == before + 2
+    assert out.is_cuda and _build.LAUNCHES["shading"] == before + 1
     with pytest.raises(NotImplementedError, match="spec_mirror_half_res"):
         Sh.shading_pass_fast(*args[:7], ibl=args[7], mirror_half_res=False,
                              cb=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("divisor", [2, 4])
+@pytest.mark.parametrize("cb", [False, True])
+def test_shading_even_grid_samples_match_plain(cuda, divisor, cb):
+    """K9's even-grid samples, which stay in shared memory on the frame's
+    path, through its debug planes: the table rows and sky flags equal the
+    plain version's, the taps within the bar, no PCF sample a tap apart
+    (tiles whose halo the next tile also evaluates: an odd even-grid
+    width)."""
+    import chip_smoke
+
+    args = list(_shading_case(cuda, 2, cb))
+    args[8] = divisor
+    chip_smoke.shading_taps_check(tuple(args))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slot_map", [(0, 1, 2, 3, 4), (-1, 0, -1, 1, -1)])
+@pytest.mark.parametrize("source", ["planes", "torch", "megakernel",
+                                    "stacks", "band"])
+def test_gbuffer_tail_kernel_matches_plain(cuda, source, slot_map):
+    """K10 on random inputs laid out as each caller has them (views of
+    planes, of gathered rows, the megakernel's planes with material ids
+    to round, the stack_planes kernel's planes, a band's rows): every
+    plane within rtol 2e-3 / atol 1e-4, the mask equal, no texel row
+    apart from the plain version's."""
+    import chip_smoke
+
+    for seed in (0, 1):
+        args = chip_smoke.random_tail_call(source, slot_map, cuda, seed=seed)
+        err, ok, bar, rows = chip_smoke.gbuffer_check(args)
+        torch.cuda.synchronize()
+        assert ok, (seed, err, bar, rows)
+
+
+@pytest.mark.cuda
+def test_gbuffer_tail_never_falls_back_on_the_card(cuda, monkeypatch):
+    """A card visibility plane launches K10, once a call, on every input
+    source and on every fast path's frame, and never the PyTorch ops of
+    the tail."""
+    import chip_smoke
+    from mo_renderer_tpu_torch import Renderer, scenes
+    from mo_renderer_tpu_torch.kernels import _build
+    from mo_renderer_tpu_torch.passes import gbuffer as GB
+
+    def plain(*a, **k):
+        raise AssertionError("the card ran the PyTorch ops")
+
+    monkeypatch.setattr(GB, "_gbuffer_tail_plain", plain)
+    monkeypatch.setattr(GB, "_texture_and_assemble", plain)
+    for source in chip_smoke.GBUFFER_SOURCES:
+        tri, z, src, pv, prev_pv, scene, slot_map, stack = \
+            chip_smoke.random_tail_call(source, (0, 1, 2, 3, 4), cuda)
+        before = _build.LAUNCHES["gbuffer"]
+        g = GB.gbuffer_tail(tri, z, src, {"proj_view": pv,
+                                          "prev_proj_view": prev_pv},
+                            scene, slot_map, stack_kernel=stack)
+        torch.cuda.synchronize()
+        assert g.base_color.is_cuda and g.mask.dtype == torch.bool
+        assert _build.LAUNCHES["gbuffer"] == before + 1, source
+    for overrides, scene_kw in (
+            ({}, {}), ({"attrs_plane_kernel": False}, {}),
+            ({"raster_interp_attrs": True}, {}),
+            ({"attrs_plane_kernel": False, "stack_plane_kernel": True},
+             {"all_slots": True})):
+        cfg = scenes.tiny_config(**overrides)
+        world = scenes.tiny_world(**scene_kw)
+        world.insert_resource(scenes.camera(cfg))
+        r = Renderer(cfg, cuda)
+        r.prepare(world)
+        before = _build.LAUNCHES["gbuffer"]
+        r.render(world)
+        assert _build.LAUNCHES["gbuffer"] > before, overrides

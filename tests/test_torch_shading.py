@@ -61,6 +61,7 @@ def test_constant_tables_match_the_python_ones():
 
 _C_TYPES = {"const float*": ctypes.c_void_p, "float*": ctypes.c_void_p,
             "uint8_t*": ctypes.c_void_p, "const int*": ctypes.c_void_p,
+            "int*": ctypes.c_void_p,
             "const void*": ctypes.c_void_p, "long long": ctypes.c_longlong,
             "int": ctypes.c_int}
 
@@ -131,17 +132,19 @@ def _args(gbuf, ssao, rows, s, lights, n, ibl, divisor=4, parent=True,
     (False, 1, 17, 47, (9, 24), None),
 ])
 def test_shade_args_sizes(ibl, cb, divisor, h, w, even, pcf):
-    """Domain, even grid and PCF grid; the planes the kernel writes."""
+    """Domain, even grid and PCF grid; the planes the kernel writes (the
+    even-grid samples with ``debug``)."""
     s = 64
     rows = S.build_pcf_window_u16_half(torch.rand(s, s))
-    a, keep, run_even = Sh.shade_args(*_args(
+    a, keep = Sh.shade_args(*_args(
         _gbuf(h, w), torch.rand(h, w), rows, s, torch.zeros(3, 20), 2, ibl,
-        divisor=divisor, cb=cb))
+        divisor=divisor, cb=cb), debug=True)
     assert (a.h, a.w, a.hh, a.wh) == (h, w) + even
-    assert run_even
     assert keep["out"].shape == (h, w, 3) and a.out == keep["out"].data_ptr()
     assert keep["c0h"].shape == keep["c1h"].shape == even + (3,)
     assert keep["skyh"].dtype == torch.uint8
+    assert keep["rows_h"].shape == even + (2,)
+    assert keep["rows_h"].dtype == torch.int32
     if pcf is None:
         assert keep["pcf"] is None and a.pcf is None
     else:
@@ -159,7 +162,7 @@ def test_shade_args_strides_lights_and_tables(ibl):
     ssao = big[4:36, 2:42]  # a view, as the frame's SSAO slice is
     gb.depth = big.t()[:32, :40]  # a transposed view
     lights = torch.rand(3, 20)
-    a, keep, _ = Sh.shade_args(*_args(
+    a, keep = Sh.shade_args(*_args(
         gb, ssao, None, 64, lights, 7, ibl, row_offset=8, full_height=64))
     assert a.ssao == ssao.data_ptr() and tuple(a.ssao_strides) == (48, 1)
     assert a.depth == gb.depth.data_ptr()
@@ -185,23 +188,28 @@ def test_shade_args_strides_lights_and_tables(ibl):
 ])
 def test_shade_args_specular_flags(ibl, flags, want):
     """Which even-grid taps run and which table the mirror tap reads; the
-    merged table only when both taps are on the even grid."""
+    merged table only when both taps are on the even grid.  The even-grid
+    samples stay in shared memory: only ``debug`` gives them planes."""
     parent, mirror, merged = flags
-    a, keep, run_even = Sh.shade_args(*_args(
-        _gbuf(8, 16), torch.rand(8, 16), None, 64, torch.zeros(1, 20), 1,
-        ibl, parent=parent, mirror=mirror, merged=merged, cb=False))
+    args = _args(_gbuf(8, 16), torch.rand(8, 16), None, 64,
+                 torch.zeros(1, 20), 1, ibl, parent=parent, mirror=mirror,
+                 merged=merged, cb=False)
+    a, keep = Sh.shade_args(*args, debug=True)
     assert (a.mirror_half, a.parent_half, bool(a.merged_rows),
             a.has_ibl - 1) == want
-    assert run_even == bool(parent or mirror)
     assert (keep["c0h"] is not None) == mirror
     assert (keep["c1h"] is not None) == parent
+    assert (keep["rows_h"] is not None) == bool(parent or mirror)
+    a, keep = Sh.shade_args(*args)
+    assert all(keep[k] is None and getattr(a, k) is None
+               for k in ("c0h", "c1h", "skyh", "rows_h", "pcf"))
 
 
 def test_shade_args_without_ibl_or_shadow():
-    a, keep, run_even = Sh.shade_args(*_args(
+    a, keep = Sh.shade_args(*_args(
         _gbuf(8, 16), torch.rand(8, 16), None, 64, torch.zeros(1, 20), 1,
-        None))
-    assert not a.has_ibl and not run_even
+        None), debug=True)
+    assert not a.has_ibl
     assert a.spec_rows is None and a.sh9 is None
     assert all(keep[k] is None for k in ("c0h", "c1h", "skyh", "pcf"))
 
@@ -247,3 +255,19 @@ def test_cpu_gbuffer_runs_the_plain_version(ibl, monkeypatch):
     got = Sh.shading_pass_fast(*args[:7], ibl=ibl, shadow_res_divisor=4,
                                cb=True)
     assert torch.equal(got, Sh._shading_fast_plain(*args))
+
+
+def test_shared_memory_limits_follow_the_c_constants():
+    """The limits shade_args checks before a launch are the kernel's own:
+    the light columns it copies to shared memory, their bytes, the
+    specular levels; a light table past them raises on the host."""
+    consts = {}
+    for name, v in re.findall(r"constexpr int (k\w+) = ([^;]+);", _source()):
+        consts[name] = eval(v, {}, dict(consts))
+    assert (consts["kLightCols"], consts["kMaxLightBytes"],
+            consts["kMaxLevels"]) == (Sh.LIGHT_COLS, Sh.MAX_LIGHT_BYTES,
+                                      Sh.MAX_LEVELS)
+    n = Sh.MAX_LIGHT_BYTES // (4 * Sh.LIGHT_COLS) + 1
+    with pytest.raises(ValueError, match="lights"):
+        Sh.shade_args(*_args(_gbuf(8, 16), torch.rand(8, 16), None, 64,
+                             torch.zeros(n, 20), n, None))
