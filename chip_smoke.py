@@ -10,7 +10,8 @@ Phases (each raises on failure; the script then exits non-zero):
 1. Build: compile the CUDA kernels from csrc/ with nvcc (one process per
    source, all at once, each with its unit's flags); print each hand
    kernel's registers, stack bytes and static SASS instruction count
-   (FP32 arithmetic and special-function ones apart), from cuobjdump.
+   (FP32 arithmetic, special-function, global and shared load and store
+   instructions apart), from cuobjdump.
 2. Kernels: capture each kernel's inputs from one 1920x1080 frame of the
    asset-free scene on each of the port's four paths (default, reference
    sampling, megakernel, and the texture-stack path on the scene's
@@ -59,7 +60,17 @@ Phases (each raises on failure; the script then exits non-zero):
    attrs_plane_kernel=False tensors, the megakernel's planes, the stacks
    path, a band of the default path's G-buffer), each plane at rtol 2e-3
    / atol 1e-4 and 0 texel rows apart (through its debug output); the
-   same as ``gbuffer@grid`` on grid_world(10)'s calls.
+   same as ``gbuffer@grid`` on grid_world(10)'s calls.  Then the
+   reference path's shading pass ``shading_ref`` (K11,
+   ``csrc/shading_ref.cu``: one launch, one thread a pixel) on the
+   reference path's call (its G-buffer, SSAO, raw 2048^2 shadow map, IBL
+   maps) and as ``shading_ref@grid``, at SHADING_BAR, with its PCF
+   compares and tap texels, cube faces, mip levels and sample texels
+   through its debug output equal to the plain version's
+   (``shading_ref_check``); its bytes count the map texels the samples
+   read once each.  ``check_shading_ref_options`` holds K11 without IBL,
+   without a shadow map, on the UV1 scene under default flags and with a
+   sun, a point and a spot light.
    ``check_shading_options`` holds K9 at the
    same bar, at 1920x1080, on every knob set of the reference's budget
    matrix (``scenes.BUDGET_BOUNDS`` on ``scenes.budget_world``: the
@@ -140,12 +151,12 @@ Phases (each raises on failure; the script then exits non-zero):
    and profiled the same way; and ``spawn@grid``, five cube spawns into
    grid_world(10), none of which captures: the medians of the
    ``_sync_topology`` ms, of the first frame after a spawn and of the
-   next, and of a full ``prepare`` of the same world.  The ``default``
-   and ``default@grid`` paths also print the eager frame's launches and
-   device ms by pass (the functions ``frame_program`` calls, wrapped in
-   ``torch.profiler.record_function`` ranges by this script only; K3's,
-   K7's and K10's device time is added to the G-buffer and K9's to
-   shading by kernel name).  Then
+   next, and of a full ``prepare`` of the same world.  The ``default``,
+   ``reference`` and their ``@grid`` paths also print the eager frame's
+   launches and device ms by pass (the functions ``frame_program`` calls,
+   wrapped in ``torch.profiler.record_function`` ranges by this script
+   only; K3's, K7's and K10's device time is added to the G-buffer and
+   K9's and K11's to shading by kernel name).  Then
    ``sequence`` (the default path's 16 orbit poses as one
    ``render_sequence_device`` call, 3 timed calls beside an eager loop
    over the same poses: ms/frame, host launch calls and device kernels per
@@ -221,6 +232,9 @@ KERNELS = {
     # velocity lines are jnp code that XLA fuses
     "gbuffer": ("mo_renderer_tpu_torch/csrc/gbuffer.cu",
                 "mo_renderer_tpu/passes/gbuffer.py:361"),
+    # nor here: the reference's shading_pass is jnp code too
+    "shading_ref": ("mo_renderer_tpu_torch/csrc/shading_ref.cu",
+                    "mo_renderer_tpu/passes/shading.py:149"),
 }
 # K10's input sources: the default path's attr_planes planes, the
 # attrs_plane_kernel=False branch's tensors, the megakernel's planes, the
@@ -240,7 +254,7 @@ PATHS = {
                      "gbuffer", "ssao", "shading", "interleave_present"),
                 {}),
     "reference": ({"fast_sampling": False},
-                  ("raster_full", "raster_depth", "ssao"), {}),
+                  ("raster_full", "raster_depth", "ssao", "shading_ref"), {}),
     "megakernel": ({"raster_interp_attrs": True},
                    ("raster_attrs", "raster_depth", "gbuffer", "ssao",
                     "shading"), {}),
@@ -252,7 +266,7 @@ PATHS = {
 # the dense inputs of phase 2: the frames of scenes.grid_world that give
 # them (EngineConfig overrides) and the kernels timed on them
 GRID_KERNELS = ("raster_slim", "raster_depth", "raster_full", "ssao",
-                "raster_attrs", "shading", "gbuffer")
+                "raster_attrs", "shading", "gbuffer", "shading_ref")
 BAND_GRID_KERNELS = ("raster_slim_band", "raster_depth_band")
 # and the three paths phase 4 drives on that scene
 GRID_PATHS = {
@@ -303,6 +317,15 @@ SHADE_IBL_FLOPS_PER_PIXEL = 950
 SHADE_FLOPS_PER_SKY_PIXEL = 20
 SHADE_FLOPS_PER_TAP = 80
 SHADE_FLOPS_PER_PCF_SAMPLE = 280
+# K11, from csrc/shading_ref.cu: per lit pixel the view vector, F0, the
+# combine and the tonemap (as K9) and Cook-Torrance per light; with a
+# shadow map the light projection and 9 bilinear taps; with IBL two cube
+# faces, the reflection, 4 bilinear samples (irradiance, two specular
+# levels, the BRDF LUT) and the split sum; a sky pixel its ray, face and
+# one bilinear sample
+REF_FLOPS_PCF = 30 + 9 * 24
+REF_FLOPS_IBL = 300
+REF_FLOPS_SKY = 90
 SHADING_BAR = ("colour rtol 2e-3 / atol 1e-4 per pixel; packed frame "
                "<= 1 LSB on < 1% of pixels")
 
@@ -312,7 +335,8 @@ def sass_report(path):
     the hand kernels compiled into ``path`` (the built library, or a
     cubin), from ``cuobjdump``: registers and stack bytes a thread, and the
     static SASS instruction count, of which FP32 arithmetic (FFMA, FMUL,
-    FADD) and special-function (MUFU) instructions."""
+    FADD), special-function (MUFU), global (LDG, STG) and shared (LDS,
+    STS) memory instructions."""
     import re
     import shutil
     import subprocess
@@ -342,7 +366,7 @@ def sass_report(path):
     def entry(mangled):
         return out.setdefault(name(mangled), {
             "registers": 0, "stack": 0, "instructions": 0, "fp32": 0,
-            "mufu": 0})
+            "mufu": 0, "ldg": 0, "stg": 0, "lds": 0, "sts": 0})
 
     # a template's instances add up under one name; registers: the most
     for m in re.finditer(r"Function (\S+):\s*REG:(\d+) STACK:(\d+)",
@@ -362,6 +386,8 @@ def sass_report(path):
             cur["instructions"] += 1
             cur["fp32"] += m.group(1) in ("FFMA", "FMUL", "FADD")
             cur["mufu"] += m.group(1) == "MUFU"
+            for op in ("LDG", "STG", "LDS", "STS"):
+                cur[op.lower()] += m.group(1) == op
     return out
 
 
@@ -595,6 +621,192 @@ def shading_work(args):
     n_bytes += sum(row_bytes[k] * n for k, n in unique.items())
     return n_bytes, flops, {"lights": n_l, "sky_pixels": n_sky,
                             "unique_rows": unique}
+
+
+def shading_ref_args(args, kwargs):
+    """A recorded ``shading_pass`` call as the 7 positional arguments its
+    kernel (``_shading_ref_cuda``) and its plain version
+    (``_shading_ref_plain``) take."""
+    import inspect
+
+    from mo_renderer_tpu_torch.passes import shading as Sh
+
+    bound = inspect.signature(Sh.shading_pass).bind(*args, **kwargs)
+    bound.apply_defaults()
+    return tuple(bound.arguments.values())
+
+
+def _pack_anchor(x0, y0):
+    """Texel anchors packed as K11's debug output packs them."""
+    import torch
+
+    v = ((y0.to(torch.int64) & 0xFFFF) << 16) | (x0.to(torch.int64) & 0xFFFF)
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
+
+
+def shading_ref_choices(args):
+    """The plain version's discrete choices on a ``shading_pass`` call, as
+    K11's debug output keeps them (``Sh.REF_DEBUG``: the PCF compare bits
+    and beyond_far, the tap anchors, the cube faces, the lower mip level,
+    the sample anchors; -1 where not evaluated), recomputed with the plain
+    version's own torch ops; and the map texels its samples read, {map:
+    (flat texel indices, bytes a texel)}."""
+    import torch
+
+    from mo_renderer_tpu_torch.device import sampling as Sm
+    from mo_renderer_tpu_torch.kernels import brdf
+    from mo_renderer_tpu_torch.passes import shading as Sh
+
+    gbuf, _, smap, _, _, params, ibl = args
+    h, w = gbuf.depth.shape
+    dev = gbuf.depth.device
+    out = torch.full((h, w, len(Sh.REF_DEBUG)), -1, dtype=torch.int32,
+                     device=dev)
+    sky = (gbuf.depth >= 1.0) if ibl is not None \
+        else torch.zeros_like(gbuf.depth, dtype=torch.bool)
+    lit = ~sky
+    none = torch.tensor(-1, dtype=torch.int32, device=dev)
+    texels = {}
+
+    def axis(t, n, n_int=None):
+        """The anchor floor(t * n - 0.5) and its two clamped indices."""
+        n_int = n if n_int is None else n_int
+        x0 = torch.floor(t * n - 0.5).to(torch.int32)
+        lo = torch.clamp(x0, min=0), torch.clamp(x0 + 1, min=0)
+        if torch.is_tensor(n_int):
+            return (x0, *[torch.minimum(i, n_int - 1) for i in lo])
+        return (x0, *[torch.clamp(i, max=n_int - 1) for i in lo])
+
+    def sample(u, v, n, where, base=0, n_f=None):
+        """A bilinear sample's packed anchor and its four texel rows at the
+        pixels ``where``."""
+        ax, x0, x1 = axis(u, n if n_f is None else n_f, n)
+        ay, y0, y1 = axis(v, n if n_f is None else n_f, n)
+        rows = [(base + yy * n + xx)[where] for yy in (y0, y1)
+                for xx in (x0, x1)]
+        return _pack_anchor(ax, ay), rows
+
+    if smap is not None:
+        p = torch.cat([gbuf.position, torch.ones_like(gbuf.position[..., :1])],
+                      -1)
+        lp = p @ params["light_proj_view"].t()
+        wc = torch.where(lp[..., 3].abs() > 1e-20, lp[..., 3], 1.0)
+        proj = lp[..., :3] / wc[..., None]
+        uv = proj[..., :2] * 0.5 + 0.5
+        current = proj[..., 2] - Sh.SHADOW_BIAS
+        s = smap.shape[0]
+        texel = 1.0 / s
+        bits = (proj[..., 2] > 1.0).to(torch.int32) << 9
+        rows = []
+        for t, (dx, dy) in enumerate(Sh.POISSON):
+            tap = torch.stack([uv[..., 0] + dx * texel,
+                               uv[..., 1] + dy * texel], dim=-1)
+            closest = Sm.sample_bilinear(smap[..., None], tap,
+                                         Sm.CLAMP_TO_EDGE)[..., 0]
+            bits = bits | ((current > closest).to(torch.int32) << t)
+            anchor, r = sample(tap[..., 0], tap[..., 1], s, lit)
+            out[..., 1 + t] = torch.where(lit, anchor, none)
+            rows += r
+        out[..., 0] = torch.where(lit, bits, none)
+        texels["shadow"] = (rows, 4)
+    if ibl is not None:
+        mips = ibl.specular_mips
+        nl = mips.num_levels
+        sizes, offsets = Sm._level_tables(mips, dev)
+        fn, un, vn = Sm.cube_face_uv(gbuf.normal)
+        fr, ur, vr = Sm.cube_face_uv(brdf.ibl_reflection_dir(
+            gbuf.position, gbuf.normal, params["eye_pos"]))
+        fe, ue, ve = Sm.cube_face_uv(Sh._sky_dirs(h, w, params))
+        out[..., 10] = torch.where(lit, fn | (fr << 4), fe << 8)
+        lod = torch.clamp(gbuf.orm[..., 1] * Sh.MAX_REFLECTION_LOD, 0.0,
+                          nl - 1)
+        l0 = torch.floor(lod).to(torch.int32)
+        l1 = torch.clamp(l0 + 1, max=nl - 1)
+        out[..., 11] = torch.where(lit, l0, none)
+        n_irr = ibl.irradiance_faces.shape[1]
+        n_env = ibl.environment_faces.shape[1]
+        got = {"irradiance": sample(un, vn, n_irr, lit, fn * n_irr * n_irr),
+               "env": sample(ue, ve, n_env, sky, fe * n_env * n_env)}
+        spec_rows = []
+        for name, lvl in (("spec0", l0), ("spec1", l1)):
+            n = sizes[lvl.to(torch.int64)]
+            got[name] = sample(ur, vr, n, lit,
+                               offsets[lvl.to(torch.int64)] + fr * n * n,
+                               n.to(torch.float32))
+            spec_rows += got[name][1]
+        v = brdf.normalize(params["eye_pos"] - gbuf.position, eps=1e-20)
+        ndotv = torch.clamp(brdf.dot3(gbuf.normal, v), min=0.0)
+        lh, lw = ibl.brdf_lut.shape[:2]
+        lax, lx0, lx1 = axis(ndotv, lw)
+        lay, ly0, ly1 = axis(1.0 - gbuf.orm[..., 1], lh)
+        out[..., 15] = torch.where(lit, _pack_anchor(lax, lay), none)
+        for name, (anchor, _) in got.items():
+            out[..., Sh.REF_DEBUG.index(name)] = torch.where(
+                sky if name == "env" else lit, anchor, none)
+        texels.update(
+            irradiance=(got["irradiance"][1], 12), env=(got["env"][1], 12),
+            spec=(spec_rows, 12),
+            lut=([(yy * lw + xx)[lit] for yy in (ly0, ly1)
+                  for xx in (lx0, lx1)], 8))
+    return out, texels
+
+
+def shading_ref_check(args):
+    """K11 against its plain version on one call: (max |err|, ok, bar,
+    {what: "n of N" apart}) -- the colour at SHADING_BAR and, through the
+    debug output, the PCF taps, tap texels, cube faces, mip levels and
+    sample texels that differ; ok needs every count 0."""
+    import torch
+
+    from mo_renderer_tpu_torch.passes import shading as Sh
+
+    k, keep = Sh._shading_ref_cuda(*args, debug=True)
+    err, ok, bar = shading_compare(k, Sh._shading_ref_plain(*args))
+    want, _ = shading_ref_choices(args)
+    got = keep["dbg"]
+    pcf = (got[..., 0] ^ want[..., 0]) & 0x3FF
+    n_pcf = int((want[..., 0] >= 0).sum())
+    counts = {
+        "pcf_taps": (int(sum(((pcf >> t) & 1).sum() for t in range(10))),
+                     10 * n_pcf),
+        "tap_texels": (int((got[..., 1:10] != want[..., 1:10]).sum()),
+                       9 * n_pcf),
+    }
+    for c, name in ((10, "faces"), (11, "levels"),
+                    (slice(12, None), "texels")):
+        counts[name] = (int((got[..., c] != want[..., c]).sum()),
+                        int((want[..., c] >= 0).sum()))
+    ok = ok and all(n == 0 for n, _ in counts.values())
+    return err, ok, bar, {k: f"{n} of {of}" for k, (n, of) in counts.items()}
+
+
+def shading_ref_work(args):
+    """(bytes, FP32 operations, what else to report) of K11 on ``args``:
+    the depth of every pixel read and its colour written once, the
+    G-buffer planes and SSAO of the lit pixels (with IBL a sky pixel reads
+    neither), the light rows and camera once, and of each map the texels
+    this run's samples read, each once (their unique flat indices)."""
+    import torch
+
+    gbuf, _, smap, lights, n_lights, _, ibl = args
+    n_px = gbuf.depth.numel()
+    n_sky = int((gbuf.depth >= 1.0).sum()) if ibl is not None else 0
+    n_lit = n_px - n_sky
+    n_l = min(lights.shape[0], n_lights)
+    n_bytes = (n_px * 4 * (1 + 3) + n_lit * 4 * (5 * 3 + 1)
+               + n_l * lights.shape[1] * 4 + 4 * 32)
+    flops = n_lit * (SHADE_FLOPS_PER_PIXEL + SHADE_FLOPS_PER_LIGHT * n_l)
+    if smap is not None:
+        flops += n_lit * REF_FLOPS_PCF
+    if ibl is not None:
+        flops += n_lit * REF_FLOPS_IBL + n_sky * REF_FLOPS_SKY
+    unique = {}
+    for name, (rows, size) in shading_ref_choices(args)[1].items():
+        unique[name] = int(torch.unique(torch.cat(
+            [r.reshape(-1).to(torch.int64) for r in rows])).numel())
+        n_bytes += unique[name] * size
+    return n_bytes, flops, {"lights": n_l, "sky_pixels": n_sky,
+                            "unique_texels": unique}
 
 
 def tail_source(tri, z, src, params, scene, slot_map, stack_kernel=False):
@@ -852,6 +1064,7 @@ def capture_inputs(cfg, device, frames, want):
         (FG, "reconstruct_present"): FG.reconstruct_present,
         (GB, "stack_planes"): GB.stack_planes,
         (FG, "shading_pass_fast"): FG.shading_pass_fast,
+        (FG, "shading_pass"): FG.shading_pass,
         (GB, "gbuffer_tail"): GB.gbuffer_tail,
         (FG, "gbuffer_pass_fast"): FG.gbuffer_pass_fast,
     }
@@ -880,6 +1093,7 @@ def capture_inputs(cfg, device, frames, want):
         "stack_planes", originals[(GB, "stack_planes")])
     FG.shading_pass_fast = recorder(
         "shading", originals[(FG, "shading_pass_fast")])
+    FG.shading_pass = recorder("shading_ref", originals[(FG, "shading_pass")])
     GB.gbuffer_tail = recorder("gbuffer", originals[(GB, "gbuffer_tail")])
     FG.gbuffer_pass_fast = recorder(
         "gbuffer_pass_fast", originals[(FG, "gbuffer_pass_fast")])
@@ -1271,6 +1485,28 @@ def check_kernels(cfg, device):
             bytes=n_bytes, flops=n_flops, extra=extra,
         )
 
+    def shading_ref(seen):
+        """K11 on the reference path's call (its G-buffer, SSAO, raw
+        shadow map, IBL maps and lights), with its discrete choices through
+        the debug output (``shading_ref_check``)."""
+        args = shading_ref_args(*seen["shading_ref"])
+        err, ok, bar, apart = shading_ref_check(args)
+        print(f"[2] shading_ref choices apart: {apart}", flush=True)
+        if not ok:
+            raise AssertionError(f"shading_ref: kernel disagrees with its "
+                                 f"plain version (max |err| {err}, {apart})")
+        n_bytes, n_flops, extra = shading_ref_work(args)
+        extra["apart"] = apart
+        gbuf = args[0]
+        return dict(
+            kernel=lambda: Sh._shading_ref_cuda(*args),
+            plain=lambda: Sh._shading_ref_plain(*args),
+            cmp=shading_compare,
+            shape=f"{tuple(gbuf.depth.shape)}, shadow "
+            f"{tuple(args[2].shape)}, {extra['lights']} light(s)",
+            bytes=n_bytes, flops=n_flops, extra=extra,
+        )
+
     def gbuffer(seen):
         """K10 on the default path's call; on every source's call (the
         band's from the default path's) against its plain version with the
@@ -1315,6 +1551,7 @@ def check_kernels(cfg, device):
         "ssao_halo": ssao_halo,  # after raster_slim_band: its depth
         "shading": shading,
         "gbuffer": gbuffer,
+        "shading_ref": shading_ref,
     }
     # K10's sources: each path's own, and the attrs_plane_kernel=False
     # branch on its own (the stacks path is that branch with K7)
@@ -1442,6 +1679,57 @@ def check_shading_options(cfg, device):
                                  f"its plain version (max |err| {err})")
     if layouts != {Sh.PCF_U16_HALF, Sh.PCF_U16_FULL, Sh.PCF_F32_WIDE}:
         raise AssertionError(f"shading: PCF layouts held {layouts}")
+    return len(calls)
+
+
+def lights_world():
+    """scenes.tiny_world with a point light and a spot light beside its
+    sun: three lights of the three kinds."""
+    from mo_renderer_tpu_torch import scenes
+    from mo_renderer_tpu_torch.math.transform import Transform
+    from mo_renderer_tpu_torch.scene.components import PointLight, SpotLight
+
+    world = scenes.tiny_world()
+    world.spawn((PointLight(Transform.from_xyz(-1.5, 1.5, 1.0),
+                            (1.0, 0.6, 0.3), 6.0),))
+    world.spawn((SpotLight(
+        Transform.from_xyz(0.5, 3.0, 1.5).looking_at((0.0, 0.0, 0.0)),
+        (0.4, 0.7, 1.0), 12.0, exponent=8.0),))
+    return world
+
+
+def check_shading_ref_options(cfg, device):
+    """Phase 2, K11 beyond the paths' own calls, each against its plain
+    version at SHADING_BAR with 0 PCF taps, faces, levels or texels apart
+    (``shading_ref_check``): the tiny scene's reference call without IBL
+    and without a shadow map, the UV1 scene under default flags (which
+    takes the reference path), and a sun, a point and a spot light.
+    ``cfg`` gives the frame size; returns the number of calls held."""
+    from mo_renderer_tpu_torch import scenes
+
+    calls = {}
+    for what, overrides, make_world in (
+            ("reference", {"fast_sampling": False}, scenes.tiny_world),
+            ("UV1 scene, default flags", {},
+             functools.partial(scenes.tiny_world, uv1=True)),
+            ("sun, point and spot light", {"fast_sampling": False},
+             lights_world)):
+        seen = capture_inputs(cfg, device,
+                              [(overrides, make_world, scenes.camera)],
+                              {"shading_ref"})
+        calls[what] = shading_ref_args(*seen["shading_ref"])
+    ref = calls.pop("reference")
+    calls["no IBL"] = ref[:6] + (None,)
+    calls["no shadow"] = ref[:2] + (None,) + ref[3:]
+    for what, args in calls.items():
+        err, ok, bar, apart = shading_ref_check(args)
+        print(f"[2] shading_ref {what}: {tuple(args[0].depth.shape)}, "
+              f"{min(args[3].shape[0], args[4])} light(s), max |err| "
+              f"{err:.3g} ({bar}); apart {apart}", flush=True)
+        if not ok:
+            raise AssertionError(f"shading_ref {what}: kernel disagrees "
+                                 f"with its plain version (max |err| {err}, "
+                                 f"{apart})")
     return len(calls)
 
 
@@ -2328,7 +2616,7 @@ def run_full_frame(device, line, path, n_frames, group=None, warmup=3):
     renderer.check_overflow()
     calls, device_ms = profile_frames(run)
     eager_calls, eager_device_ms = profile_frames(eager)
-    if path in ("default", "default@grid"):
+    if path in BY_PASS_PATHS:
         print_passes(path, profile_passes(eager), line)
     ms = statistics.median(turns["replay"])
 
@@ -2384,6 +2672,9 @@ def run_full_frame(device, line, path, n_frames, group=None, warmup=3):
     return counts, ms, top._graph.launches
 
 
+# the paths whose eager frame phase 4 breaks down by pass
+BY_PASS_PATHS = ("default", "default@grid", "reference", "reference@grid")
+
 # the functions frame_program calls, by the pass they belong to: phase 4
 # wraps them (in chip_smoke.py only) in torch.profiler ranges to break a
 # frame's launches and device time down by pass
@@ -2418,7 +2709,7 @@ def profile_passes(run, n_frames=2):
     (the frame's own ops, the params upload, the fetch).  The hand
     kernels' launches count in their pass; their device time only where
     ``PASS_HAND_KERNELS`` names them (K3, K7 and K10 in the G-buffer, K9
-    in shading)."""
+    and K11 in shading)."""
     import torch
 
     import mo_renderer_tpu_torch.passes.frame_graph as FG
@@ -2492,16 +2783,18 @@ def print_passes(path, by_pass, line):
           f"{total_ms:.3f}; on {line}", flush=True)
 
 
+# profiles of a sequence call whose record lacks a replay's kernels, at most
+PROFILE_ATTEMPTS = 3
 # the __global__ functions of csrc/, as the profiler names their launches
 HAND_KERNELS = ("raster_kernel", "raster_attrs_kernel", "attr_planes_kernel",
                 "ssao_kernel", "reconstruct_kernel", "stack_planes_kernel",
-                "shade_kernel", "gbuffer_kernel")
+                "shade_kernel", "gbuffer_kernel", "shade_ref_kernel")
 # the hand kernels a pass launches from C, which its profiler range does
 # not hold: they are added to the pass by name
 PASS_HAND_KERNELS = {
     "G-buffer (K3/K7/K10)": ("attr_planes_kernel", "stack_planes_kernel",
                              "gbuffer_kernel"),
-    "shading": ("shade_kernel",),
+    "shading": ("shade_kernel", "shade_ref_kernel"),
 }
 
 
@@ -2510,7 +2803,7 @@ def profile_graph_calls(run):
     -- kernel launches and graph launches --, kernels that ran on the
     device, of them the hand kernels of csrc/, device kernel us,
     memcpy/memset device us, the call's own wall ms, synced, under the
-    profiler)."""
+    profiler, {device kernel name: runs})."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -2522,6 +2815,7 @@ def profile_graph_calls(run):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     host, kernels, hand, kernel_us, copy_us = 0, 0, 0, 0.0, 0.0
+    by_name = {}
     for row in prof.key_averages():
         if row.key in LAUNCH_ROWS + ("cudaGraphLaunch",):
             host += row.count
@@ -2531,9 +2825,10 @@ def profile_graph_calls(run):
             else:
                 kernels += row.count
                 kernel_us += row.self_device_time_total
+                by_name[row.key] = by_name.get(row.key, 0) + row.count
                 if any(k in row.key for k in HAND_KERNELS):
                     hand += row.count
-    return host, kernels, hand, kernel_us, copy_us, wall_ms
+    return host, kernels, hand, kernel_us, copy_us, wall_ms, by_name
 
 
 def run_sequence_path(device, line, path, n_steps, n_calls=3):
@@ -2617,13 +2912,33 @@ def run_sequence_path(device, line, path, n_steps, n_calls=3):
         turns["eager"].append(wall_ms(eager)[0] / n_steps)
     r.check_overflow()
     counts = dict(_build.LAUNCHES)
-    host, _, _, kernel_us, copy_us, prof_ms = profile_graph_calls(sequence)
+    host, _, _, kernel_us, copy_us, prof_ms, _ = profile_graph_calls(
+        sequence)
     # the counts grow by the captured launches at each replay: hold them
-    # to the hand kernels the profiler saw run in a 2-step call
-    before = sum(_build.LAUNCHES.values())
-    _, kernels, hand, _, _, _ = profile_graph_calls(
-        lambda: r.render_sequence_device(world, params[:2]))
-    counted = sum(_build.LAUNCHES.values()) - before
+    # to the hand kernels the profiler saw run in a 2-step call.  The
+    # profiler's record of such a call has come back without one replay's
+    # kernels, with the counts and the frames right; such a call is
+    # profiled again, at most PROFILE_ATTEMPTS times, each printed; an
+    # earlier profile must lack exactly one replay's hand kernels
+    # (_check_short_profiles) and the kernels line keeps how many it took
+    attempts = []
+    for _ in range(PROFILE_ATTEMPTS):
+        out = []
+        before = sum(_build.LAUNCHES.values())
+        _, kernels, hand, _, _, _, by_name = profile_graph_calls(
+            lambda: out.append(r.render_sequence_device(world, params[:2])))
+        counted = sum(_build.LAUNCHES.values()) - before
+        attempts.append((kernels, hand, counted, by_name))
+        print(f"[4] {path} profile {len(attempts)}: {kernels} device "
+              f"kernels, {hand} hand kernels against {counted} counted",
+              flush=True)
+        if not torch.equal(out[0], eager_frames[:2]):
+            raise AssertionError(f"{path}: the profiled 2-step call's "
+                                 "frames differ from the eager frames")
+        if hand == counted:
+            break
+    _check_short_profiles(path, attempts)
+    ms = statistics.median(turns["sequence"])
     ms = statistics.median(turns["sequence"])
     device_ms = kernel_us / 1e3 / n_steps
 
@@ -2652,7 +2967,8 @@ def run_sequence_path(device, line, path, n_steps, n_calls=3):
           f"{kernel_us / 1e3 / prof_ms:.1%} of that call's wall time, "
           f"{prof_ms / n_steps:.3f} ms/frame under the profiler); a 2-step "
           f"call: {kernels / 2:.0f} kernels/frame on the device, {hand} hand "
-          f"kernels against {counted} counted; captured launches "
+          f"kernels against {counted} counted (profile {len(attempts)} of at "
+          f"most {PROFILE_ATTEMPTS}); captured launches "
           f"{r._graph.launches}; pair capacity {r._binned_cap}, exact pairs"
           f" frame {pairs['frame']}, shadow {pairs['shadow']}; launches "
           f"{counts}; on {line}", flush=True)
@@ -2660,10 +2976,6 @@ def run_sequence_path(device, line, path, n_steps, n_calls=3):
         raise AssertionError(f"{path}: black frame")
     if r._captures != 1:
         raise AssertionError(f"{path}: {r._captures} captures, want 1")
-    if hand != counted:
-        raise AssertionError(f"{path}: the profiler saw {hand} hand kernels "
-                             f"run in a 2-step call, the counts grew by "
-                             f"{counted}")
     if max(pairs.values()) > r._binned_cap:
         raise AssertionError(f"{path}: the exact pair count passes the "
                              "static capacity")
@@ -2676,7 +2988,28 @@ def run_sequence_path(device, line, path, n_steps, n_calls=3):
         raise AssertionError(f"{path}: kernels missing from the captured "
                              f"graph: {missing}")
     _check_launches(path, PATHS["default"][1], counts)
-    return counts, ms
+    return counts, ms, len(attempts)
+
+
+def _check_short_profiles(path, attempts):
+    """The 2-step profiles of ``run_sequence_path``, in order: (device
+    kernels, hand kernels, counted launches, {kernel name: runs}).  The
+    last must see as many hand kernels as were counted; every earlier one
+    must lack exactly one of the two replays' hand kernels, of each kernel
+    alike (half the runs of each hand kernel name), and see no kernel more
+    often than the last."""
+    _, hand, counted, full = attempts[-1]
+    if hand != counted:
+        raise AssertionError(f"{path}: the profiler saw {hand} hand kernels "
+                             f"run in a 2-step call, the counts grew by "
+                             f"{counted} ({len(attempts)} profiles)")
+    is_hand = [k for k in full if any(h in k for h in HAND_KERNELS)]
+    for i, (_, _, _, seen) in enumerate(attempts[:-1], 1):
+        halved = all(2 * seen.get(k, 0) == full[k] for k in is_hand)
+        if not halved or any(n > full.get(k, 0) for k, n in seen.items()):
+            raise AssertionError(
+                f"{path}: profile {i} of a 2-step call lacks other kernels "
+                f"than one replay's: {seen} against {full}")
 
 
 def run_views_path(device, line, group, n_views=4, n_calls=3):
@@ -3074,6 +3407,8 @@ def main() -> int:
     kernels = check_kernels(EngineConfig(width=1920, height=1080), device)
     kernels["shading"]["option_sets"] = check_shading_options(
         EngineConfig(width=1920, height=1080), device)
+    kernels["shading_ref"]["option_sets"] = check_shading_ref_options(
+        EngineConfig(width=1920, height=1080), device)
     check_small_frames(device)
     check_topology(device)
     check_window_loop(device)
@@ -3111,9 +3446,12 @@ def main() -> int:
                 if entry in launches:
                     launches[entry][path] = counts[name]
                     replays[entry][path] = replay.get(name, 0)
-        # camera-path sequences (CUDA graph replay) and multi-view
+        # camera-path sequences (CUDA graph replay) and multi-view; the
+        # profiles each took of its 2-step call (run_sequence_path)
+        profiles = {}
         for path, n_steps in (("sequence", 16), ("sequence@grid", 8)):
-            counts, _ = run_sequence_path(device, line, path, n_steps)
+            counts, _, profiles[path] = run_sequence_path(device, line,
+                                                          path, n_steps)
             tag = "@grid" if path.endswith("@grid") else ""
             for name in PATHS["default"][1]:
                 if f"{name}{tag}" in launches:
@@ -3154,7 +3492,7 @@ def main() -> int:
             "replay_launches_by_path": replays[name], **result,
         }
         for name, result in kernels.items()
-    ]}
+    ], "sequence_profile_attempts": profiles}
     print(json.dumps(summary))
     print(line)
     print(json.dumps({"ok": True, "device": {

@@ -75,6 +75,7 @@ LAUNCHES: dict[str, int] = {
     "ssao_halo": 0,
     "shading": 0,
     "gbuffer": 0,
+    "shading_ref": 0,
 }
 
 _lock = threading.Lock()
@@ -206,6 +207,15 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+INT32_MAX = 2 ** 31 - 1
+
+
+def max_offset(t) -> int:
+    """The largest element offset within ``t`` from its first element:
+    what a kernel that indexes it with 32-bit offsets must reach."""
+    return sum((n - 1) * abs(st) for n, st in zip(t.shape, t.stride()))
 
 
 def require_cuda(name: str, *tensors, dtypes=None) -> None:

@@ -15,7 +15,8 @@
   samples UV set 1): the per-vertex stage, the shadow map re-rasterized
   from its light clip positions every frame, the full-mode raster with
   barycentrics, ``gbuffer_pass`` and ``shading_pass`` sampling the maps
-  directly, at full rate (no checkerboard).
+  directly, at full rate (no checkerboard); on a card ``shading_pass`` is
+  one kernel, K11.
 - Megakernel (``raster_interp_attrs=True``): the per-vertex stage, the
   raster that interpolates the attributes (``rasterize_attrs``), then the
   fast path's texturing, shading and memoized shadow, without the

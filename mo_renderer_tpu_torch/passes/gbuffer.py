@@ -455,11 +455,11 @@ class GbufArgs(ctypes.Structure):
 
     _fields_ = [
         ("ch", ctypes.c_void_p * (N_GEO + MAX_MAT)),
-        ("st", ctypes.c_longlong * (2 * (N_GEO + MAX_MAT))),
+        ("st", ctypes.c_int * (2 * (N_GEO + MAX_MAT))),
         ("tri", ctypes.c_void_p),
-        ("tri_st", ctypes.c_longlong * 2),
+        ("tri_st", ctypes.c_int * 2),
         ("mat_id", ctypes.c_void_p),
-        ("mat_id_st", ctypes.c_longlong * 2),
+        ("mat_id_st", ctypes.c_int * 2),
         ("materials", ctypes.c_void_p),
         ("mat_stride", ctypes.c_int),
         ("n_materials", ctypes.c_int),
@@ -528,6 +528,16 @@ def tail_args(tri, src, pv, prev_pv, scene, slot_map, sk=None,
                              f"float32 {(h, w)} on {dev}")
     if tri.dtype != torch.int32:
         raise TypeError(f"gbuffer: tri is {tri.dtype}, expected int32")
+    # the kernel's offsets are 32-bit: every table and plane it indexes
+    indexed = planes + [tri] + _stack_groups(scene, slot_map)
+    if src.mat_cols is None:
+        indexed.append(scene.materials)
+    if sk is not None:
+        indexed.append(sk)
+    if (max(map(_build.max_offset, indexed)) > _build.INT32_MAX
+            or h * w * 3 > _build.INT32_MAX):
+        raise ValueError("gbuffer: an input spans more than the kernel's "
+                         "32-bit offsets reach")
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)

@@ -22,6 +22,11 @@ emissive``, Unreal tonemap, and the skybox where depth == 1.
   (H, W/2) checkerboard domain and only the upsample targets change; the
   full-rate mirror tap is not evaluated there and raises, as in the
   reference.
+
+On a card each pass is one hand kernel: ``shading_pass`` K11
+(``csrc/shading_ref.cu``), ``shading_pass_fast`` K9 (``csrc/shading.cu``);
+their plain versions, ``_shading_ref_plain`` and ``_shading_fast_plain``,
+are what the CPU runs.
 """
 
 from __future__ import annotations
@@ -113,7 +118,22 @@ def skybox_color(height, width, camera_basis, env_faces):
 def shading_pass(gbuf, ssao, shadow_map, lights, num_lights: int, params,
                  ibl=None):
     """The reference path's shading to tonemapped colour (H, W, 3) in
-    [0, 1] (shading.py:149); ``ibl`` None: no ambient and no sky."""
+    [0, 1] (shading.py:149); ``ibl`` None: no ambient and no sky,
+    ``shadow_map`` None: a shadow factor of 1.
+
+    On a CUDA G-buffer this is the kernel of ``csrc/shading_ref.cu``
+    (K11), for every option set; on the CPU it is the PyTorch ops of
+    ``_shading_ref_plain``, the kernel's plain version."""
+    args = (gbuf, ssao, shadow_map, lights, num_lights, params, ibl)
+    if gbuf.depth.is_cuda:
+        return _shading_ref_cuda(*args)
+    return _shading_ref_plain(*args)
+
+
+def _shading_ref_plain(gbuf, ssao, shadow_map, lights, num_lights, params,
+                       ibl):
+    """shading_pass in PyTorch ops: the CPU's path, and the plain version
+    the kernel is held to on the card."""
     eye = params["eye_pos"]
     lo = shade_lights(gbuf, lights, num_lights, eye)
     ambient = (ibl_ambient(gbuf, eye, ibl) if ibl is not None
@@ -858,3 +878,168 @@ def launch_shading(a, like):
     fn = _build.function("mo_shading", [ctypes.POINTER(ShadeArgs), _build.P])
     _build.check("shading", fn(ctypes.byref(a), _build.stream_of(like)))
     _build.count("shading")
+
+
+# --- K11: the kernel of csrc/shading_ref.cu -----------------------------------
+
+# the debug output's int32 channels per pixel (csrc/shading_ref.cu kDbg*):
+# the PCF compare bits and beyond_far, the 9 tap anchors, the packed cube
+# faces, the lower mip level, the anchors of the irradiance, specular l0
+# and l1, BRDF LUT and environment samples; -1 where not evaluated
+REF_DEBUG = ("pcf", *[f"tap{t}" for t in range(9)], "faces", "level",
+             "irradiance", "spec0", "spec1", "lut", "env")
+
+
+class ShadeRefArgs(ctypes.Structure):
+    """csrc/shading_ref.cu's ShadeRefArgs, field for field."""
+
+    _fields_ = [
+        ("planes", ctypes.c_void_p * 5),
+        ("strides", ctypes.c_int * 15),
+        ("depth", ctypes.c_void_p),
+        ("depth_strides", ctypes.c_int * 2),
+        ("ssao", ctypes.c_void_p),
+        ("ssao_strides", ctypes.c_int * 2),
+        *[(name, ctypes.c_void_p) for name in (
+            "out", "dbg", "lights", "eye", "light_pv", "right", "up",
+            "direction", "near", "near_wh", "shadow", "irr", "env", "spec",
+            "lut")],
+        ("tap_off", ctypes.c_float * 18),
+        ("sizes", ctypes.c_int * MAX_LEVELS),
+        ("offsets", ctypes.c_int * MAX_LEVELS),
+        *[(name, ctypes.c_int) for name in (
+            "h", "w", "shadow_size", "has_ibl", "irr_size", "irr_c",
+            "env_size", "env_c", "spec_c", "num_levels", "lut_h", "lut_w",
+            "lut_c", "light_stride", "n_lights")],
+    ]
+
+
+def _int32_extent(name, t):
+    """Raise unless every element of ``t`` lies within 32-bit offsets of
+    its first, as the kernel indexes it."""
+    if _build.max_offset(t) > _build.INT32_MAX:
+        raise ValueError(f"shading: {name} spans past the kernel's 32-bit "
+                         "offsets")
+
+
+def shade_ref_args(gbuf, ssao, shadow_map, lights, num_lights, params, ibl,
+                   debug=False):
+    """What K11 reads: (ShadeRefArgs, the tensors it writes and keeps
+    alive -- ``out`` and, with ``debug``, ``dbg``: each pixel's REF_DEBUG
+    channels).  Pure Python over the tensors' pointers, shapes and
+    strides: nothing is read from the device, and the outputs come from
+    the caching allocator, so a CUDA graph captures the call."""
+    dev = gbuf.depth.device
+    h, w = gbuf.depth.shape
+    planes = [getattr(gbuf, k) for k in GBUFFER_PLANES]
+    for k, t in zip(GBUFFER_PLANES, planes):
+        if tuple(t.shape) != (h, w, 3):
+            raise ValueError(f"shading: gbuf.{k} is {tuple(t.shape)}, "
+                             f"expected {(h, w, 3)}")
+    if tuple(ssao.shape) != (h, w):
+        raise ValueError(f"shading: ssao is {tuple(ssao.shape)}, expected "
+                         f"{(h, w)}")
+    if lights.shape[1] < LIGHT_COLS:
+        raise ValueError(f"shading: light rows of {lights.shape[1]} "
+                         f"columns, the kernel reads {LIGHT_COLS}")
+    n_lights = min(lights.shape[0], num_lights)
+    if n_lights * LIGHT_COLS * 4 > MAX_LIGHT_BYTES:
+        raise ValueError(f"shading: {n_lights} lights, the kernel takes "
+                         f"{MAX_LIGHT_BYTES // (4 * LIGHT_COLS)}")
+    for name, t in [*zip(GBUFFER_PLANES, planes), ("depth", gbuf.depth),
+                    ("ssao", ssao)]:
+        _int32_extent(name, t)
+    if h * w * len(REF_DEBUG) > _build.INT32_MAX:
+        raise ValueError(f"shading: a {h} x {w} frame is past the kernel's "
+                         "32-bit offsets")
+    keep = {"out": torch.empty((h, w, 3), dtype=torch.float32, device=dev)}
+    if debug:
+        keep["dbg"] = torch.empty((h, w, len(REF_DEBUG)), dtype=torch.int32,
+                                  device=dev)
+    if lights.stride(-1) != 1:
+        lights = lights.contiguous()
+    small = {k: params[k].contiguous() for k in (
+        "eye_pos", "light_proj_view", "right", "up", "direction", "near",
+        "near_wh")}
+    keep.update(lights=lights, **small)
+    a = ShadeRefArgs()
+    a.planes[:] = [t.data_ptr() for t in planes]
+    a.strides[:] = [st for t in planes for st in t.stride()]
+    a.depth, a.depth_strides[:] = gbuf.depth.data_ptr(), gbuf.depth.stride()
+    a.ssao, a.ssao_strides[:] = ssao.data_ptr(), ssao.stride()
+    a.out, a.dbg = keep["out"].data_ptr(), _ptr(keep.get("dbg"))
+    a.lights = lights.data_ptr()
+    a.eye, a.light_pv = _ptr(small["eye_pos"]), _ptr(small["light_proj_view"])
+    a.right, a.up = _ptr(small["right"]), _ptr(small["up"])
+    a.direction, a.near = _ptr(small["direction"]), _ptr(small["near"])
+    a.near_wh = _ptr(small["near_wh"])
+    a.h, a.w = h, w
+    a.light_stride, a.n_lights = lights.stride(0), n_lights
+    if shadow_map is not None:
+        s = shadow_map.shape[0]
+        if shadow_map.dim() != 2 or shadow_map.shape[1] != s \
+                or not shadow_map.is_contiguous():
+            raise ValueError(f"shading: a shadow map of "
+                             f"{tuple(shadow_map.shape)} is not a "
+                             "contiguous (S, S) plane")
+        a.shadow, a.shadow_size = shadow_map.data_ptr(), s
+        # calculate_shadow's tap offsets: the Python double dx * (1 / S),
+        # rounded to float32 where the torch op adds it to a float plane
+        texel = 1.0 / s
+        a.tap_off[:] = [d * texel for dx_dy in POISSON for d in dx_dy]
+    if ibl is not None:
+        maps = {"irr": ibl.irradiance_faces, "env": ibl.environment_faces,
+                "spec": ibl.specular_mips.data, "lut": ibl.brdf_lut}
+        for k, t in maps.items():
+            channels = 2 if k == "lut" else 3  # what the kernel reads
+            if (t.dtype != torch.float32 or t.device != dev
+                    or not t.is_contiguous() or t.shape[-1] < channels):
+                raise ValueError(f"shading: the IBL map {k} "
+                                 f"{tuple(t.shape)} {t.dtype} on {t.device} "
+                                 f"must be contiguous float32 on {dev}")
+            _int32_extent(k, t)
+            setattr(a, k, t.data_ptr())
+        mips = ibl.specular_mips
+        if not 1 <= mips.num_levels <= MAX_LEVELS:
+            raise ValueError(f"shading: {mips.num_levels} specular levels, "
+                             f"the kernel takes 1 to {MAX_LEVELS}")
+        a.has_ibl = 1
+        a.irr_size, a.irr_c = maps["irr"].shape[1], maps["irr"].shape[-1]
+        a.env_size, a.env_c = maps["env"].shape[1], maps["env"].shape[-1]
+        a.spec_c, a.num_levels = maps["spec"].shape[-1], mips.num_levels
+        a.sizes[:mips.num_levels] = [int(v) for v in mips.sizes]
+        a.offsets[:mips.num_levels] = [int(v) for v in mips.offsets]
+        a.lut_h, a.lut_w, a.lut_c = maps["lut"].shape
+        keep.update(maps)
+    return a, keep
+
+
+def _shading_ref_cuda(gbuf, ssao, shadow_map, lights, num_lights, params,
+                      ibl, debug=False):
+    """K11: one launch on the current stream.  ``debug``: also write the
+    REF_DEBUG channels and return (colour, the kept tensors)."""
+    tensors = [getattr(gbuf, k) for k in GBUFFER_PLANES] + [
+        gbuf.depth, ssao, lights, params["eye_pos"],
+        params["light_proj_view"]] + (
+        [shadow_map] if shadow_map is not None else [])
+    dev = gbuf.depth.device
+    for i, t in enumerate(tensors):
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"shading: argument {i} is {t.dtype} on "
+                             f"{t.device}, expected float32 on {dev}")
+    a, keep = shade_ref_args(gbuf, ssao, shadow_map, lights, num_lights,
+                             params, ibl, debug=debug)
+    launch_shading_ref(a, keep["out"])
+    return (keep["out"], keep) if debug else keep["out"]
+
+
+def launch_shading_ref(a, like):
+    """The C entry of csrc/shading_ref.cu on ``like``'s stream; one count."""
+    lib = _build.library()
+    if lib.mo_shading_ref_args_size() != ctypes.sizeof(ShadeRefArgs):
+        raise RuntimeError("shading: ShadeRefArgs does not match "
+                           "csrc/shading_ref.cu")
+    fn = _build.function("mo_shading_ref",
+                         [ctypes.POINTER(ShadeRefArgs), _build.P])
+    _build.check("shading_ref", fn(ctypes.byref(a), _build.stream_of(like)))
+    _build.count("shading_ref")

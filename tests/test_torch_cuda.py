@@ -26,9 +26,11 @@ whole-image kernel); of the reconstruct
 kernel's two entries (planes of odd or unaligned width, strips that end
 inside a warp, one row); of the shading kernel's (K9: random G-buffers,
 its even-grid samples through the debug planes, one launch, no
-fallback); and of the G-buffer tail's (K10: random inputs laid out as
+fallback); of the G-buffer tail's (K10: random inputs laid out as
 each of its five sources has them, through its debug rows, no
-fallback on any fast path's frame).
+fallback on any fast path's frame); and of the reference path's shading
+kernel's (K11: random G-buffers under every option set, 1 to 16 lights,
+its discrete choices through its debug output, no fallback).
 """
 
 import os
@@ -865,3 +867,110 @@ def test_gbuffer_tail_never_falls_back_on_the_card(cuda, monkeypatch):
         before = _build.LAUNCHES["gbuffer"]
         r.render(world)
         assert _build.LAUNCHES["gbuffer"] > before, overrides
+
+
+def _shading_ref_case(cuda, n_lights, seed=0, ibl=True, shadow=True):
+    """A random G-buffer on the card (a quarter of it sky, normals on cube
+    diagonals in its first row), random SSAO, ``n_lights`` lights of the
+    three kinds, a raw 64 x 64 shadow map and the tiny scene's IBL maps:
+    the arguments of K11 and its plain version."""
+    import numpy as np
+
+    from mo_renderer_tpu_torch import scenes
+    from mo_renderer_tpu_torch.passes.gbuffer import GBuffer
+
+    rng = np.random.default_rng(seed)
+    h, w = 37, 70  # ragged against the kernel's 8 x 32 blocks
+
+    def plane(*shape, lo=0.0, hi=1.0):
+        return torch.from_numpy(
+            rng.uniform(lo, hi, shape).astype(np.float32)).to(cuda)
+
+    normal = plane(h, w, 3, lo=-1.0)
+    normal[0, :4] = torch.tensor([[1.0, 1.0, 0.0], [-1.0, 1.0, 1.0],
+                                  [0.0, -1.0, -1.0], [1.0, 0.0, -1.0]],
+                                 device=cuda)
+    normal = torch.nn.functional.normalize(normal, dim=-1)
+    depth = plane(h, w, lo=0.5, hi=1.33).clamp(max=1.0)
+    orm = plane(h, w, 3)
+    orm[1, :8, 1] = torch.arange(8, device=cuda) / 7.0  # the mip boundaries
+    gbuf = GBuffer(base_color=plane(h, w, 3), position=plane(h, w, 3, lo=-2),
+                   normal=normal, emissive=plane(h, w, 3, hi=0.1), orm=orm,
+                   velocity=plane(h, w, 2), depth=depth, mask=depth < 1.0)
+    lights = plane(n_lights, 20)
+    lights[:, 0] = torch.arange(n_lights, device=cuda) % 3
+    lights[:, 2] *= 20.0
+    pv = torch.tensor([[0.3, 0.0, 0.1, 0.0], [0.0, 0.3, 0.0, 0.1],
+                       [0.05, 0.02, 0.1, 0.5], [0.0, 0.0, 0.0, 1.0]],
+                      device=cuda)
+    params = {"eye_pos": torch.tensor([0.0, 1.0, -3.0], device=cuda),
+              "light_proj_view": pv,
+              "right": torch.tensor([1.0, 0.0, 0.0], device=cuda),
+              "up": torch.tensor([0.0, 1.0, 0.0], device=cuda),
+              "direction": torch.tensor([0.0, 0.0, 1.0], device=cuda),
+              "near": torch.tensor(0.1, device=cuda),
+              "near_wh": torch.tensor([0.2, 0.1], device=cuda)}
+    return (gbuf, plane(h, w, lo=0.5),
+            plane(64, 64, lo=0.3, hi=0.9) if shadow else None, lights,
+            n_lights, params, scenes.tiny_ibl(cuda).maps() if ibl else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_lights", [1, 3, 16])
+@pytest.mark.parametrize("ibl,shadow", [(True, True), (False, True),
+                                        (True, False), (False, False)])
+def test_shading_ref_kernel_on_random_gbuffers(cuda, n_lights, ibl, shadow):
+    """K11 away from any frame, under every option set: the colour at the
+    bar, and no PCF tap, tap texel, cube face, mip level or sample texel
+    apart from the plain version's (through its debug output)."""
+    import chip_smoke
+
+    args = _shading_ref_case(cuda, n_lights, ibl=ibl, shadow=shadow)
+    err, ok, bar, apart = chip_smoke.shading_ref_check(args)
+    torch.cuda.synchronize()
+    assert ok, (err, bar, apart)
+
+
+@pytest.mark.cuda
+def test_shading_ref_holds_its_option_sets(cuda):
+    """K11 on the frames' own calls at 256x128: no IBL, no shadow, the
+    UV1 scene under default flags, a sun, a point and a spot light."""
+    import chip_smoke
+    from mo_renderer_tpu_torch import scenes
+
+    assert chip_smoke.check_shading_ref_options(scenes.tiny_config(),
+                                                cuda) == 4
+
+
+@pytest.mark.cuda
+def test_shading_ref_never_falls_back_on_the_card(cuda, monkeypatch):
+    """A card G-buffer launches K11 once a call under every option set,
+    and on the reference frame, never the PyTorch ops; a float64 plane
+    raises."""
+    from mo_renderer_tpu_torch import Renderer, scenes
+    from mo_renderer_tpu_torch.kernels import _build
+    from mo_renderer_tpu_torch.passes import shading as Sh
+
+    def plain(*a, **k):
+        raise AssertionError("the card ran the PyTorch ops")
+
+    monkeypatch.setattr(Sh, "_shading_ref_plain", plain)
+    for ibl in (True, False):
+        for shadow in (True, False):
+            args = _shading_ref_case(cuda, 3, ibl=ibl, shadow=shadow)
+            before = _build.LAUNCHES["shading_ref"]
+            out = Sh.shading_pass(*args[:6], ibl=args[6])
+            torch.cuda.synchronize()
+            assert out.is_cuda and out.shape == (37, 70, 3)
+            assert _build.LAUNCHES["shading_ref"] == before + 1
+    args = _shading_ref_case(cuda, 3)
+    with pytest.raises(ValueError, match="float32"):
+        Sh.shading_pass(args[0], args[1].double(), *args[2:6], ibl=args[6])
+    cfg = scenes.tiny_config(fast_sampling=False)
+    world = scenes.tiny_world()
+    world.insert_resource(scenes.camera(cfg))
+    r = Renderer(cfg, cuda)
+    r.prepare(world)
+    before = _build.LAUNCHES["shading_ref"]
+    r.render(world)
+    assert _build.LAUNCHES["shading_ref"] > before

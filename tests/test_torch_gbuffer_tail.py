@@ -11,7 +11,7 @@ whose card kernel is K10, ``csrc/gbuffer.cu``) on the CPU.
   source (channel pointers and strides of views, the slot kinds, the
   material columns), its ctypes layout against the C struct, what it
   refuses, and that a CPU tensor never loads the library.
-- The per-unit nvcc flags of ``kernels/_build.py``.
+- The per-unit nvcc flags and ``max_offset`` of ``kernels/_build.py``.
 
 The kernel itself runs only on a card (tests/test_torch_cuda.py,
 chip_smoke.py phase 2).
@@ -234,6 +234,21 @@ def test_tail_args_refuses_what_the_kernel_does_not_take():
         G.tail_args(tri, src, pv, prev_pv, odd, slot_map)
 
 
+def test_tail_args_refuses_offsets_past_32_bits():
+    """The kernel's offsets are 32-bit: a plane whose elements lie more
+    than 2^31 apart raises before any pointer is taken (meta tensors: no
+    memory behind the strides)."""
+    args = chip_smoke.random_tail_call("planes", SLOT_MAPS[1], "meta")
+    tri, z, src, pv, prev_pv, scene, slot_map, _ = args
+    h, w = tri.shape
+    far = tuple(torch.empty(1, device="meta").as_strided((h, w), (2 ** 30, 1))
+                for _ in range(3))
+    bad = G.TailInputs(far, src.n_in, src.t_in, src.bt_in, src.uv0,
+                       src.handed, mat_cols=src.mat_cols)
+    with pytest.raises(ValueError, match="32-bit"):
+        G.tail_args(tri, bad, pv, prev_pv, scene, slot_map)
+
+
 _C_TYPES = {"const float*": ctypes.c_void_p, "float*": ctypes.c_void_p,
             "uint8_t*": ctypes.c_void_p, "const int*": ctypes.c_void_p,
             "int*": ctypes.c_void_p, "long long": ctypes.c_longlong,
@@ -309,3 +324,14 @@ def test_build_runs_each_unit_with_its_flags(tmp_path, monkeypatch):
     assert os.path.exists(so)
     monkeypatch.setattr(_build, "UNIT_FLAGS", {})
     assert _build._library_path() != so
+
+
+def test_max_offset_is_the_farthest_element_of_a_view():
+    """max_offset is the largest element offset from a view's first
+    element, through its strides: what a 32-bit index must reach."""
+    t = torch.zeros(5, 7, 3)
+    assert _build.max_offset(t) == t.numel() - 1
+    assert _build.max_offset(t[..., 1]) == 4 * 21 + 6 * 3
+    assert _build.max_offset(t.permute(2, 0, 1)) == t.numel() - 1
+    assert _build.max_offset(t[1:3, ::2]) == 21 + 3 * 6 + 2
+    assert _build.max_offset(torch.zeros(0, 4)) <= 0

@@ -20,7 +20,9 @@ eagerly.  The replay itself is checked on the card (``chip_smoke.py``
   and drops as many pairs past it;
 - the row-sharded frame binned that way equals the exactly binned one bit
   for bit on a gloo world of one, counts its dropped pairs alike, and
-  needs no ``all_reduce``.
+  needs no ``all_reduce``;
+- ``chip_smoke.py``'s check of a replayed call's profiles accepts an
+  earlier profile only where it lacks exactly one replay's hand kernels.
 
 No JAX frame: 128x32 and 128x64 frames of the tiny scene.
 """
@@ -341,3 +343,41 @@ def test_rows_frame_static_equals_exact(world_of_one, monkeypatch,
         with pytest.raises(RuntimeError, match=f"{int(s_counts[0])} "
                            f"G-buffer and {int(s_counts[1])} shadow"):
             ts.check_overflow()
+
+
+# a 2-step call's kernels as the profiler names them: two hand kernels and
+# a torch op, each run once a replay
+_FULL = {"void raster_kernel<0>(...)": 2, "shade_kernel(ShadeArgs)": 2,
+         "void at::native::copy_kernel": 3}
+
+
+@pytest.mark.parametrize("attempts, ok", [
+    ([(7, 4, 4, _FULL)], True),
+    ([(3, 2, 4, {"void raster_kernel<0>(...)": 1,
+                 "shade_kernel(ShadeArgs)": 1,
+                 "void at::native::copy_kernel": 2}),
+      (7, 4, 4, _FULL)], True),
+    ([(3, 2, 4, {"void raster_kernel<0>(...)": 2,
+                 "void at::native::copy_kernel": 3}),
+      (7, 4, 4, _FULL)], False),
+    ([(0, 0, 4, {}), (7, 4, 4, _FULL)], False),
+    ([(5, 2, 4, {"void raster_kernel<0>(...)": 1,
+                 "shade_kernel(ShadeArgs)": 1,
+                 "void at::native::copy_kernel": 4}),
+      (7, 4, 4, _FULL)], False),
+    ([(3, 2, 4, {"void raster_kernel<0>(...)": 1,
+                 "shade_kernel(ShadeArgs)": 1,
+                 "void at::native::copy_kernel": 1})] * 3, False),
+], ids=["first", "one-replay-dropped", "one-kernel-dropped", "empty",
+        "more-than-full", "never-full"])
+def test_sequence_profile_check_accepts_only_a_dropped_replay(attempts, ok):
+    """_check_short_profiles: the last profile must see every counted hand
+    kernel; an earlier one may only lack one of the two replays' hand
+    kernels, each name alike, and see nothing more than the last."""
+    import chip_smoke
+
+    if ok:
+        chip_smoke._check_short_profiles("sequence", attempts)
+    else:
+        with pytest.raises(AssertionError):
+            chip_smoke._check_short_profiles("sequence", attempts)

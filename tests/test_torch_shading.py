@@ -28,11 +28,17 @@ from mo_renderer_tpu_torch.passes import shading as Sh  # noqa: E402
 from mo_renderer_tpu_torch.passes.gbuffer import GBuffer  # noqa: E402
 
 SOURCE = os.path.join(os.path.dirname(_build.CSRC), "csrc", "shading.cu")
+# the device helpers and constants K9 shares with K11
+COMMON = os.path.join(os.path.dirname(SOURCE), "shading_common.cuh")
 
 
 def _source():
-    with open(SOURCE) as f:
-        return f.read()
+    """The unit's text with the shared header it includes."""
+    text = []
+    for path in (COMMON, SOURCE):
+        with open(path) as f:
+            text.append(f.read())
+    return "\n".join(text)
 
 
 def _floats(text):
