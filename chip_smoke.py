@@ -70,7 +70,16 @@ Phases (each raises on failure; the script then exits non-zero):
    (``shading_ref_check``); its bytes count the map texels the samples
    read once each.  ``check_shading_ref_options`` holds K11 without IBL,
    without a shadow map, on the UV1 scene under default flags and with a
-   sun, a point and a spot light.
+   sun, a point and a spot light.  Then the reference path's G-buffer
+   ``gbuffer_ref`` (K12, ``csrc/gbuffer_ref.cu``: one launch, one thread a
+   pixel) on the reference path's call (K6's planes, the scene's tables
+   and texture array, the vertex stage's outputs) and as
+   ``gbuffer_ref@grid``, each plane at rtol 2e-3 / atol 1e-4 with its
+   texel anchors and UV sets through its debug output equal to the plain
+   version's (``gbuffer_ref_check``); its bytes count the vertex and
+   material rows and texels the covered pixels touch, once each.
+   ``check_gbuffer_ref_options`` holds K12 on the UV1 scene under default
+   flags, the all-slots scene and that call without tangents.
    ``check_shading_options`` holds K9 at the
    same bar, at 1920x1080, on every knob set of the reference's budget
    matrix (``scenes.BUDGET_BOUNDS`` on ``scenes.budget_world``: the
@@ -155,8 +164,10 @@ Phases (each raises on failure; the script then exits non-zero):
    ``reference`` and their ``@grid`` paths also print the eager frame's
    launches and device ms by pass (the functions ``frame_program`` calls,
    wrapped in ``torch.profiler.record_function`` ranges by this script
-   only; K3's, K7's and K10's device time is added to the G-buffer and
-   K9's and K11's to shading by kernel name).  Then
+   only; each hand kernel's device time is added to its pass by kernel
+   name), each hand kernel's device ms, and the rest of the frame by the
+   op that queued it (the fetch, the frame's own ops); the reference
+   paths' G-buffer pass must make K12's one launch.  Then
    ``sequence`` (the default path's 16 orbit poses as one
    ``render_sequence_device`` call, 3 timed calls beside an eager loop
    over the same poses: ms/frame, host launch calls and device kernels per
@@ -235,6 +246,9 @@ KERNELS = {
     # nor here: the reference's shading_pass is jnp code too
     "shading_ref": ("mo_renderer_tpu_torch/csrc/shading_ref.cu",
                     "mo_renderer_tpu/passes/shading.py:149"),
+    # nor here: the reference's gbuffer_pass is jnp code too
+    "gbuffer_ref": ("mo_renderer_tpu_torch/csrc/gbuffer_ref.cu",
+                    "mo_renderer_tpu/passes/gbuffer.py:71"),
 }
 # K10's input sources: the default path's attr_planes planes, the
 # attrs_plane_kernel=False branch's tensors, the megakernel's planes, the
@@ -254,7 +268,8 @@ PATHS = {
                      "gbuffer", "ssao", "shading", "interleave_present"),
                 {}),
     "reference": ({"fast_sampling": False},
-                  ("raster_full", "raster_depth", "ssao", "shading_ref"), {}),
+                  ("raster_full", "raster_depth", "gbuffer_ref", "ssao",
+                   "shading_ref"), {}),
     "megakernel": ({"raster_interp_attrs": True},
                    ("raster_attrs", "raster_depth", "gbuffer", "ssao",
                     "shading"), {}),
@@ -266,7 +281,8 @@ PATHS = {
 # the dense inputs of phase 2: the frames of scenes.grid_world that give
 # them (EngineConfig overrides) and the kernels timed on them
 GRID_KERNELS = ("raster_slim", "raster_depth", "raster_full", "ssao",
-                "raster_attrs", "shading", "gbuffer", "shading_ref")
+                "raster_attrs", "shading", "gbuffer", "shading_ref",
+                "gbuffer_ref")
 BAND_GRID_KERNELS = ("raster_slim_band", "raster_depth_band")
 # and the three paths phase 4 drives on that scene
 GRID_PATHS = {
@@ -1044,6 +1060,216 @@ def gbuffer_work(args):
     return n_bytes, covered * GBUFFER_FLOPS_PER_PIXEL, covered
 
 
+GBUFFER_REF_BAR = ("each plane rtol 2e-3 / atol 1e-4, mask equal, depth "
+                   "passed through; 0 texel anchors or UV sets differ")
+# K12, from csrc/gbuffer_ref.cu: per covered pixel the perspective
+# correction (3 products, 2 adds, 3 divisions), 24 interpolated channels
+# (5 each), 5 slots' texel coordinates (10 each) and 12 bilinear channels
+# (13 each), the factors and srgb_to_linear, three normalizations and the
+# TBN sum, and the velocity
+GBUFFER_REF_FLOPS_PER_PIXEL = 420
+
+
+def random_ref_inputs(seed=0, h=24, w=32, n_layers=4, size=8, slot_uv=None,
+                      tangent=None):
+    """Numpy inputs of ``gbuffer_pass`` (the reference sampling path's
+    G-buffer) aimed at its discontinuities, made from ``seed``: {"tri",
+    "z", "b0", "b1"} planes, a scene {"indices", "uv0", "uv1",
+    "tri_mesh", "mesh_material", "materials", "textures"} and the vertex
+    stage's outputs {"inv_w", "world_pos", ..., "has_tangent"}.
+
+    - Vertices 0-2 have 1/w = 1e-20 and one ulp above and below (the |qs|
+      > 1e-20 guard: triangles 0-2 put them at corner 0).
+    - Vertices 3-8 have UVs on two texel centres, one ulp above and one
+      below, in both UV sets, some shifted by whole periods (REPEAT past
+      0 and 1), and triangles 3-8 one material; the other UVs are uniform
+      in [-2, 3).
+    - Pixels (0, 0..8) are triangles 0-8 at b = (1, 0, 0): their
+      interpolated values are corner 0's exactly.
+    - A material slot picks its UV set from 0.0, -0.0 (both UV set 0),
+      1.0 and -1.0, or all from ``slot_uv`` (0 or 1); layers are floats
+      that truncate; ``tangent`` sets every has_tangent (else random).
+    - About a quarter of the pixels are uncovered (tri -1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_verts, n_tris, n_meshes, n_mats = 40, 16, 5, 4
+    f32 = np.float32
+    indices = rng.integers(0, n_verts, (n_tris, 3)).astype(np.int32)
+    indices[:9, 0] = np.arange(9)
+    inv_w = rng.uniform(0.2, 2.0, n_verts).astype(f32)
+    guard = f32(1e-20)
+    inv_w[:3] = [guard, np.nextafter(guard, f32(1)),
+                 np.nextafter(guard, f32(0))]
+    uv = rng.uniform(-2.0, 3.0, (2, n_verts, 2)).astype(f32)
+    k = rng.integers(0, size, (2, 2, 2))
+    period = rng.choice([-2, -1, 0, 1, 2], (2, 2, 2))
+    centre = ((k + 0.5) / size + period).astype(f32)
+    uv[:, 3:5] = centre
+    uv[:, 5:7] = np.nextafter(centre, f32(np.inf))
+    uv[:, 7:9] = np.nextafter(centre, f32(-np.inf))
+    tri = rng.integers(0, n_tris, (h, w)).astype(np.int32)
+    tri[rng.uniform(size=(h, w)) < 0.25] = -1
+    r0 = rng.uniform(0.0, 1.0, (h, w))
+    b0 = r0.astype(f32)
+    b1 = (rng.uniform(0.0, 1.0, (h, w)) * (1.0 - r0)).astype(f32)
+    tri[0, :9], b0[0, :9], b1[0, :9] = np.arange(9), 1.0, 0.0
+    mats = rng.uniform(0.0, 1.0, (n_mats, 48)).astype(f32)
+    mats[:, 0:5] = rng.integers(0, n_layers, (n_mats, 5)) + rng.choice(
+        [0.0, 0.25, 0.75], (n_mats, 5))
+    if slot_uv is None:
+        mats[:, 5:10] = rng.choice([0.0, -0.0, 1.0, -1.0], (n_mats, 5))
+    else:
+        mats[:, 5:10] = slot_uv
+    has_tangent = (rng.uniform(size=n_verts) < 0.5 if tangent is None
+                   else np.full(n_verts, tangent))
+
+    def clip():
+        c = rng.normal(size=(n_verts, 4)).astype(f32)
+        c[:, 3] = rng.uniform(0.5, 2.0, n_verts)
+        return c
+
+    tri_mesh = rng.integers(0, n_meshes, n_tris).astype(np.int32)
+    tri_mesh[3:9] = tri_mesh[3]  # one material: the anchors line up
+    return {
+        "tri": tri, "z": rng.uniform(0.0, 1.0, (h, w)).astype(f32),
+        "b0": b0, "b1": b1,
+        "scene": {
+            "indices": indices, "uv0": uv[0], "uv1": uv[1],
+            "tri_mesh": tri_mesh,
+            "mesh_material": (rng.permutation(n_meshes) % n_mats).astype(
+                np.int32),
+            "materials": mats,
+            "textures": rng.integers(0, 256, (n_layers, size, size, 4),
+                                     dtype=np.uint8)},
+        "vs": {
+            "inv_w": inv_w,
+            **{name: rng.normal(size=(n_verts, 3)).astype(f32) for name in (
+                "world_pos", "world_normal", "world_tangent",
+                "world_bitangent")},
+            "clip": clip(), "prev_clip": clip(),
+            "has_tangent": has_tangent},
+    }
+
+
+def ref_call(inputs, device):
+    """``random_ref_inputs``' arrays as the 6 positional arguments of
+    ``gbuffer_pass`` (and of its kernel and plain version) on
+    ``device``."""
+    import types
+
+    import torch
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    return (t(inputs["tri"]), t(inputs["z"]), t(inputs["b0"]),
+            t(inputs["b1"]),
+            types.SimpleNamespace(**{k: t(v) for k, v in
+                                     inputs["scene"].items()}),
+            types.SimpleNamespace(**{k: t(v) for k, v in
+                                     inputs["vs"].items()}))
+
+
+def gbuffer_ref_choices(args):
+    """The plain version's discrete choices on a ``gbuffer_pass`` call, as
+    K12's debug output keeps them (``GB.REF_DEBUG``: each slot's flat
+    texel anchor after the wrap, then the UV-set bits; -1 where
+    uncovered), from the (layer, uv) each slot's sampler got in a run of
+    ``_gbuffer_ref_plain``; and the flat indices of the texels its taps
+    read at the covered pixels."""
+    import torch
+
+    from mo_renderer_tpu_torch.assets import materials as M
+    from mo_renderer_tpu_torch.device import sampling as Sm
+    from mo_renderer_tpu_torch.passes import gbuffer as GB
+
+    tri, _, _, _, scene, _ = args
+    seen = []
+    sample = Sm.sample_array_bilinear
+
+    def record(tex, layer, uv, mode):
+        seen.append((layer, uv))
+        return sample(tex, layer, uv, mode)
+
+    Sm.sample_array_bilinear = record
+    try:
+        GB._gbuffer_ref_plain(*args)
+    finally:
+        Sm.sample_array_bilinear = sample
+    covered = tri >= 0
+    s = scene.textures.shape[1]
+    out = torch.full((*tri.shape, len(GB.REF_DEBUG)), -1, dtype=torch.int32,
+                     device=tri.device)
+    rows = []
+    for k, (layer, uv) in enumerate(seen):
+        x0, y0, _, _ = Sm._floor_fract(uv, s, s)
+        base = layer.to(torch.int32) * (s * s)
+        xs = [Sm.wrap_index(x0 + d, s, Sm.REPEAT) for d in (0, 1)]
+        ys = [Sm.wrap_index(y0 + d, s, Sm.REPEAT) for d in (0, 1)]
+        out[..., k] = torch.where(covered, base + ys[0] * s + xs[0], -1)
+        rows += [(base + yy * s + xx)[covered] for yy in ys for xx in xs]
+    t = torch.clamp(tri, min=0).to(torch.int64)
+    mat_id = scene.mesh_material.to(torch.int64)[
+        scene.tri_mesh.to(torch.int64)[t]]
+    uv_cols = scene.materials[:, M.MAT_BASE_COLOR_UV:M.MAT_EMISSIVE_UV + 1]
+    set1 = (uv_cols != 0.0).to(torch.int32)[mat_id]
+    bits = sum(set1[..., k] << k for k in range(5))
+    out[..., len(seen)] = torch.where(covered, bits, -1)
+    return out, rows
+
+
+def gbuffer_ref_check(args):
+    """K12 against its plain version on one call: (max |err|, ok, bar,
+    {what: "n of N" apart}) -- the planes at GBUFFER_REF_BAR and, through
+    the debug output, the texel anchors and UV sets that differ; ok needs
+    both counts 0."""
+    from mo_renderer_tpu_torch.passes import gbuffer as GB
+
+    k, keep = GB._gbuffer_ref_cuda(*args, debug=True)
+    err, ok, _ = gbuffer_compare(k, GB._gbuffer_ref_plain(*args))
+    want, _ = gbuffer_ref_choices(args)
+    got = keep["dbg"]
+    n = int((want[..., -1] >= 0).sum())
+    apart = {"texel_anchors": (int((got[..., :-1] != want[..., :-1]).sum()),
+                               (got.shape[-1] - 1) * n),
+             "uv_sets": (int((got[..., -1] != want[..., -1]).sum()), n)}
+    ok = ok and all(m == 0 for m, _ in apart.values())
+    return err, ok, GBUFFER_REF_BAR, {w: f"{m} of {of}" for w, (m, of)
+                                      in apart.items()}
+
+
+def gbuffer_ref_work(args):
+    """(bytes, FP32 operations, what else to report) of K12 on ``args``:
+    the ids of every pixel read and its 17 output floats and mask byte
+    written once; the barycentrics of the covered pixels; the index row
+    and mesh id of each triangle they show, the rows of the vertices of
+    those triangles (1/w, 4 x 3 + 2 x 4 + 2 x 2 attribute floats,
+    has_tangent), the material row (20 columns) of each material they
+    show, and the texels their taps read, each once."""
+    import torch
+
+    from mo_renderer_tpu_torch.passes import gbuffer as GB
+
+    tri, _, _, _, scene, _ = args
+    covered = tri >= 0
+    n_px, n_cov = tri.numel(), int(covered.sum())
+    tris = torch.unique(tri[covered]).to(torch.int64)
+    verts = torch.unique(scene.indices.to(torch.int64)[tris])
+    mats = torch.unique(scene.mesh_material.to(torch.int64)[
+        scene.tri_mesh.to(torch.int64)[tris]])
+    texels = int(torch.unique(torch.cat(
+        [r.reshape(-1) for r in gbuffer_ref_choices(args)[1]])).numel())
+    vert_bytes = 4 * (1 + 4 * 3 + 2 * 4 + 2 * 2) + 1
+    n_bytes = (n_px * (4 + 4 * 17 + 1) + n_cov * 8
+               + tris.numel() * 4 * (3 + 1) + verts.numel() * vert_bytes
+               + mats.numel() * (4 * GB.REF_MAT_COLS + 4) + texels * 4)
+    return n_bytes, n_cov * GBUFFER_REF_FLOPS_PER_PIXEL, {
+        "covered": n_cov, "triangles": tris.numel(),
+        "vertices": verts.numel(), "materials": mats.numel(),
+        "unique_texels": texels}
+
+
 def capture_inputs(cfg, device, frames, want):
     """Render one frame per entry of ``frames`` -- (EngineConfig
     overrides, world factory, camera factory) -- and record what each
@@ -1067,6 +1293,7 @@ def capture_inputs(cfg, device, frames, want):
         (FG, "shading_pass"): FG.shading_pass,
         (GB, "gbuffer_tail"): GB.gbuffer_tail,
         (FG, "gbuffer_pass_fast"): FG.gbuffer_pass_fast,
+        (FG, "gbuffer_pass"): FG.gbuffer_pass,
     }
 
     def recorder(key, fn):
@@ -1097,6 +1324,7 @@ def capture_inputs(cfg, device, frames, want):
     GB.gbuffer_tail = recorder("gbuffer", originals[(GB, "gbuffer_tail")])
     FG.gbuffer_pass_fast = recorder(
         "gbuffer_pass_fast", originals[(FG, "gbuffer_pass_fast")])
+    FG.gbuffer_pass = recorder("gbuffer_ref", originals[(FG, "gbuffer_pass")])
     try:
         for overrides, make_world, make_camera in frames:
             pcfg = dataclasses.replace(cfg, **overrides)
@@ -1538,6 +1766,29 @@ def check_kernels(cfg, device):
             extra={"covered": covered, "sources": sources},
         )
 
+    def gbuffer_ref(seen):
+        """K12 on the reference path's call (K6's planes, the scene's
+        tables and texture array, the vertex stage's outputs), with its
+        texel anchors and UV sets through the debug output
+        (``gbuffer_ref_check``)."""
+        args, _ = seen["gbuffer_ref"]
+        err, ok, bar, apart = gbuffer_ref_check(args)
+        print(f"[2] gbuffer_ref choices apart: {apart}", flush=True)
+        if not ok:
+            raise AssertionError(f"gbuffer_ref: kernel disagrees with its "
+                                 f"plain version (max |err| {err}, {apart})")
+        n_bytes, n_flops, extra = gbuffer_ref_work(args)
+        extra["apart"] = apart
+        return dict(
+            kernel=lambda: GB._gbuffer_ref_cuda(*args),
+            plain=lambda: GB._gbuffer_ref_plain(*args),
+            cmp=lambda k, p: (*gbuffer_compare(k, p)[:2], GBUFFER_REF_BAR),
+            shape=f"{tuple(args[0].shape)}, {extra['covered']} covered, "
+            f"{extra['triangles']} triangles, texture array "
+            f"{tuple(args[4].textures.shape)}",
+            bytes=n_bytes, flops=n_flops, extra=extra,
+        )
+
     case_of = {
         "raster_slim": functools.partial(raster, mode="slim"),
         "raster_depth": functools.partial(raster, mode="depth"),
@@ -1552,6 +1803,7 @@ def check_kernels(cfg, device):
         "shading": shading,
         "gbuffer": gbuffer,
         "shading_ref": shading_ref,
+        "gbuffer_ref": gbuffer_ref,
     }
     # K10's sources: each path's own, and the attrs_plane_kernel=False
     # branch on its own (the stacks path is that branch with K7)
@@ -1728,6 +1980,51 @@ def check_shading_ref_options(cfg, device):
               f"{err:.3g} ({bar}); apart {apart}", flush=True)
         if not ok:
             raise AssertionError(f"shading_ref {what}: kernel disagrees "
+                                 f"with its plain version (max |err| {err}, "
+                                 f"{apart})")
+    return len(calls)
+
+
+def check_gbuffer_ref_options(cfg, device):
+    """Phase 2, K12 beyond the paths' own calls, each against its plain
+    version at GBUFFER_REF_BAR with 0 texel anchors or UV sets apart
+    (``gbuffer_ref_check``): the UV1 scene under default flags (which
+    takes the reference path), the all-slots scene on the reference path
+    (five sampled slots, a mesh with tangents) and that call with every
+    has_tangent cleared (the tiny scene's own call has no tangents).
+    ``cfg`` gives the frame size; returns the number of calls held."""
+    import torch
+
+    from mo_renderer_tpu_torch import scenes
+
+    calls = {}
+    for what, overrides, make_world in (
+            ("UV1 scene, default flags", {},
+             functools.partial(scenes.tiny_world, uv1=True)),
+            ("all slots", {"fast_sampling": False},
+             functools.partial(scenes.tiny_world, all_slots=True))):
+        seen = capture_inputs(cfg, device,
+                              [(overrides, make_world, scenes.camera)],
+                              {"gbuffer_ref"})
+        calls[what] = seen["gbuffer_ref"][0]
+    *planes, scene, vs = calls["all slots"]
+    calls["all slots, no tangent"] = (*planes, scene, dataclasses.replace(
+        vs, has_tangent=torch.zeros_like(vs.has_tangent)))
+    for what, args in calls.items():
+        tri, scene, vs = args[0], args[4], args[5]
+        covered = tri >= 0
+        corner0 = scene.indices.to(torch.int64)[
+            torch.clamp(tri, min=0).to(torch.int64)][..., 0]
+        tangents = int((vs.has_tangent[corner0] & covered).sum())
+        choices, _ = gbuffer_ref_choices(args)
+        uv1 = int(((choices[..., -1] > 0) & covered).sum())
+        err, ok, bar, apart = gbuffer_ref_check(args)
+        print(f"[2] gbuffer_ref {what}: {tuple(tri.shape)}, "
+              f"{int(covered.sum())} covered, {tangents} with tangents, "
+              f"{uv1} sampling UV set 1, max |err| {err:.3g} ({bar}); "
+              f"apart {apart}", flush=True)
+        if not ok:
+            raise AssertionError(f"gbuffer_ref {what}: kernel disagrees "
                                  f"with its plain version (max |err| {err}, "
                                  f"{apart})")
     return len(calls)
@@ -2617,7 +2914,13 @@ def run_full_frame(device, line, path, n_frames, group=None, warmup=3):
     calls, device_ms = profile_frames(run)
     eager_calls, eager_device_ms = profile_frames(eager)
     if path in BY_PASS_PATHS:
-        print_passes(path, profile_passes(eager), line)
+        profiled = profile_passes(eager)
+        print_passes(path, profiled, line)
+        gbuffer_launches = profiled[0]["G-buffer (K3/K7/K10/K12)"][0]
+        if path.startswith("reference") and gbuffer_launches != 1:
+            raise AssertionError(f"{path}: the G-buffer pass made "
+                                 f"{gbuffer_launches} launches a frame, "
+                                 "want K12's one")
     ms = statistics.median(turns["replay"])
 
     rgb = frame[..., :3]
@@ -2683,10 +2986,10 @@ PASS_FUNCTIONS = {
     "shadow (K2)": ("shadow_map_from_clip", "shadow_program"),
     "triangle setup": ("triangle_setup_from_attrs", "triangle_setup"),
     "binning": ("_bin",),
-    "raster (K1/K6/K8)": ("rasterize", "rasterize_attrs"),
+    "raster (K1/K2/K6/K8)": ("rasterize", "rasterize_attrs"),
     "decimate": ("decimate_cols",),
-    "G-buffer (K3/K7/K10)": ("gbuffer_pass_fast", "gbuffer_pass",
-                         "gbuffer_pass_from_planes"),
+    "G-buffer (K3/K7/K10/K12)": ("gbuffer_pass_fast", "gbuffer_pass",
+                                 "gbuffer_pass_from_planes"),
     "SSAO (K4)": ("ssao_pass_tiles", "ssao_pass", "_pad_edge", "_even_grid",
                   "_upsample_to_cb", "_upsample_pow2"),
     "shading": ("shading_pass_fast", "shading_pass"),
@@ -2700,16 +3003,32 @@ HOST_CALL_ROWS = LAUNCH_ROWS + ("cudaGraphLaunch", "cudaMemcpyAsync",
                                 "cudaMemsetAsync")
 
 
+def _kernel_label(name):
+    """A device kernel's name without its parameter list: a hand kernel
+    keeps its template arguments (raster_kernel<0, false> is K2, <1, ...>
+    K1, <2, ...> K6)."""
+    import re
+
+    m = re.search(r"(\w+_kernel)(<.*?>)?(?=\()", name)
+    return m.group(1) + (m.group(2) or "") if m else name
+
+
 def profile_passes(run, n_frames=2):
     """torch.profiler over ``run(n_frames)`` with each function of
-    ``PASS_FUNCTIONS`` wrapped in a ``record_function`` range: {pass:
-    (kernel launches per frame, device ms per frame)}, each pass counted
-    without the passes it calls (the shadow's binning and raster count
-    as binning and raster); "rest of the frame" is what no range holds
-    (the frame's own ops, the params upload, the fetch).  The hand
-    kernels' launches count in their pass; their device time only where
-    ``PASS_HAND_KERNELS`` names them (K3, K7 and K10 in the G-buffer, K9
-    and K11 in shading)."""
+    ``PASS_FUNCTIONS`` wrapped in a ``record_function`` range: ({pass:
+    (kernel launches per frame, device ms per frame)}, {hand kernel: device
+    ms per frame}, {what: device ms per frame} of the rest of the frame),
+    each pass counted without the passes it calls (the shadow's binning
+    and raster count as binning and raster).  A hand kernel's launch from
+    C is a launch row inside its pass's range, but the profiler attaches
+    its device time to no event: it is added to the pass that
+    ``PASS_HAND_KERNELS`` names by the kernel's name.  "rest of the frame"
+    is the device work of the ops outside every range (the frame's own
+    ops, the params upload, the fetch), broken down by the op that queued
+    it (a copy or fill by its own name: the fetch is a device-to-host
+    Memcpy)."""
+    import collections
+
     import torch
 
     import mo_renderer_tpu_torch.passes.frame_graph as FG
@@ -2755,25 +3074,45 @@ def profile_passes(run, n_frames=2):
             by_pass[evt.name[len("pass::"):]][1] += us
     total_n = sum(1 for e in events if e.name in LAUNCH_ROWS)
     total_us = sum(k.duration for e in events for k in e.kernels)
-    # a hand kernel's launch from C is a launch row inside its pass's
-    # range, but its device time is attached to no event: add a pass's own
-    # hand kernels' time to the pass by name
     attached = {k.name for e in events for k in e.kernels}
-    for name, hand in PASS_HAND_KERNELS.items():
-        us = sum(e.time_range.elapsed_us() for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and e.name not in attached
-                 and any(k in e.name for k in hand))
+    hand = collections.Counter()
+    for e in events:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and e.name not in attached
+                and any(k in e.name for k in HAND_KERNELS)):
+            hand[_kernel_label(e.name)] += e.time_range.elapsed_us()
+    for name, kernels in PASS_HAND_KERNELS.items():
+        us = sum(v for k, v in hand.items() if any(h in k for h in kernels))
         by_pass[name][1] += us
         total_us += us
     by_pass["rest of the frame"] = [
         total_n - sum(v[0] for v in by_pass.values()),
         total_us - sum(v[1] for v in by_pass.values())]
-    return {name: (n / n_frames, us / 1e3 / n_frames)
-            for name, (n, us) in by_pass.items()}
+    rest = collections.Counter()
+
+    def outside(evt):
+        if evt.name.startswith("pass::"):
+            return
+        for k in evt.kernels:
+            rest[k.name if k.name.startswith(("Memcpy", "Memset"))
+                 else evt.name] += k.duration
+        for child in evt.cpu_children:
+            outside(child)
+
+    for evt in events:
+        if evt.cpu_parent is None:
+            outside(evt)
+
+    def per_frame(counts):
+        return {k: us / 1e3 / n_frames for k, us in counts.most_common()}
+
+    return ({name: (n / n_frames, us / 1e3 / n_frames)
+             for name, (n, us) in by_pass.items()},
+            per_frame(hand), per_frame(rest))
 
 
-def print_passes(path, by_pass, line):
+def print_passes(path, profiled, line):
+    by_pass, hand, rest = profiled
     total_n = sum(n for n, _ in by_pass.values())
     total_ms = sum(ms for _, ms in by_pass.values())
     rows = "; ".join(f"{name} {n:.0f} / {ms:.3f}"
@@ -2781,20 +3120,34 @@ def print_passes(path, by_pass, line):
     print(f"[4] {path} by pass (torch.profiler ranges, 2 frames; kernel "
           f"launches / device ms per frame): {rows}; total {total_n:.0f} / "
           f"{total_ms:.3f}; on {line}", flush=True)
+    print(f"[4] {path} hand kernels (device ms per frame): "
+          + "; ".join(f"{k} {ms:.4f}" for k, ms in hand.items()), flush=True)
+    top = list(rest.items())[:REST_ROWS]
+    others = sum(rest.values()) - sum(ms for _, ms in top)
+    print(f"[4] {path} rest of the frame by op (device ms per frame): "
+          + "; ".join(f"{k} {ms:.4f}" for k, ms in top)
+          + f"; {len(rest) - len(top)} others {others:.4f}", flush=True)
 
 
+# the rest of the frame's largest entries phase 4 prints by name
+REST_ROWS = 8
 # profiles of a sequence call whose record lacks a replay's kernels, at most
 PROFILE_ATTEMPTS = 3
 # the __global__ functions of csrc/, as the profiler names their launches
 HAND_KERNELS = ("raster_kernel", "raster_attrs_kernel", "attr_planes_kernel",
                 "ssao_kernel", "reconstruct_kernel", "stack_planes_kernel",
-                "shade_kernel", "gbuffer_kernel", "shade_ref_kernel")
-# the hand kernels a pass launches from C, which its profiler range does
-# not hold: they are added to the pass by name
+                "shade_kernel", "gbuffer_kernel", "shade_ref_kernel",
+                "gbuffer_ref_kernel")
+# the pass each hand kernel's device time is added to, by its name (each
+# launches from C inside that pass's range; the shadow's raster runs in the
+# raster pass)
 PASS_HAND_KERNELS = {
-    "G-buffer (K3/K7/K10)": ("attr_planes_kernel", "stack_planes_kernel",
-                             "gbuffer_kernel"),
+    "raster (K1/K2/K6/K8)": ("raster_kernel", "raster_attrs_kernel"),
+    "G-buffer (K3/K7/K10/K12)": ("attr_planes_kernel", "stack_planes_kernel",
+                                 "gbuffer_kernel", "gbuffer_ref_kernel"),
+    "SSAO (K4)": ("ssao_kernel",),
     "shading": ("shade_kernel", "shade_ref_kernel"),
+    "present (K5)": ("reconstruct_kernel",),
 }
 
 
@@ -3408,6 +3761,8 @@ def main() -> int:
     kernels["shading"]["option_sets"] = check_shading_options(
         EngineConfig(width=1920, height=1080), device)
     kernels["shading_ref"]["option_sets"] = check_shading_ref_options(
+        EngineConfig(width=1920, height=1080), device)
+    kernels["gbuffer_ref"]["option_sets"] = check_gbuffer_ref_options(
         EngineConfig(width=1920, height=1080), device)
     check_small_frames(device)
     check_topology(device)

@@ -50,9 +50,8 @@
 // and 32-bit offsets took most of the time off; the staged stores at 128
 // pixels a block gave the rest, a few percent over storing in place.
 //
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// (the helpers shared with K12, csrc/gbuffer_ref.cu)
+#include "gbuffer_common.cuh"
 
 // geometry channels: wp 0-2, n 3-5, t 6-8, bt 9-11, uv0 12-13, handedness 14
 constexpr int kGeo = 15;
@@ -105,32 +104,6 @@ constexpr int kPlanes3 = 5;
 constexpr int kOut = 3 * kPlanes3 + 2;
 static_assert(kThreads % 16 == 0, "a block's mask span is whole 16-byte words");
 
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 v3(float x, float y, float z) {
-  V3 r;
-  r.x = x;
-  r.y = y;
-  r.z = z;
-  return r;
-}
-
-// _normalize: v * rsqrt(clamp((v * v).sum(-1), min=1e-20))
-__device__ __forceinline__ V3 normalize_rsqrt(V3 v) {
-  const float ss = (v.x * v.x + v.y * v.y) + v.z * v.z;
-  const float r = rsqrtf(ss < (float)1e-20 ? (float)1e-20 : ss);
-  return v3(v.x * r, v.y * r, v.z * r);
-}
-
-// kernels/tonemap.py srgb_to_linear: the 0.04045 branch, powf(., 2.4)
-__device__ __forceinline__ float srgb_to_linear(float s) {
-  if (s < 0.04045f) return s * (1.0f / 12.92f);
-  const float t = (s + 0.055f) * (1.0f / 1.055f);
-  return powf(t < 0.0f ? 0.0f : t, 2.4f);  // torch.clamp passes a NaN on
-}
-
 // _ndc01 of [wp, 1] @ m.t(): the clip row as the matrix product's
 // multiply-add chain in k order, then the Vulkan-flipped [0, 1] NDC
 __device__ __forceinline__ void ndc01(const float* m, V3 p, float* out) {
@@ -142,9 +115,7 @@ __device__ __forceinline__ void ndc01(const float* m, V3 p, float* out) {
     acc = fmaf(p.z, __ldg(m + 4 * k + 2), acc);
     c[k] = fmaf(1.0f, __ldg(m + 4 * k + 3), acc);
   }
-  const float wc = fabsf(c[3]) > (float)1e-20 ? c[3] : 1.0f;
-  out[0] = (c[0] / wc + 1.0f) * 0.5f;
-  out[1] = 1.0f - (c[1] / wc + 1.0f) * 0.5f;
+  ndc01_of(c[0], c[1], c[3], out);
 }
 
 __device__ __forceinline__ float chan_at(const GbufArgs& a, int k, int y,
@@ -222,10 +193,10 @@ __device__ __forceinline__ void gbuffer_pixel(const GbufArgs& a, int p, int y,
     if (kind == 2) return __ldg(a.sk + (a.slot_plane[k][c] * a.h * a.w + p));
     const uint4 q = quad[k];
     const unsigned s = 8u * (unsigned)c;
-    const float v0 = (float)((q.x >> s) & 0xFFu) * a.inv255;
-    const float v1 = (float)((q.y >> s) & 0xFFu) * a.inv255;
-    const float v2 = (float)((q.z >> s) & 0xFFu) * a.inv255;
-    const float v3v = (float)((q.w >> s) & 0xFFu) * a.inv255;
+    const float v0 = unorm8(q.x, s, a.inv255);
+    const float v1 = unorm8(q.y, s, a.inv255);
+    const float v2 = unorm8(q.z, s, a.inv255);
+    const float v3v = unorm8(q.w, s, a.inv255);
     return v0 * w00 + v1 * w10 + v2 * w01 + v3v * w11;
   };
 

@@ -76,6 +76,7 @@ LAUNCHES: dict[str, int] = {
     "shading": 0,
     "gbuffer": 0,
     "shading_ref": 0,
+    "gbuffer_ref": 0,
 }
 
 _lock = threading.Lock()

@@ -22,7 +22,10 @@ reference sampling path's ``gbuffer_pass``, the fast path's
 
 On a card the tail is one hand kernel, K10 (``csrc/gbuffer.cu``), for
 every input source; its plain version, ``_gbuffer_tail_plain`` with
-``_texture_and_assemble``, is what the CPU runs.
+``_texture_and_assemble``, is what the CPU runs.  The reference sampling
+path's ``gbuffer_pass`` is one hand kernel on a card too, K12
+(``csrc/gbuffer_ref.cu``); its plain version, ``_gbuffer_ref_plain``, is
+what the CPU runs.
 """
 
 from __future__ import annotations
@@ -111,7 +114,19 @@ def _interp(attr, i0, i1, i2, bb0, bb1, bb2):
 
 def gbuffer_pass(tri, z, b0, b1, scene, vs) -> GBuffer:
     """tri/z/b0/b1: the full-mode visibility buffer (H, W); vs: the
-    per-vertex stage's VertexOutputs (gbuffer.py:71)."""
+    per-vertex stage's VertexOutputs (gbuffer.py:71).
+
+    On a CUDA ``tri`` this is the kernel of ``csrc/gbuffer_ref.cu`` (K12),
+    one launch; on the CPU it is the PyTorch ops of
+    ``_gbuffer_ref_plain``, the kernel's plain version."""
+    if tri.is_cuda:
+        return _gbuffer_ref_cuda(tri, z, b0, b1, scene, vs)
+    return _gbuffer_ref_plain(tri, z, b0, b1, scene, vs)
+
+
+def _gbuffer_ref_plain(tri, z, b0, b1, scene, vs) -> GBuffer:
+    """gbuffer_pass in PyTorch ops: the CPU's path, and the plain version
+    the kernel is held to on the card."""
     covered = tri >= 0
     t = torch.clamp(tri, min=0).to(torch.int64)
     idx = scene.indices.to(torch.int64)[t]  # (H, W, 3)
@@ -646,3 +661,177 @@ def launch_gbuffer(a, like):
     fn = _build.function("mo_gbuffer", [ctypes.POINTER(GbufArgs), _build.P])
     _build.check("gbuffer", fn(ctypes.byref(a), _build.stream_of(like)))
     _build.count("gbuffer")
+
+
+# --- K12: the kernel of csrc/gbuffer_ref.cu ----------------------------------
+
+# the per-vertex attributes K12 interpolates, in GbufRefArgs.attr order
+# (csrc/gbuffer_ref.cu kAttr*): (VertexOutputs or SceneBuffers field,
+# channels)
+REF_ATTRS = (("world_pos", 3), ("world_normal", 3), ("world_tangent", 3),
+             ("world_bitangent", 3), ("clip", 4), ("prev_clip", 4),
+             ("uv0", 2), ("uv1", 2))
+# the debug output's int32 channels per pixel (-1 where uncovered): each
+# slot's flat texel anchor (layer * S * S + y0 * S + x0 after the wrap),
+# then the UV sets (bit k: slot k sampled UV set 1)
+REF_DEBUG = ("base_color", "normal", "mr", "occlusion", "emissive",
+             "uv_sets")
+# the material columns K12 reads (csrc/gbuffer_ref.cu kMat*)
+REF_MAT_COLS = M.MAT_ROUGHNESS_FACTOR + 1
+
+
+class GbufRefArgs(ctypes.Structure):
+    """csrc/gbuffer_ref.cu's GbufRefArgs, field for field."""
+
+    _fields_ = [
+        ("tri", ctypes.c_void_p),
+        ("tri_st", ctypes.c_int * 2),
+        ("b0", ctypes.c_void_p),
+        ("b0_st", ctypes.c_int * 2),
+        ("b1", ctypes.c_void_p),
+        ("b1_st", ctypes.c_int * 2),
+        ("indices", ctypes.c_void_p),
+        ("indices_st", ctypes.c_int * 2),
+        ("n_tris", ctypes.c_int),
+        ("inv_w", ctypes.c_void_p),
+        ("inv_w_st", ctypes.c_int),
+        ("attr", ctypes.c_void_p * len(REF_ATTRS)),
+        ("attr_st", ctypes.c_int * (2 * len(REF_ATTRS))),
+        ("n_verts", ctypes.c_int),
+        ("has_tangent", ctypes.c_void_p),
+        ("has_tangent_st", ctypes.c_int),
+        ("tri_mesh", ctypes.c_void_p),
+        ("tri_mesh_st", ctypes.c_int),
+        ("mesh_material", ctypes.c_void_p),
+        ("mesh_material_st", ctypes.c_int),
+        ("n_meshes", ctypes.c_int),
+        ("materials", ctypes.c_void_p),
+        ("mat_st", ctypes.c_int * 2),
+        ("n_materials", ctypes.c_int),
+        ("textures", ctypes.c_void_p),
+        ("n_texels", ctypes.c_int),
+        ("tex_size", ctypes.c_int),
+        ("inv255", ctypes.c_float),
+        ("h", ctypes.c_int),
+        ("w", ctypes.c_int),
+        ("out", ctypes.c_void_p * 6),
+        ("mask", ctypes.c_void_p),
+        ("dbg", ctypes.c_void_p),
+    ]
+
+
+def gbuffer_ref_args(tri, b0, b1, scene, vs, debug=False):
+    """What K12 reads: (GbufRefArgs, the tensors it writes and keeps
+    alive: the GBUFFER_OUT planes, ``mask`` and, with ``debug``, ``dbg``,
+    each pixel's REF_DEBUG channels).  Every input is read where it lies,
+    through its strides; the texture array must be a contiguous (L, S, S,
+    4) uint8 array (the kernel reads a texel as one 32-bit word).  Pure
+    Python over the tensors' pointers, shapes and strides: nothing is read
+    from the device, and the outputs come from the caching allocator, so a
+    CUDA graph captures the call."""
+    h, w = tri.shape
+    dev = tri.device
+
+    def need(name, t, dtype, shape):
+        if t.dtype != dtype or t.device != dev or tuple(t.shape) != shape:
+            raise ValueError(f"gbuffer_ref: {name} is {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}, expected "
+                             f"{dtype} {shape} on {dev}")
+
+    n_tris = scene.indices.shape[0]
+    n_verts = vs.inv_w.shape[0]
+    attrs = [getattr(scene if name.startswith("uv") else vs, name)
+             for name, _ in REF_ATTRS]
+    tables = {"tri": (tri, torch.int32, (h, w)),
+              "b0": (b0, torch.float32, (h, w)),
+              "b1": (b1, torch.float32, (h, w)),
+              "scene.indices": (scene.indices, torch.int32, (n_tris, 3)),
+              "vs.inv_w": (vs.inv_w, torch.float32, (n_verts,)),
+              "vs.has_tangent": (vs.has_tangent, torch.bool, (n_verts,)),
+              "scene.tri_mesh": (scene.tri_mesh, torch.int32, (n_tris,)),
+              "scene.mesh_material": (scene.mesh_material, torch.int32,
+                                      tuple(scene.mesh_material.shape[:1]))}
+    for (name, k), t in zip(REF_ATTRS, attrs):
+        tables[name] = (t, torch.float32, (n_verts, k))
+    for name, (t, dtype, shape) in tables.items():
+        need(name, t, dtype, shape)
+    mats = scene.materials
+    if (mats.dtype != torch.float32 or mats.device != dev or mats.dim() != 2
+            or mats.shape[1] < REF_MAT_COLS):
+        raise ValueError(f"gbuffer_ref: scene.materials is {mats.dtype} "
+                         f"{tuple(mats.shape)} on {mats.device}, expected "
+                         f"float32 rows of {REF_MAT_COLS}+ columns on {dev}")
+    tex = scene.textures
+    if (tex.dtype != torch.uint8 or tex.device != dev or tex.dim() != 4
+            or tex.shape[1] != tex.shape[2] or tex.shape[3] != 4
+            or not tex.is_contiguous() or tex.data_ptr() % 4):
+        raise ValueError(f"gbuffer_ref: scene.textures is {tex.dtype} "
+                         f"{tuple(tex.shape)} on {tex.device}, expected a "
+                         f"contiguous, 4-byte aligned (L, S, S, 4) uint8 "
+                         f"array on {dev}")
+    # the kernel's offsets are 32-bit: every table and plane it indexes
+    indexed = [t for t, _, _ in tables.values()] + [mats, tex]
+    if (max(map(_build.max_offset, indexed)) > _build.INT32_MAX
+            or h * w * len(REF_DEBUG) > _build.INT32_MAX):
+        raise ValueError("gbuffer_ref: an input spans more than the "
+                         "kernel's 32-bit offsets reach")
+
+    keep = {k: torch.empty((h, w, 2 if k == "velocity" else 3),
+                           dtype=torch.float32, device=dev)
+            for k in GBUFFER_OUT}
+    keep["mask"] = torch.empty((h, w), dtype=torch.bool, device=dev)
+    if debug:
+        keep["dbg"] = torch.empty((h, w, len(REF_DEBUG)), dtype=torch.int32,
+                                  device=dev)
+    a = GbufRefArgs()
+    a.tri, a.tri_st[:] = tri.data_ptr(), tri.stride()
+    a.b0, a.b0_st[:] = b0.data_ptr(), b0.stride()
+    a.b1, a.b1_st[:] = b1.data_ptr(), b1.stride()
+    a.indices, a.indices_st[:] = scene.indices.data_ptr(), \
+        scene.indices.stride()
+    a.n_tris = n_tris
+    a.inv_w, a.inv_w_st = vs.inv_w.data_ptr(), vs.inv_w.stride(0)
+    a.attr[:] = [t.data_ptr() for t in attrs]
+    a.attr_st[:] = [s for t in attrs for s in t.stride()]
+    a.n_verts = n_verts
+    a.has_tangent = vs.has_tangent.data_ptr()
+    a.has_tangent_st = vs.has_tangent.stride(0)
+    a.tri_mesh = scene.tri_mesh.data_ptr()
+    a.tri_mesh_st = scene.tri_mesh.stride(0)
+    a.mesh_material = scene.mesh_material.data_ptr()
+    a.mesh_material_st = scene.mesh_material.stride(0)
+    a.n_meshes = scene.mesh_material.shape[0]
+    a.materials, a.mat_st[:] = mats.data_ptr(), mats.stride()
+    a.n_materials = mats.shape[0]
+    a.textures = tex.data_ptr()
+    a.n_texels = tex.shape[0] * tex.shape[1] * tex.shape[2]
+    a.tex_size = tex.shape[1]
+    a.inv255 = _INV255
+    a.h, a.w = h, w
+    a.out[:] = [keep[k].data_ptr() for k in GBUFFER_OUT]
+    a.mask = keep["mask"].data_ptr()
+    a.dbg = keep["dbg"].data_ptr() if debug else None
+    return a, keep
+
+
+def _gbuffer_ref_cuda(tri, z, b0, b1, scene, vs, debug=False):
+    """K12: one launch on the current stream.  ``debug``: also write the
+    REF_DEBUG channels and return (GBuffer, the kept tensors)."""
+    a, keep = gbuffer_ref_args(tri, b0, b1, scene, vs, debug=debug)
+    launch_gbuffer_ref(a, keep["mask"])
+    gbuf = GBuffer(**{k: keep[k] for k in GBUFFER_OUT}, depth=z,
+                   mask=keep["mask"])
+    return (gbuf, keep) if debug else gbuf
+
+
+def launch_gbuffer_ref(a, like):
+    """The C entry of csrc/gbuffer_ref.cu on ``like``'s stream; one
+    count."""
+    lib = _build.library()
+    if lib.mo_gbuffer_ref_args_size() != ctypes.sizeof(GbufRefArgs):
+        raise RuntimeError("gbuffer_ref: GbufRefArgs does not match "
+                           "csrc/gbuffer_ref.cu")
+    fn = _build.function("mo_gbuffer_ref",
+                         [ctypes.POINTER(GbufRefArgs), _build.P])
+    _build.check("gbuffer_ref", fn(ctypes.byref(a), _build.stream_of(like)))
+    _build.count("gbuffer_ref")

@@ -30,7 +30,10 @@ fallback); of the G-buffer tail's (K10: random inputs laid out as
 each of its five sources has them, through its debug rows, no
 fallback on any fast path's frame); and of the reference path's shading
 kernel's (K11: random G-buffers under every option set, 1 to 16 lights,
-its discrete choices through its debug output, no fallback).
+its discrete choices through its debug output, no fallback); and of the
+reference path's G-buffer kernel's (K12: random scenes aimed at its
+discontinuities, its texel anchors and UV sets through its debug output,
+the UV1, all-slots and no-tangent calls, no fallback).
 """
 
 import os
@@ -974,3 +977,69 @@ def test_shading_ref_never_falls_back_on_the_card(cuda, monkeypatch):
     before = _build.LAUNCHES["shading_ref"]
     r.render(world)
     assert _build.LAUNCHES["shading_ref"] > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [{}, {"slot_uv": 0.0}, {"slot_uv": 1.0},
+                                  {"tangent": True}, {"tangent": False}])
+@pytest.mark.parametrize("shape", [(24, 32, 8), (37, 70, 64)])
+def test_gbuffer_ref_kernel_matches_plain(cuda, case, shape):
+    """K12 away from any frame, on random scenes aimed at its
+    discontinuities (texel centres and their ulps, REPEAT both ways, each
+    UV set, has_tangent both ways, the |qs| guard, uncovered pixels; a
+    target ragged against the kernel's 128-pixel blocks): every plane at
+    rtol 2e-3 / atol 1e-4, the mask equal, no texel anchor or UV set apart
+    from the plain version's."""
+    import chip_smoke
+
+    h, w, size = shape
+    for seed in (0, 1):
+        args = chip_smoke.ref_call(chip_smoke.random_ref_inputs(
+            seed, h=h, w=w, size=size, **case), cuda)
+        err, ok, bar, apart = chip_smoke.gbuffer_ref_check(args)
+        torch.cuda.synchronize()
+        assert ok, (seed, err, bar, apart)
+
+
+@pytest.mark.cuda
+def test_gbuffer_ref_holds_its_option_sets(cuda):
+    """K12 on the frames' own calls at 256x128: the UV1 scene under default
+    flags, the all-slots scene and that call without tangents."""
+    import chip_smoke
+    from mo_renderer_tpu_torch import scenes
+
+    assert chip_smoke.check_gbuffer_ref_options(scenes.tiny_config(),
+                                                cuda) == 3
+
+
+@pytest.mark.cuda
+def test_gbuffer_ref_never_falls_back_on_the_card(cuda, monkeypatch):
+    """A card visibility buffer launches K12 once a call, and the
+    reference frame launches it, never the PyTorch ops; a float64
+    barycentric plane raises."""
+    import chip_smoke
+    from mo_renderer_tpu_torch import Renderer, scenes
+    from mo_renderer_tpu_torch.kernels import _build
+    from mo_renderer_tpu_torch.passes import gbuffer as GB
+
+    def plain(*a, **k):
+        raise AssertionError("the card ran the PyTorch ops")
+
+    monkeypatch.setattr(GB, "_gbuffer_ref_plain", plain)
+    args = chip_smoke.ref_call(chip_smoke.random_ref_inputs(), cuda)
+    before = _build.LAUNCHES["gbuffer_ref"]
+    g = GB.gbuffer_pass(*args)
+    torch.cuda.synchronize()
+    assert g.base_color.is_cuda and g.mask.dtype == torch.bool
+    assert g.depth is args[1]
+    assert _build.LAUNCHES["gbuffer_ref"] == before + 1
+    with pytest.raises(ValueError, match="b0"):
+        GB.gbuffer_pass(args[0], args[1], args[2].double(), *args[3:])
+    cfg = scenes.tiny_config(fast_sampling=False)
+    world = scenes.tiny_world()
+    world.insert_resource(scenes.camera(cfg))
+    r = Renderer(cfg, cuda)
+    r.prepare(world)
+    before = _build.LAUNCHES["gbuffer_ref"]
+    r.render(world)
+    assert _build.LAUNCHES["gbuffer_ref"] > before
