@@ -62,9 +62,13 @@ Phases (each raises on failure; the script then exits non-zero):
    / atol 1e-4 and 0 texel rows apart (through its debug output); the
    same as ``gbuffer@grid`` on grid_world(10)'s calls.  Then the
    reference path's shading pass ``shading_ref`` (K11,
-   ``csrc/shading_ref.cu``: one launch, one thread a pixel) on the
-   reference path's call (its G-buffer, SSAO, raw 2048^2 shadow map, IBL
-   maps) and as ``shading_ref@grid``, at SHADING_BAR, with its PCF
+   ``csrc/shading_ref.cu``: one launch, a warp a span of pixels that it
+   shades sky pixels first, then lit pixels, each from a list compacted in
+   shared memory) on the reference path's call (its G-buffer, SSAO, raw
+   2048^2 shadow map, IBL maps), as ``shading_ref@grid`` and as
+   ``shading_ref@lit`` (grid_world(10) from ``lit_camera``, over its
+   plane: no pixel is sky, which the script asserts), at SHADING_BAR,
+   with its PCF
    compares and tap texels, cube faces, mip levels and sample texels
    through its debug output equal to the plain version's
    (``shading_ref_check``); its bytes count the map texels the samples
@@ -149,7 +153,9 @@ Phases (each raises on failure; the script then exits non-zero):
    and device time per frame of both from torch.profiler over two more
    frames.  Then the default, the reference
    and the megakernel path on scenes.grid_world(10) in the same way, a few
-   frames each.  Then the ``rows`` path: the 1080p row-sharded frame
+   frames each, and ``reference@lit``, the reference path on that scene
+   from ``lit_camera`` (geometry everywhere, no sky).  Then the ``rows``
+   path: the 1080p row-sharded frame
    (``TileShardedRenderer``, world of one, ``ssao_res_divisor=1``) along
    the same orbit, and ``rows@grid`` on the stress scene, timed and
    profiled the same way; they launch the band kernels and no
@@ -290,6 +296,10 @@ GRID_PATHS = {
     "reference@grid": PATHS["reference"][:2],
     "megakernel@grid": PATHS["megakernel"][:2],
 }
+# the reference path on that scene from lit_camera, where no pixel is sky:
+# K11 timed where its lit pixels are the whole frame (phase 2
+# ``shading_ref@lit``, phase 4 ``reference@lit``)
+LIT_PATHS = {"reference@lit": PATHS["reference"][:2]}
 # the row-sharded frame (TileShardedRenderer on a world of one): the
 # kernels it runs, and the scene of each of its phase-4 paths
 ROWS_OVERRIDES = {"ssao_res_divisor": 1}
@@ -1713,10 +1723,11 @@ def check_kernels(cfg, device):
             bytes=n_bytes, flops=n_flops, extra=extra,
         )
 
-    def shading_ref(seen):
+    def shading_ref(seen, sky_free=False):
         """K11 on the reference path's call (its G-buffer, SSAO, raw
         shadow map, IBL maps and lights), with its discrete choices through
-        the debug output (``shading_ref_check``)."""
+        the debug output (``shading_ref_check``); ``sky_free``: the call
+        must have no sky pixel."""
         args = shading_ref_args(*seen["shading_ref"])
         err, ok, bar, apart = shading_ref_check(args)
         print(f"[2] shading_ref choices apart: {apart}", flush=True)
@@ -1724,6 +1735,9 @@ def check_kernels(cfg, device):
             raise AssertionError(f"shading_ref: kernel disagrees with its "
                                  f"plain version (max |err| {err}, {apart})")
         n_bytes, n_flops, extra = shading_ref_work(args)
+        if sky_free and extra["sky_pixels"]:
+            raise AssertionError(f"shading_ref@lit: {extra['sky_pixels']} "
+                                 "sky pixels, want none")
         extra["apart"] = apart
         gbuf = args[0]
         return dict(
@@ -1829,6 +1843,12 @@ def check_kernels(cfg, device):
         # the plain raster walks 4096 pairs x 4096 pixels at a time: a few
         # timed calls are enough
         cases[f"{name}@grid"] = {**case_of[name](seen), "plain_runs": 3}
+    seen = capture_inputs(
+        cfg, device, [(overrides, scenes.grid_world, lit_camera)
+                      for overrides, _ in LIT_PATHS.values()],
+        {"shading_ref"})
+    cases["shading_ref@lit"] = {**shading_ref(seen, sky_free=True),
+                                "plain_runs": 3}
 
     # what the events read for a kernel that does next to nothing
     one = torch.zeros(1, device=device)
@@ -1932,6 +1952,25 @@ def check_shading_options(cfg, device):
     if layouts != {Sh.PCF_U16_HALF, Sh.PCF_U16_FULL, Sh.PCF_F32_WIDE}:
         raise AssertionError(f"shading: PCF layouts held {layouts}")
     return len(calls)
+
+
+def lit_camera(cfg):
+    """grid_world(10) seen from 10 units over its 40-unit plane, 3 units
+    back along the stress camera's yaw and pitched 1.2 rad towards the
+    plane: the plane and the grid fill every pixel of the 1088-row frame,
+    so no pixel is sky (an interior's share of lit pixels)."""
+    import numpy as np
+
+    from mo_renderer_tpu_torch.math import quat
+    from mo_renderer_tpu_torch.scene.camera import Camera
+
+    yaw = np.pi * 0.8
+    d = np.array([np.sin(yaw), 0.0, np.cos(yaw)])
+    cam = Camera(position=tuple(-3.0 * d + np.array([0.0, 10.0, 0.0])),
+                 rotation=quat.mul(quat.from_rotation_y(yaw),
+                                   quat.from_rotation_x(1.2)))
+    cam.resize((cfg.width, cfg.height))
+    return cam
 
 
 def lights_world():
@@ -2830,15 +2869,17 @@ def run_full_frame(device, line, path, n_frames, group=None, warmup=3):
     from mo_renderer_tpu_torch.parallel import TileShardedRenderer
     from mo_renderer_tpu_torch.parallel import tile_sharding as TS
 
+    lit = path in LIT_PATHS
     grid = path in GRID_PATHS or ROWS_PATHS.get(path) == "grid"
     if path in ROWS_PATHS:
         overrides, kernels = ROWS_OVERRIDES, ROWS_KERNELS
-    elif grid:
-        overrides, kernels = GRID_PATHS[path]
+    elif grid or lit:
+        overrides, kernels = {**GRID_PATHS, **LIT_PATHS}[path]
     else:
         overrides, kernels, scene_kw = PATHS[path]
-    if grid:
-        make_world, make_camera = scenes.grid_world, scenes.grid_camera
+    if grid or lit:
+        make_world = scenes.grid_world
+        make_camera = lit_camera if lit else scenes.grid_camera
     else:
         make_world = functools.partial(scenes.tiny_world,
                                        **({} if path in ROWS_PATHS
@@ -2946,7 +2987,10 @@ def run_full_frame(device, line, path, n_frames, group=None, warmup=3):
         raise AssertionError(f"frame {frame.shape} {frame.dtype}")
     if rgb.max() == 0:
         raise AssertionError("black frame")
-    if not 0.0 < covered < 1.0:
+    if lit and covered != 1.0:
+        raise AssertionError(f"covered fraction {covered}: {path} has "
+                             "geometry everywhere")
+    if not lit and not 0.0 < covered < 1.0:
         raise AssertionError(f"covered fraction {covered}: need sky and "
                              "geometry")
     if top._captures != 1:
@@ -3784,7 +3828,8 @@ def main() -> int:
         for path, n_frames in (("default", 16), ("reference", 8),
                                ("megakernel", 8), ("stacks", 8),
                                ("default@grid", 4), ("reference@grid", 4),
-                               ("megakernel@grid", 4), ("rows", 8),
+                               ("megakernel@grid", 4),
+                               ("reference@lit", 4), ("rows", 8),
                                ("rows@grid", 4)):
             counts, _, replay = run_full_frame(device, line, path, n_frames,
                                                group)
@@ -3794,6 +3839,8 @@ def main() -> int:
             elif path in GRID_PATHS:
                 names = [(f"{name}@grid", name) for name in
                          set(GRID_PATHS[path][1]) & set(GRID_KERNELS)]
+            elif path in LIT_PATHS:
+                names = [(f"{name}@lit", name) for name in LIT_PATHS[path][1]]
             else:
                 names = [(name, name) for name in set(kernels) & set(KERNELS)
                          if name in PATHS[path][1]]

@@ -1,11 +1,10 @@
 // Device helpers of the two shading kernels: csrc/shading.cu (K9, the
 // fast path) and csrc/shading_ref.cu (K11, the reference sampling path).
 //
-// Each unit compiles these with its own flags (kernels/_build.py
-// UNIT_FLAGS): shading.cu contracts multiply-adds and divides to 2 ulps,
-// shading_ref.cu builds with -fmad=false and IEEE division and roots.  The
-// pinned helpers (p*) round once per operation under either, so what
-// feeds a compare or an index rounds as the plain version's torch op does.
+// Both units compile these with multiply-add contraction and division and
+// roots to 2 ulps (kernels/_build.py UNIT_FLAGS).  The pinned helpers (p*)
+// round once per operation under any flags, so what feeds a compare or an
+// index rounds as the plain version's torch op does.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -45,11 +45,11 @@ NVCC_FLAGS = (
 # correctly: their results are continuous in the arithmetic, held to a
 # tolerance, and each pins with __fmul_rn / __fadd_rn / __fsub_rn /
 # __fdiv_rn / __fsqrt_rn every operation that feeds a compare or an
-# integer (csrc/shading.cu lists them).
+# integer (the headers of csrc/shading.cu and csrc/shading_ref.cu list
+# them).
 FMAD_DEFAULT = ("-fmad=false",)
-UNIT_FLAGS = {
-    "shading.cu": ("-fmad=true", "-prec-div=false", "-prec-sqrt=false"),
-}
+_CONTRACT = ("-fmad=true", "-prec-div=false", "-prec-sqrt=false")
+UNIT_FLAGS = {"shading.cu": _CONTRACT, "shading_ref.cu": _CONTRACT}
 
 
 def unit_flags(unit: str) -> tuple:

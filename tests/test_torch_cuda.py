@@ -62,7 +62,7 @@ def test_kernels_match_plain_versions_on_the_card(cuda):
     results = chip_smoke.check_kernels(scenes.tiny_config(), cuda)
     assert set(results) == set(chip_smoke.KERNELS) | {
         f"{name}@grid" for name in chip_smoke.GRID_KERNELS
-        + chip_smoke.BAND_GRID_KERNELS}
+        + chip_smoke.BAND_GRID_KERNELS} | {"shading_ref@lit"}
 
 
 @pytest.mark.cuda
@@ -872,18 +872,31 @@ def test_gbuffer_tail_never_falls_back_on_the_card(cuda, monkeypatch):
         assert _build.LAUNCHES["gbuffer"] > before, overrides
 
 
-def _shading_ref_case(cuda, n_lights, seed=0, ibl=True, shadow=True):
-    """A random G-buffer on the card (a quarter of it sky, normals on cube
-    diagonals in its first row), random SSAO, ``n_lights`` lights of the
-    three kinds, a raw 64 x 64 shadow map and the tiny scene's IBL maps:
-    the arguments of K11 and its plain version."""
+# the sky patterns of _shading_ref_case: no pixel, every pixel, all but
+# every 600th pixel, every other pixel, or depths drawn at random (about
+# 40% of the pixels sky)
+SKY_PATTERNS = ("none", "all", "one", "alternate", "random")
+
+
+def _shading_ref_case(cuda, n_lights, seed=0, ibl=True, shadow=True,
+                      sky="random", width=None):
+    """A random G-buffer on the card (its sky pixels one of SKY_PATTERNS,
+    normals on cube diagonals in its first row), random SSAO, ``n_lights``
+    lights of the three kinds, a raw 64 x 64 shadow map and the tiny
+    scene's IBL maps: the arguments of K11 and its plain version.  Against
+    the kernel's spans of up to 512 pixels the patterns give spans with
+    no lit pixel, one, every other one, all lit, and a ragged last span;
+    ``width``: the planes, depth and SSAO are views of their first
+    ``width`` columns, so a span wraps over rows of strided views."""
+    import dataclasses
+
     import numpy as np
 
     from mo_renderer_tpu_torch import scenes
     from mo_renderer_tpu_torch.passes.gbuffer import GBuffer
 
     rng = np.random.default_rng(seed)
-    h, w = 37, 70  # ragged against the kernel's 8 x 32 blocks
+    h, w = 37, 70  # ragged against the kernel's spans
 
     def plane(*shape, lo=0.0, hi=1.0):
         return torch.from_numpy(
@@ -895,6 +908,14 @@ def _shading_ref_case(cuda, n_lights, seed=0, ibl=True, shadow=True):
                                  device=cuda)
     normal = torch.nn.functional.normalize(normal, dim=-1)
     depth = plane(h, w, lo=0.5, hi=1.33).clamp(max=1.0)
+    if sky == "none":
+        depth = depth.clamp(max=0.99)
+    elif sky == "all":
+        depth = torch.ones_like(depth)
+    elif sky in ("one", "alternate"):
+        idx = torch.arange(h * w, device=cuda).reshape(h, w)
+        lit = idx % (600 if sky == "one" else 2) == 0
+        depth = torch.where(lit, depth.clamp(max=0.99), 1.0)
     orm = plane(h, w, 3)
     orm[1, :8, 1] = torch.arange(8, device=cuda) / 7.0  # the mip boundaries
     gbuf = GBuffer(base_color=plane(h, w, 3), position=plane(h, w, 3, lo=-2),
@@ -913,22 +934,33 @@ def _shading_ref_case(cuda, n_lights, seed=0, ibl=True, shadow=True):
               "direction": torch.tensor([0.0, 0.0, 1.0], device=cuda),
               "near": torch.tensor(0.1, device=cuda),
               "near_wh": torch.tensor([0.2, 0.1], device=cuda)}
-    return (gbuf, plane(h, w, lo=0.5),
-            plane(64, 64, lo=0.3, hi=0.9) if shadow else None, lights,
-            n_lights, params, scenes.tiny_ibl(cuda).maps() if ibl else None)
+    ssao = plane(h, w, lo=0.5)
+    smap = plane(64, 64, lo=0.3, hi=0.9) if shadow else None
+    if width is not None:
+        for f in dataclasses.fields(gbuf):
+            setattr(gbuf, f.name, getattr(gbuf, f.name)[:, :width])
+        ssao = ssao[:, :width]
+    return (gbuf, ssao, smap, lights, n_lights, params,
+            scenes.tiny_ibl(cuda).maps() if ibl else None)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", [None, 1, 33])
+@pytest.mark.parametrize("sky", SKY_PATTERNS)
 @pytest.mark.parametrize("n_lights", [1, 3, 16])
 @pytest.mark.parametrize("ibl,shadow", [(True, True), (False, True),
                                         (True, False), (False, False)])
-def test_shading_ref_kernel_on_random_gbuffers(cuda, n_lights, ibl, shadow):
-    """K11 away from any frame, under every option set: the colour at the
-    bar, and no PCF tap, tap texel, cube face, mip level or sample texel
-    apart from the plain version's (through its debug output)."""
+def test_shading_ref_kernel_on_random_gbuffers(cuda, n_lights, ibl, shadow,
+                                               sky, width):
+    """K11 away from any frame, under every option set and sky pattern
+    (so spans with 0, some or all of their pixels lit), on the whole
+    G-buffer and on narrow column views of it: the colour at the bar, and
+    no PCF tap, tap texel, cube face, mip level or sample texel apart from
+    the plain version's (through its debug output)."""
     import chip_smoke
 
-    args = _shading_ref_case(cuda, n_lights, ibl=ibl, shadow=shadow)
+    args = _shading_ref_case(cuda, n_lights, ibl=ibl, shadow=shadow,
+                             sky=sky, width=width)
     err, ok, bar, apart = chip_smoke.shading_ref_check(args)
     torch.cuda.synchronize()
     assert ok, (err, bar, apart)

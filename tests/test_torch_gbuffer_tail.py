@@ -288,17 +288,20 @@ def test_gbuffer_ctypes_layout_follows_the_c_struct():
 
 
 def test_build_flags_per_unit():
-    """shading.cu alone builds with multiply-add contraction; every other
-    unit with -fmad=false, and the build hands each unit its own flags."""
+    """The two shading units, shading.cu and shading_ref.cu, alone build
+    with multiply-add contraction (and division and roots to 2 ulps);
+    every other unit with -fmad=false, and the build hands each unit its
+    own flags."""
     units = [u for u in _build.sources() if u.endswith(".cu")]
-    assert {os.path.basename(u) for u in units} >= {"shading.cu",
-                                                   "gbuffer.cu"}
+    contract = {"shading.cu", "shading_ref.cu"}
+    assert {os.path.basename(u) for u in units} >= contract | {"gbuffer.cu"}
     for u in units:
         flags = _build.unit_flags(u)
         fmad = [f for f in flags if f.startswith("-fmad=")]
-        want = "-fmad=true" if os.path.basename(u) == "shading.cu" \
-            else "-fmad=false"
-        assert fmad == [want], (u, flags)
+        ours = os.path.basename(u) in contract
+        assert fmad == ["-fmad=true" if ours else "-fmad=false"], (u, flags)
+        assert ("-prec-div=false" in flags) == ours, (u, flags)
+        assert ("-prec-sqrt=false" in flags) == ours, (u, flags)
         assert "arch=compute_90a,code=sm_90a" in flags
 
 
