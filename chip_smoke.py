@@ -51,9 +51,11 @@ Phases (each raises on failure; the script then exits non-zero):
    grid_world(10)'s (5 lights), held to its plain version at rtol 2e-3 /
    atol 1e-4 per pixel with the packed frame within 1 LSB on < 1% of
    pixels; its bytes count the table rows the samples gather once each.
-   Its even-grid samples, through the kernel's debug planes, are held to
-   the plain version's sample by sample (``shading_taps_check``: the
-   table rows and sky flags equal, no PCF factor a tap apart).  Then the
+   Every discrete choice it makes, through the kernel's debug output, is
+   held to the plain version's (``shading_choices``: on the even grid the
+   table rows and sky flags, at full rate the taps' table rows, a sky
+   pixel's environment row, the mask-aware upsample's pick and the PCF
+   window's anchor; no PCF factor a tap apart): 0 apart.  Then the
    G-buffer tail ``gbuffer`` (K10, ``csrc/gbuffer.cu``) on the default
    path's call, and against its plain version on each of its input
    sources (GBUFFER_SOURCES: the attr_planes planes, the
@@ -66,8 +68,8 @@ Phases (each raises on failure; the script then exits non-zero):
    shades sky pixels first, then lit pixels, each from a list compacted in
    shared memory) on the reference path's call (its G-buffer, SSAO, raw
    2048^2 shadow map, IBL maps), as ``shading_ref@grid`` and as
-   ``shading_ref@lit`` (grid_world(10) from ``lit_camera``, over its
-   plane: no pixel is sky, which the script asserts), at SHADING_BAR,
+   ``shading_ref@lit`` (grid_world(10) from ``scenes.lit_camera``, over
+   its plane: no pixel is sky), at SHADING_BAR,
    with its PCF
    compares and tap texels, cube faces, mip levels and sample texels
    through its debug output equal to the plain version's
@@ -83,13 +85,19 @@ Phases (each raises on failure; the script then exits non-zero):
    version's (``gbuffer_ref_check``); its bytes count the vertex and
    material rows and texels the covered pixels touch, once each.
    ``check_gbuffer_ref_options`` holds K12 on the UV1 scene under default
-   flags, the all-slots scene and that call without tangents.
-   ``check_shading_options`` holds K9 at the
-   same bar, at 1920x1080, on every knob set of the reference's budget
-   matrix (``scenes.BUDGET_BOUNDS`` on ``scenes.budget_world``: the
-   checkerboard on and off, PCF divisors 1/2/4, both u16 layouts, each
-   spec_* branch), the f32 wide-row PCF table, no IBL, no shadow and a
-   band of the rows path.
+   flags, the all-slots scene and that call without tangents.  Then
+   ``...@lit``: every kernel whose input depends on the camera (K1, K6,
+   K8, K3, K7 under the stack overrides, K10 on each source, K12, K4, K5,
+   K9, K11, and the band forms K1b and K4b) on the calls of the default,
+   reference, megakernel and stack frames of grid_world(10) from
+   ``scenes.lit_camera``, each entry reporting its ``sky_pixels`` (every
+   entry does) and asserting 0.  ``check_shading_options`` holds K9 at
+   the same bar with 0 choices apart, at 1920x1080, on every knob set of
+   the reference's budget matrix (``scenes.BUDGET_BOUNDS`` on
+   ``scenes.budget_world``: the checkerboard on and off, PCF divisors
+   1/2/4, both u16 layouts, each spec_* branch), the f32 wide-row PCF
+   table, no IBL, no shadow and a band of the rows path; then the same
+   option sets on the sky-free view (``shading@lit``).
 3. Frames at 256x128: the default frame, the reference-path frame
    (fast_sampling=False), the UV1 scene under default flags, the
    megakernel frame (raster_interp_attrs=True, ssao_res_divisor=1), the
@@ -153,12 +161,13 @@ Phases (each raises on failure; the script then exits non-zero):
    and device time per frame of both from torch.profiler over two more
    frames.  Then the default, the reference
    and the megakernel path on scenes.grid_world(10) in the same way, a few
-   frames each, and ``reference@lit``, the reference path on that scene
-   from ``lit_camera`` (geometry everywhere, no sky).  Then the ``rows``
+   frames each, and ``default@lit``, ``reference@lit`` and
+   ``megakernel@lit``, those paths on that scene from
+   ``scenes.lit_camera`` (geometry everywhere, no sky).  Then the ``rows``
    path: the 1080p row-sharded frame
    (``TileShardedRenderer``, world of one, ``ssao_res_divisor=1``) along
-   the same orbit, and ``rows@grid`` on the stress scene, timed and
-   profiled the same way; they launch the band kernels and no
+   the same orbit, and ``rows@grid`` and ``rows@lit`` on the stress
+   scene, timed and profiled the same way; they launch the band kernels and no
    whole-frame raster or SSAO kernel.  Then the interactive loop:
    ``window`` and ``window/2``, the default path on the tiny scene through
    ``run_windowed`` and an OffscreenWindow at ``present_divisor`` 1 and 2,
@@ -296,16 +305,22 @@ GRID_PATHS = {
     "reference@grid": PATHS["reference"][:2],
     "megakernel@grid": PATHS["megakernel"][:2],
 }
-# the reference path on that scene from lit_camera, where no pixel is sky:
-# K11 timed where its lit pixels are the whole frame (phase 2
-# ``shading_ref@lit``, phase 4 ``reference@lit``)
-LIT_PATHS = {"reference@lit": PATHS["reference"][:2]}
+# the paths on that scene from scenes.lit_camera, where no pixel is sky (an
+# interior's share of lit pixels): phase 4 drives them, and phase 2 holds
+# every kernel whose input depends on the camera on their frames' calls
+# (``...@lit``, each asserting 0 sky pixels), K9 on every option set too
+LIT_PATHS = {f"{path}@lit": PATHS[path][:2]
+             for path in ("default", "reference", "megakernel")}
+LIT_KERNELS = ("raster_slim", "raster_full", "raster_attrs", "attr_planes",
+               "stack_planes", "gbuffer", "gbuffer_ref", "ssao",
+               "interleave_present", "shading", "shading_ref",
+               "raster_slim_band", "ssao_halo")
 # the row-sharded frame (TileShardedRenderer on a world of one): the
 # kernels it runs, and the scene of each of its phase-4 paths
 ROWS_OVERRIDES = {"ssao_res_divisor": 1}
 ROWS_KERNELS = ("raster_slim_band", "raster_depth_band", "attr_planes",
                 "gbuffer", "ssao_halo", "shading", "interleave_present")
-ROWS_PATHS = {"rows": "tiny", "rows@grid": "grid"}
+ROWS_PATHS = {"rows": "tiny", "rows@grid": "grid", "rows@lit": "lit"}
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12  # outside the tensor cores
@@ -498,13 +513,17 @@ def shading_compare(k, p):
     return err, ok, f"{SHADING_BAR} ({frac:.4%} of pixels differ by 1 LSB)"
 
 
-def shading_taps_check(args):
-    """K9's even-grid samples through its debug planes, against the plain
-    version's on the same call, sample by sample: the table rows the
-    mirror and parent taps read and the sky flags must be equal, the taps
-    within SHADING_BAR's rtol / atol, and no PCF factor may differ by a
-    tap (a tap is 0.75 / 9 of the factor; the count is of samples more
-    than 1e-3 apart).  Returns what was compared, with the counts."""
+def shading_choices(args):
+    """K9's discrete choices on one call through its debug output, against
+    the plain version's on the same call, with the plain version's own
+    helpers: on the even grid the table rows the mirror and parent taps
+    read and the sky flags, and the PCF factors on the divisor's grid; at
+    full rate (``Sh.FAST_DEBUG``) the table rows of the full-rate taps (at
+    a sky pixel the environment's), the even-grid sample the mask-aware
+    upsample takes, and the PCF window's anchor and factor at divisor 1.
+    A PCF factor is a choice apart when it differs by more than 1e-3 (a
+    tap moves it by 0.75 / 9).  Returns ({what: (n apart, n held)}, {tap:
+    max |err|}) and raises if a tap is outside SHADING_BAR's rtol / atol."""
     import torch
 
     from mo_renderer_tpu_torch.passes import shading as Sh
@@ -515,21 +534,20 @@ def shading_taps_check(args):
     half = Sh.half_res_geometry(gbuf, cb=cb)
     h, w = gbuf.depth.shape
     eye = params["eye_pos"]
-    res = {}
+    counts, errs = {}, {}
 
     def close(name, k, p):
-        err = (k - p).abs().max().item() if k.numel() else 0.0
-        res[f"{name}_max_abs_err"] = err
+        errs[name] = (k - p).abs().max().item() if k.numel() else 0.0
         if not torch.allclose(k, p, rtol=2e-3, atol=1e-4):
             raise AssertionError(f"shading: even-grid {name} differs from "
-                                 f"the plain version (max |err| {err})")
+                                 f"the plain version (max |err| "
+                                 f"{errs[name]})")
 
     def same(name, k, p):
-        n = int((k != p).sum())
-        res[f"{name}_differ"] = f"{n} of {p.numel()}"
-        if n:
-            raise AssertionError(f"shading: {n} of {p.numel()} even-grid "
-                                 f"{name} differ from the plain version")
+        counts[name] = (int((k != p).sum()), p.numel())
+
+    def pcf(name, k, p):
+        counts[name] = (int(((k - p).abs() > 1e-3).sum()), p.numel())
 
     if ibl is not None and mirror:
         c0h, c1h, sky_h, idx0 = Sh.even_grid_taps(
@@ -542,19 +560,66 @@ def shading_taps_check(args):
             same("parent rows", got["rows_h"][..., 1], idx0.to(torch.int32))
             close("parent tap", got["c1h"], c1h)
     if ibl is not None and parent and not (mirror and merged):
-        c1h, idx1 = Sh.parent_tap_half(half, eye, ibl)
+        c1h, idx1 = Sh.parent_tap(*half[:3], eye, ibl)
         same("parent rows", got["rows_h"][..., 1], idx1.to(torch.int32))
         close("parent tap", got["c1h"], c1h)
     if rows is not None and div > 1:
         pos = half[0][::2, ::2] if div == 4 else half[0]
-        factor = Sh.calculate_shadow_fast(pos, params["light_proj_view"],
-                                          rows, s)
-        n = int(((got["pcf"] - factor).abs() > 1e-3).sum())
-        res["pcf_samples_with_a_differing_tap"] = f"{n} of {factor.numel()}"
-        res["pcf_max_abs_err"] = (got["pcf"] - factor).abs().max().item()
-        if n:
-            raise AssertionError(f"shading: {n} PCF samples differ from the "
-                                 "plain version by a tap")
+        pcf("pcf factors", got["pcf"], Sh.calculate_shadow_fast(
+            pos, params["light_proj_view"], rows, s))
+
+    # full rate: each FAST_DEBUG channel where the kernel makes the choice
+    # (with IBL a sky pixel takes the mirror tap alone), -1 elsewhere
+    want = torch.full_like(got["dbg"], -1)
+    sky = (gbuf.depth >= 1.0) if ibl is not None \
+        else torch.zeros_like(gbuf.depth, dtype=torch.bool)
+    lit = ~sky
+    if ibl is not None and not mirror:
+        want[..., 0] = Sh.mirror_tap_full(gbuf, eye, ibl, params, row_offset,
+                                          full_height)[1]
+    if ibl is not None and not parent:
+        idx1 = Sh.parent_tap(gbuf.position, gbuf.normal, gbuf.orm[..., 1],
+                             eye, ibl)[1]
+        want[..., 1] = torch.where(lit, idx1, -1)
+    if ibl is not None and mirror:
+        # _mask_aware on the even samples' own indices, with -1 where it
+        # keeps the blend
+        hh, wh = half[3].shape
+
+        def nn(a, dy, dx):
+            r = Sh._shift(a, dy, dx).repeat_interleave(2, dim=0)
+            return (r if cb else r.repeat_interleave(2, dim=1))[:h, :w]
+        ids = torch.arange(hh * wh, device=sky.device,
+                           dtype=torch.float32).reshape(hh, wh, 1)
+        up = torch.full((h, w, 1), -1.0, device=sky.device)
+        want[..., 2] = Sh._mask_aware(up, ids, half[3] >= 1.0, sky,
+                                      nn)[..., 0].to(torch.int32)
+    if rows is not None and div == 1:
+        x0, y0 = Sh.pcf_window_anchor(gbuf.position,
+                                      params["light_proj_view"], s)[:2]
+        want[..., 3] = torch.where(lit, _pack_anchor(x0, y0), -1)
+        pcf("pcf factors, full rate", got["pcf"][lit],
+            Sh.calculate_shadow_fast(gbuf.position,
+                                     params["light_proj_view"], rows, s)[lit])
+    for c, name in enumerate(Sh.FAST_DEBUG):
+        n_held = int((want[..., c] >= 0).sum())
+        if n_held or bool((got["dbg"][..., c] >= 0).any()):
+            counts[f"full-rate {name}"] = (
+                int((got["dbg"][..., c] != want[..., c]).sum()), n_held)
+    return counts, errs
+
+
+def shading_taps_check(args):
+    """``shading_choices`` on one call, raising if any choice is apart.
+    Returns what was compared: {what: "n of N" apart}, the taps' max
+    |err| and ``choices_apart``, the sum of the counts."""
+    counts, errs = shading_choices(args)
+    res = {k: f"{n} of {of}" for k, (n, of) in counts.items()}
+    res.update({f"{k}_max_abs_err": v for k, v in errs.items()})
+    res["choices_apart"] = sum(n for n, _ in counts.values())
+    if res["choices_apart"]:
+        raise AssertionError(f"shading: discrete choices apart from the "
+                             f"plain version: {res}")
     return res
 
 
@@ -568,8 +633,6 @@ def shading_work(args):
     indices, recomputed here with the plain version's helpers)."""
     import torch
 
-    from mo_renderer_tpu_torch.device import sampling as Sm
-    from mo_renderer_tpu_torch.kernels import brdf
     from mo_renderer_tpu_torch.passes import shading as Sh
 
     (gbuf, _, rows, s, lights, n_lights, params, ibl, div, parent, mirror,
@@ -587,50 +650,34 @@ def shading_work(args):
              + n_sky * SHADE_FLOPS_PER_SKY_PIXEL)
     gathered = {}  # table -> its rows the samples read
     if ibl is not None:
-        mq = ibl.specular_quad
-        nl = mq.num_levels
-        sizes, offsets = Sm._level_tables(mq, gbuf.depth.device)
-        n_bytes += 2 * 4 * nl + 9 * 3 * 4
+        eye = params["eye_pos"]
+        n_bytes += 2 * 4 * ibl.specular_quad.num_levels + 9 * 3 * 4
         flops += n_lit * SHADE_IBL_FLOPS_PER_PIXEL
-
-        def tap(pos, n, rough, parent_level):
-            lvl = torch.floor(torch.clamp(rough * Sh.MAX_REFLECTION_LOD,
-                                          0.0, nl - 1)).to(torch.int32)
-            if parent_level:
-                lvl = torch.clamp(lvl + 1, max=nl - 1)
-            face, u, v = Sm.cube_face_uv(
-                brdf.ibl_reflection_dir(pos, n, params["eye_pos"]))
-            return Sm.mipcube_quad_index(sizes, offsets, lvl, face, u, v)[0]
-
-        full = (gbuf.position, gbuf.normal, gbuf.orm[..., 1])
+        # the taps' rows as shading_choices recomputes them; a full-rate
+        # parent tap only at the lit pixels
         if mirror:
-            sky = half[3] >= 1.0
-            dirs = Sh._sky_dirs(h, 2 * w if cb else w, params, stride=2,
-                                row_offset=row_offset,
-                                full_height=full_height)
+            mirror_idx = Sh.even_grid_taps(
+                half, eye, ibl, params, h, 2 * w if cb else w,
+                merged and parent, row_offset, full_height)[3]
         else:
-            sky = gbuf.depth >= 1.0
-            dirs = Sh._sky_dirs(h, w, params, row_offset=row_offset,
-                                full_height=full_height)
-        mirror_idx = torch.where(sky, Sh._env_quad_index(ibl, dirs)[0],
-                                 tap(*(half[:3] if mirror else full), False))
+            mirror_idx = Sh.mirror_tap_full(gbuf, eye, ibl, params,
+                                            row_offset, full_height)[1]
         table = ("merged" if mirror and parent and merged else "spec")
         gathered[table] = [mirror_idx]
-        if not (mirror and parent and merged):
-            gathered["spec"].append(tap(*(half[:3] if parent else full),
-                                        True))
+        if parent and not (mirror and merged):
+            gathered["spec"].append(Sh.parent_tap(*half[:3], eye, ibl)[1])
+        elif not parent:
+            gathered["spec"].append(Sh.parent_tap(
+                gbuf.position, gbuf.normal, gbuf.orm[..., 1], eye,
+                ibl)[1][gbuf.depth < 1.0])
         flops += SHADE_FLOPS_PER_TAP * (
             (n_even if mirror else n_px) + (n_even if parent else n_px))
     if rows is not None:
         pos = gbuf.position if div == 1 else half[0]
         if div == 4:
             pos = pos[::2, ::2]
-        lp = torch.cat([pos, torch.ones_like(pos[..., :1])], -1) \
-            @ params["light_proj_view"].t()
-        wc = torch.where(lp[..., 3].abs() > 1e-20, lp[..., 3], 1.0)
-        uv = lp[..., :2] / wc[..., None] * 0.5 + 0.5
-        x0, y0 = [torch.floor(torch.clamp(uv[..., i] * s - 0.5, 1.0, s - 3.0))
-                  .to(torch.int64) for i in (0, 1)]
+        x0, y0 = [a.to(torch.int64) for a in Sh.pcf_window_anchor(
+            pos, params["light_proj_view"], s)[:2]]
         layout = Sh.pcf_layout(rows, s)
         if layout == Sh.PCF_U16_HALF:
             idx = [((y0 - 1) >> 1) * (s // 2) + ((x0 - 1) >> 1)]
@@ -1398,6 +1445,11 @@ def check_kernels(cfg, device):
         area = (bb[:, 2] - bb[:, 0] + 1) * (bb[:, 3] - bb[:, 1] + 1)
         return int(torch.where(live, area, 0).sum())
 
+    def no_geometry(p):
+        """The pixels a frame's raster output (ids, depth, ...) leaves
+        without geometry (depth 1): the sky."""
+        return int((p[1] >= 1.0).sum())
+
     def run_stats(binned):
         return {"pairs": live_pairs(binned),
                 "slots": binned.pair_tri.shape[0],
@@ -1432,7 +1484,7 @@ def check_kernels(cfg, device):
             plain=lambda: R._raster_plain(binned, w, h, mode),
             cmp=cmp, shape=shape,
             bytes=raster_inputs(binned) + n_out * 4 * w * h, flops=flops,
-            extra=stats,
+            extra=stats, sky=None if mode == "depth" else no_geometry,
         )
 
     def raster_attrs(seen):
@@ -1466,7 +1518,7 @@ def check_kernels(cfg, device):
             f"{binned.tri_data.shape[1]} + {attr_rows.shape[1]}-float rows "
             f"-> {out[2].shape[0]} planes",
             bytes=n_in + (2 + out[2].shape[0]) * 4 * w * h, flops=flops,
-            extra=run_stats(binned),
+            extra=run_stats(binned), sky=no_geometry,
         )
 
     def attr(seen):
@@ -1485,6 +1537,7 @@ def check_kernels(cfg, device):
             cmp=cmp, shape=f"{tuple(tri.shape)} -> {n_out} planes",
             bytes=nbytes(tri, attrs, pv) + n_out * 4 * tri.numel(),
             flops=ATTR_PLANES_FLOPS_PER_PIXEL * tri.numel(),
+            sky=lambda p: int((tri < 0).sum()),
         )
 
     def occluding_taps(depth, near, far):
@@ -1525,6 +1578,7 @@ def check_kernels(cfg, device):
             bytes=2 * nbytes(depth),
             flops=ssao_flop_equivalents(depth.numel(), n_taps, n_occluding),
             extra={"occluding_taps": n_occluding},
+            sky=lambda p: int((depth >= 1.0).sum()),
         )
 
     def interleave(seen, fused):
@@ -1550,11 +1604,14 @@ def check_kernels(cfg, device):
             cmp=cmp, shape=f"{tuple(cb.shape)} {cb.dtype} -> "
             f"{tuple(tri.shape)}",
             bytes=nbytes(cb, tri, tri), flops=0, extra=extra,
+            sky=lambda p: int((tri < 0).sum()),
         )
 
     def stack(seen):
         (idx, fx, fy, groups, spec), _ = seen["stack_planes"]
         args = (idx, fx, fy, groups, spec)
+        # the sky of the same frame: its G-buffer tail's triangle ids
+        tri = tail_call_args(*seen["gbuffer/stacks"])[0]
         widths = "/".join(str(g.shape[1]) for g in groups)
 
         def cmp(k, p):
@@ -1569,7 +1626,7 @@ def check_kernels(cfg, device):
             f"({groups[0].shape[0]} rows) -> {len(spec)} planes",
             bytes=nbytes(idx, fx, fy, *groups) + len(spec) * 4 * idx.numel(),
             flops=(STACK_FLOPS_PER_PIXEL + STACK_FLOPS_PER_PLANE * len(spec))
-            * idx.numel(),
+            * idx.numel(), sky=lambda p: int((tri < 0).sum()),
         )
 
     def band_inputs(binned, n_rows):
@@ -1644,6 +1701,10 @@ def check_kernels(cfg, device):
             return err, ok, (f"ids and depth exact in each band; the "
                              f"{N_BANDS} bands = the whole-frame kernel")
         n_out = 1 if mode == "depth" else 2
+        sky = None
+        if mode == "slim":  # rows past the frame are no part of it
+            def sky(p):
+                return no_geometry((None, torch.cat([o[1] for o in p])[:h]))
         band_ms = [median_ms(functools.partial(
             R._raster_band_cuda, bins, w, hb, mode, b * rows))
             for b, bins in enumerate(local)]
@@ -1657,13 +1718,14 @@ def check_kernels(cfg, device):
                 band_candidates(bins, b * hb, (b + 1) * hb)
                 for b, bins in enumerate(local)),
             extra={"pairs": sum(b.pair_tri.shape[0] for b in local),
-                   "band_rows": hb, "band_ms": band_ms},
+                   "band_rows": hb, "band_ms": band_ms}, sky=sky,
         )
 
     def ssao_halo(seen):
         """K4b: SSAO of the 4 slim bands' full-rate depth, each band with
         its neighbours' rows as halos (edge rows replicated outside)."""
         z = split_depth["z"]
+        h_frame = seen["raster_slim"][1]["height"]
         near, far = seen["ssao"][1]["near"], seen["ssao"][1]["far"]
         n_rows, w = z.shape
         hb, hr = n_rows // N_BANDS, S.ssao_halo_rows(w)
@@ -1704,6 +1766,7 @@ def check_kernels(cfg, device):
                    # the whole-image kernel on the same plane, one launch
                    "whole_image_ms": median_ms(functools.partial(
                        S._ssao_cuda, z, S.NUM_LEVELS, 0, near, far))},
+            sky=lambda p: int((z[:h_frame] >= 1.0).sum()),
         )
 
     def shading(seen):
@@ -1711,7 +1774,8 @@ def check_kernels(cfg, device):
         table and divisor, the spec flags and the lights it was given)."""
         args = shading_args(*seen["shading"])
         n_bytes, n_flops, extra = shading_work(args)
-        extra["even_grid"] = shading_taps_check(args)
+        extra["choices"] = shading_taps_check(args)
+        print(f"[2] shading choices apart: {extra['choices']}", flush=True)
         gbuf = args[0]
         return dict(
             kernel=lambda: Sh._shading_fast_cuda(*args),
@@ -1723,11 +1787,10 @@ def check_kernels(cfg, device):
             bytes=n_bytes, flops=n_flops, extra=extra,
         )
 
-    def shading_ref(seen, sky_free=False):
+    def shading_ref(seen):
         """K11 on the reference path's call (its G-buffer, SSAO, raw
         shadow map, IBL maps and lights), with its discrete choices through
-        the debug output (``shading_ref_check``); ``sky_free``: the call
-        must have no sky pixel."""
+        the debug output (``shading_ref_check``)."""
         args = shading_ref_args(*seen["shading_ref"])
         err, ok, bar, apart = shading_ref_check(args)
         print(f"[2] shading_ref choices apart: {apart}", flush=True)
@@ -1735,9 +1798,6 @@ def check_kernels(cfg, device):
             raise AssertionError(f"shading_ref: kernel disagrees with its "
                                  f"plain version (max |err| {err}, {apart})")
         n_bytes, n_flops, extra = shading_ref_work(args)
-        if sky_free and extra["sky_pixels"]:
-            raise AssertionError(f"shading_ref@lit: {extra['sky_pixels']} "
-                                 "sky pixels, want none")
         extra["apart"] = apart
         gbuf = args[0]
         return dict(
@@ -1760,7 +1820,8 @@ def check_kernels(cfg, device):
         for src, a in calls.items():
             err, ok, bar, rows = gbuffer_check(a)
             sources[src] = {"shape": list(a[0].shape), "max_abs_err": err,
-                            "texel_rows_differ": rows}
+                            "texel_rows_differ": rows,
+                            "sky_pixels": int((a[0] < 0).sum())}
             print(f"[2] gbuffer {src}: {tuple(a[0].shape)}, max |err| "
                   f"{err:.3g} ({bar}), texel rows differ: {rows}",
                   flush=True)
@@ -1778,6 +1839,7 @@ def check_kernels(cfg, device):
             f"{args[6]}",
             bytes=n_bytes, flops=n_flops,
             extra={"covered": covered, "sources": sources},
+            sky=lambda p: sources["planes"]["sky_pixels"],
         )
 
     def gbuffer_ref(seen):
@@ -1801,6 +1863,7 @@ def check_kernels(cfg, device):
             f"{extra['triangles']} triangles, texture array "
             f"{tuple(args[4].textures.shape)}",
             bytes=n_bytes, flops=n_flops, extra=extra,
+            sky=lambda p: int((args[0] < 0).sum()),
         )
 
     case_of = {
@@ -1844,11 +1907,14 @@ def check_kernels(cfg, device):
         # timed calls are enough
         cases[f"{name}@grid"] = {**case_of[name](seen), "plain_runs": 3}
     seen = capture_inputs(
-        cfg, device, [(overrides, scenes.grid_world, lit_camera)
-                      for overrides, _ in LIT_PATHS.values()],
-        {"shading_ref"})
-    cases["shading_ref@lit"] = {**shading_ref(seen, sky_free=True),
-                                "plain_runs": 3}
+        cfg, device,
+        [(overrides, scenes.grid_world, scenes.lit_camera)
+         for overrides in [o for o, _ in LIT_PATHS.values()]
+         + [{"attrs_plane_kernel": False}, STACKS]],
+        set(LIT_KERNELS) - {"gbuffer", *BAND_KERNELS} | tail_want,
+    )
+    for name in LIT_KERNELS:
+        cases[f"{name}@lit"] = {**case_of[name](seen), "plain_runs": 3}
 
     # what the events read for a kernel that does next to nothing
     one = torch.zeros(1, device=device)
@@ -1859,6 +1925,9 @@ def check_kernels(cfg, device):
         k_out, p_out = kern(), plain()
         torch.cuda.synchronize()
         err, ok, bar = case["cmp"](k_out, p_out)
+        extra = case.get("extra", {})
+        if case.get("sky") is not None:
+            extra["sky_pixels"] = case["sky"](p_out)
         del k_out, p_out
         ms = median_ms(kern)
         plain_ms = median_ms(plain, runs=case.get("plain_runs", 20))
@@ -1867,43 +1936,46 @@ def check_kernels(cfg, device):
         print(f"[2] {name:17s} {case['shape']}: max |err| {err:.3g} ({bar}) "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms by {bound_by} ({n_bytes / 1e6:.2f} MB, "
-              f"{n_flops / 1e6:.1f} MFLOP) {case.get('extra', '')}",
-              flush=True)
+              f"{n_flops / 1e6:.1f} MFLOP) {extra}", flush=True)
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
                                  f"version (max |err| {err}, bar: {bar})")
+        skies = [extra.get("sky_pixels")] + [
+            v["sky_pixels"] for v in extra.get("sources", {}).values()]
+        if name.endswith("@lit") and any(n != 0 for n in skies):
+            raise AssertionError(f"{name}: {skies} sky pixels, want none")
         results[name] = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             # no single PyTorch call computes any of these functions
-            "library_ms": None, **case.get("extra", {}),
+            "library_ms": None, **extra,
         }
     return results
 
 
-def check_shading_options(cfg, device):
-    """Phase 2, K9 beyond the paths' own calls: the kernel against its
-    plain version at SHADING_BAR on every option set its callers pass --
-    each knob set of ``scenes.BUDGET_BOUNDS`` and the full-rate frame on
-    the port's twin of the reference's budget scene (checkerboard on and
-    off, PCF divisors 1/2/4, u16 windows at every texel and at even
-    texels, each spec_* branch, half-rate SSAO), then on the production
-    knob set's call: the f32 wide-row PCF table, no IBL, no shadow, and
-    the second of 4 bands as the rows path shades it (views of the band's
-    G-buffer rows, its first row, the frame's height).  ``cfg`` gives the
-    frame size; returns the number of option sets held."""
+def shading_option_calls(cfg, device, lit=False):
+    """K9's calls beyond the paths' own, {what: the 15 arguments}: each
+    knob set of ``scenes.BUDGET_BOUNDS`` and the full-rate frame on the
+    port's twin of the reference's budget scene (checkerboard on and off,
+    PCF divisors 1/2/4, u16 windows at every texel and at even texels,
+    each spec_* branch, half-rate SSAO), then the production knob set's
+    call with the f32 wide-row PCF table, without IBL, without shadow, and
+    its second of 4 bands as the rows path shades it (views of the band's
+    G-buffer rows, its first row, the frame's height).  ``lit``: the same
+    on scenes.grid_world(10) from scenes.lit_camera.  ``cfg`` gives the
+    frame size."""
     import mo_renderer_tpu_torch.passes.frame_graph as FG
     from mo_renderer_tpu_torch import Renderer, scenes
-    from mo_renderer_tpu_torch.passes import shading as Sh
     from mo_renderer_tpu_torch.passes.gbuffer import GBuffer
     from mo_renderer_tpu_torch.scene.scene_buffers import find_shadow_light
 
     base = dataclasses.replace(cfg, checkerboard=False, ssao_res_divisor=1)
-    world = scenes.budget_world()
+    world = scenes.grid_world() if lit else scenes.budget_world()
+    camera = scenes.lit_camera if lit else scenes.camera
     r = Renderer(base, device)
     r.prepare(world)
     light_pv, _ = find_shadow_light(world)
-    params = FG.build_camera_params(scenes.camera(base), light_pv, device)
+    params = FG.build_camera_params(camera(base), light_pv, device)
     ibl = r.ibl.maps()
     production = scenes.budget_config(base, (4, True, True, True, True, 2,
                                              True))
@@ -1937,40 +2009,43 @@ def check_shading_options(cfg, device):
                      for f in dataclasses.fields(gbuf)])
     calls["production, band 2 of 4"] = tuple(
         [band, prod[1][hb:2 * hb]] + prod[2:13] + [hb, h])
+    return calls
+
+
+def check_shading_options(cfg, device, lit=False):
+    """Phase 2, K9 beyond the paths' own calls (``shading_option_calls``):
+    the kernel against its plain version at SHADING_BAR, with 0 discrete
+    choices apart (``shading_choices``: on the even grid and at full
+    rate), on every option set its callers pass; ``lit``: on the sky-free
+    view, each call with 0 sky pixels (asserted).  Every call is held
+    before a failure raises; returns the number of option sets held."""
+    from mo_renderer_tpu_torch.passes import shading as Sh
+
+    tag = "shading@lit" if lit else "shading"
+    calls = shading_option_calls(cfg, device, lit)
     layouts = set()
+    failed = []
     for what, args in calls.items():
         k = Sh._shading_fast_cuda(*args)
         p = Sh._shading_fast_plain(*args)
         err, ok, bar = shading_compare(k, p)
         if args[2] is not None:
             layouts.add(Sh.pcf_layout(args[2], args[3]))
-        print(f"[2] shading {what}: {tuple(k.shape)}, max |err| {err:.3g} "
-              f"({bar}); even grid {shading_taps_check(args)}", flush=True)
-        if not ok:
-            raise AssertionError(f"shading {what}: kernel disagrees with "
-                                 f"its plain version (max |err| {err})")
+        counts = shading_choices(args)[0]
+        apart = sum(n for n, _ in counts.values())
+        n_sky = int((args[0].depth >= 1.0).sum())
+        shown = {c: f"{n} of {of}" for c, (n, of) in counts.items()}
+        print(f"[2] {tag} {what}: {tuple(k.shape)}, {n_sky} sky pixels, "
+              f"max |err| {err:.3g} ({bar}); choices apart {apart}: {shown}",
+              flush=True)
+        if not ok or apart or (lit and n_sky):
+            failed.append(what)
+    if failed:
+        raise AssertionError(f"{tag}: kernel disagrees with its plain "
+                             f"version, or a call has sky, on {failed}")
     if layouts != {Sh.PCF_U16_HALF, Sh.PCF_U16_FULL, Sh.PCF_F32_WIDE}:
         raise AssertionError(f"shading: PCF layouts held {layouts}")
     return len(calls)
-
-
-def lit_camera(cfg):
-    """grid_world(10) seen from 10 units over its 40-unit plane, 3 units
-    back along the stress camera's yaw and pitched 1.2 rad towards the
-    plane: the plane and the grid fill every pixel of the 1088-row frame,
-    so no pixel is sky (an interior's share of lit pixels)."""
-    import numpy as np
-
-    from mo_renderer_tpu_torch.math import quat
-    from mo_renderer_tpu_torch.scene.camera import Camera
-
-    yaw = np.pi * 0.8
-    d = np.array([np.sin(yaw), 0.0, np.cos(yaw)])
-    cam = Camera(position=tuple(-3.0 * d + np.array([0.0, 10.0, 0.0])),
-                 rotation=quat.mul(quat.from_rotation_y(yaw),
-                                   quat.from_rotation_x(1.2)))
-    cam.resize((cfg.width, cfg.height))
-    return cam
 
 
 def lights_world():
@@ -2869,7 +2944,7 @@ def run_full_frame(device, line, path, n_frames, group=None, warmup=3):
     from mo_renderer_tpu_torch.parallel import TileShardedRenderer
     from mo_renderer_tpu_torch.parallel import tile_sharding as TS
 
-    lit = path in LIT_PATHS
+    lit = path in LIT_PATHS or ROWS_PATHS.get(path) == "lit"
     grid = path in GRID_PATHS or ROWS_PATHS.get(path) == "grid"
     if path in ROWS_PATHS:
         overrides, kernels = ROWS_OVERRIDES, ROWS_KERNELS
@@ -2879,11 +2954,10 @@ def run_full_frame(device, line, path, n_frames, group=None, warmup=3):
         overrides, kernels, scene_kw = PATHS[path]
     if grid or lit:
         make_world = scenes.grid_world
-        make_camera = lit_camera if lit else scenes.grid_camera
+        make_camera = scenes.lit_camera if lit else scenes.grid_camera
     else:
-        make_world = functools.partial(scenes.tiny_world,
-                                       **({} if path in ROWS_PATHS
-                                          else scene_kw))
+        make_world = functools.partial(
+            scenes.tiny_world, **({} if path in ROWS_PATHS else scene_kw))
         make_camera = scenes.camera
     cfg = EngineConfig(width=1920, height=1080, **overrides)
     if path in ROWS_PATHS:
@@ -3804,6 +3878,8 @@ def main() -> int:
     kernels = check_kernels(EngineConfig(width=1920, height=1080), device)
     kernels["shading"]["option_sets"] = check_shading_options(
         EngineConfig(width=1920, height=1080), device)
+    kernels["shading@lit"]["option_sets"] = check_shading_options(
+        EngineConfig(width=1920, height=1080), device, lit=True)
     kernels["shading_ref"]["option_sets"] = check_shading_ref_options(
         EngineConfig(width=1920, height=1080), device)
     kernels["gbuffer_ref"]["option_sets"] = check_gbuffer_ref_options(
@@ -3829,12 +3905,13 @@ def main() -> int:
                                ("megakernel", 8), ("stacks", 8),
                                ("default@grid", 4), ("reference@grid", 4),
                                ("megakernel@grid", 4),
-                               ("reference@lit", 4), ("rows", 8),
-                               ("rows@grid", 4)):
+                               ("default@lit", 4), ("reference@lit", 4),
+                               ("megakernel@lit", 4), ("rows", 8),
+                               ("rows@grid", 4), ("rows@lit", 4)):
             counts, _, replay = run_full_frame(device, line, path, n_frames,
                                                group)
             if path in ROWS_PATHS:
-                tag = "@grid" if path.endswith("@grid") else ""
+                tag = path[path.index("@"):] if "@" in path else ""
                 names = [(f"{name}{tag}", name) for name in ROWS_KERNELS]
             elif path in GRID_PATHS:
                 names = [(f"{name}@grid", name) for name in

@@ -50,7 +50,9 @@
 // allocated here, so a CUDA graph captures the launch.  The even-grid
 // samples reach device memory only through the optional debug pointers
 // (null on the frame's path), which a check holds against the plain
-// version sample by sample.
+// version sample by sample; so does every discrete choice made at full
+// rate (dbg: the full-rate taps' table rows, the environment row of a sky
+// pixel, the mask-aware upsample's pick, the PCF window at divisor 1).
 //
 // Arithmetic: this unit alone builds with -fmad=true -prec-div=false
 // -prec-sqrt=false (kernels/_build.py UNIT_FLAGS): the compiler contracts a
@@ -72,10 +74,16 @@
 // - the sky rays and the environment texel they pick (sky_dir, env_index);
 // - the mip level floor(clamp(roughness * 7)): one multiply, which nothing
 //   contracts.
-// The sky flag is depth >= 1, a compare of the input itself.  Where the
-// plain version's order is a library's, the kernel follows the card's: the
-// light projection and SH9 (cuBLAS matrix products) are fused multiply-add
-// chains in k order.
+// The sky flag is depth >= 1, a compare of the input itself.  The plain
+// version's order on the card is the bar: a dot product that feeds a
+// choice (the view vector's length, n.v in the reflection, the sky ray's
+// length) adds its three products as PyTorch's CUDA sum(-1) over a
+// 3-channel plane does, (x + z) + y (pdot3, shared with
+// csrc/shading_ref.cu); a sky ray's (i + 0.5) / n is a multiply by the
+// correctly rounded reciprocal, as PyTorch's CUDA division by a Python
+// scalar is.  Where the plain version's order is a library's, the kernel
+// follows the card's: the light projection and SH9 (cuBLAS matrix
+// products) are fused multiply-add chains in k order.
 #include "shading_common.cuh"
 
 // What the kernel reads, filled by passes/shading.py shade_args (its
@@ -120,6 +128,7 @@ struct ShadeArgs {
   int pcf_layout, shadow_size, pcf_div;
   int row_offset, full_height, sky_w;
   int light_stride, n_lights;
+  int* dbg;  // debug, null on the frame's path: (H, W, kDbgChannels)
 };
 
 namespace {
@@ -129,6 +138,24 @@ namespace {
 constexpr int kPcfNone = 0;
 constexpr int kPcfU16Half = 1;
 constexpr int kPcfF32Wide = 3;
+
+// the debug output's channels per pixel (-1 where no choice is made there):
+// the table row of the full-rate mirror tap (at a sky pixel the
+// environment's) and of the full-rate parent tap, the even-grid sample the
+// mirror tap's mask-aware upsample takes (i * wh + j), the PCF window's
+// anchor at divisor 1 (y0 << 16 | x0)
+constexpr int kDbgMirrorRow = 0;
+constexpr int kDbgParentRow = 1;
+constexpr int kDbgMirrorPick = 2;
+constexpr int kDbgPcfAnchor = 3;
+constexpr int kDbgChannels = 4;
+
+// channel ``c`` of pixel (y, x) of the debug output, where there is one
+// (the frame's path passes none: no pointer is kept live for it)
+__device__ __forceinline__ void debug_choice(const ShadeArgs& a, int y, int x,
+                                             int c, int v) {
+  if (a.dbg != nullptr) a.dbg[((size_t)y * a.w + x) * kDbgChannels + c] = v;
+}
 
 // the tile: 16 x 32 pixels of the shading domain, one thread each; its
 // even-grid samples with the row and column past them (the checkerboard
@@ -309,13 +336,14 @@ __device__ V3 sh9_eval(const float* co, V3 d) {
 
 // ---- sky rays (_sky_dirs) and the environment row (_env_quad_index) ---------
 
-// (pinned; the plain version's divisions by the height and width are
-// tensor-by-tensor here, correctly rounded)
+// (pinned; the plain version's (i + 0.5) / n divides by a Python int,
+// which PyTorch's CUDA division takes as a multiply by the correctly
+// rounded reciprocal)
 __device__ V3 sky_dir(const ShadeArgs& a, const FrameConsts& k, int row,
                       int col) {
-  const float v = pdiv(padd((float)(row + a.row_offset), 0.5f),
-                       (float)a.full_height);
-  const float u = pdiv(padd((float)col, 0.5f), (float)a.sky_w);
+  const float v = pmul(padd((float)(row + a.row_offset), 0.5f),
+                       pdiv(1.0f, (float)a.full_height));
+  const float u = pmul(padd((float)col, 0.5f), pdiv(1.0f, (float)a.sky_w));
   return sky_ray(k, u, v);
 }
 
@@ -349,7 +377,10 @@ __device__ __forceinline__ float plerp(float a, float b, float f) {
   return padd(pmul(a, psub(1.0f, f)), pmul(b, f));
 }
 
-__device__ float shadow_fast(const ShadeArgs& a, const FrameConsts& k, V3 p) {
+// (dy, dx): the pixel whose debug output takes the window's anchor, or
+// dy < 0 (an even-grid sample)
+__device__ float shadow_fast(const ShadeArgs& a, const FrameConsts& k, V3 p,
+                             int dy, int dx) {
   const float* m = k.light_pv;
   float lp[4];
 #pragma unroll
@@ -379,6 +410,10 @@ __device__ float shadow_fast(const ShadeArgs& a, const FrameConsts& k, V3 p) {
   const float ay = psub(yf, y0);
   const int x0i = (int)x0;
   const int y0i = (int)y0;
+  if (dy >= 0) {
+    debug_choice(a, dy, dx, kDbgPcfAnchor,
+                 ((y0i & 0xFFFF) << 16) | (x0i & 0xFFFF));
+  }
 
   float win[4][4];
   if (a.pcf_layout == kPcfF32Wide) {
@@ -552,7 +587,7 @@ __device__ void even_sample(const ShadeArgs& a, const FrameConsts& k,
     }
   }
   if (a.pcf_layout != kPcfNone && a.pcf_div == 2) {
-    const float f = shadow_fast(a, k, pos);
+    const float f = shadow_fast(a, k, pos, -1, 0);
     t.pcf[e] = f;
     if (own && a.pcf != nullptr) a.pcf[gi] = f;
   }
@@ -617,7 +652,8 @@ __device__ void upsample(const ShadeArgs& a, const float* t, int tw, int ti0,
 
 // the mirror tap: the bilinear upsample of c0, except where its four
 // samples straddle the sky silhouette: there the first of the phases
-// (0,0), (0,1), (1,0), (1,1) whose sky flag matches the pixel's
+// (0,0), (0,1), (1,0), (1,1) whose sky flag matches the pixel's (the
+// sample taken: a debug choice)
 __device__ V3 mirror_tap(const ShadeArgs& a, const Tile& t,
                          const TileGrid& g, int y, int x, bool sky) {
   float up[3];
@@ -637,7 +673,12 @@ __device__ V3 mirror_tap(const ShadeArgs& a, const Tile& t,
   if (!uniform) {
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
-      if (m[p] == sky) return load3(t.c0 + 3 * e[p]);
+      if (m[p] == sky) {
+        debug_choice(a, y, x, kDbgMirrorPick,
+                     min(i + (p >> 1), a.hh - 1) * a.wh +
+                         min(j + (p & 1), a.wh - 1));
+        return load3(t.c0 + 3 * e[p]);
+      }
     }
   }
   return v3(up[0], up[1], up[2]);
@@ -659,12 +700,15 @@ __device__ V3 sky_tap(const ShadeArgs& a, const FrameConsts& k,
                       const Tile& t, const TileGrid& g, int y, int x) {
   if (a.mirror_half) return mirror_tap(a, t, g, y, x, true);
   const QuadIndex e = env_index(a, k, y, x);
+  debug_choice(a, y, x, kDbgMirrorRow, e.idx);
   return quad_lerp_rgbe(a.spec_rows + (size_t)e.idx * 4, e.fx, e.fy);
 }
 
 __device__ void shade_pixel(const ShadeArgs& a, const FrameConsts& k,
                             const float* lights, const Tile& t,
                             const TileGrid& g, int y, int x) {
+#pragma unroll
+  for (int c = 0; c < kDbgChannels; ++c) debug_choice(a, y, x, c, -1);
   const float depth = depth_at(a, y, x);
   if (a.has_ibl && depth >= 1.0f) {
     // the frame keeps the sky colour here (the plain version's
@@ -695,7 +739,8 @@ __device__ void shade_pixel(const ShadeArgs& a, const FrameConsts& k,
   float shadow = 1.0f;
   if (a.pcf_layout != kPcfNone) {
     if (a.pcf_div == 1) {
-      shadow = shadow_fast(a, k, pos);
+      shadow = shadow_fast(a, k, pos, y, x);
+      if (a.pcf != nullptr) a.pcf[(size_t)y * a.w + x] = shadow;
     } else if (a.pcf_div == 2) {
       upsample<1>(a, t.pcf, g.ew, g.i0, g.j0, a.hq, a.wq, y, x, 2, 2,
                   &shadow);
@@ -721,6 +766,7 @@ __device__ void shade_pixel(const ShadeArgs& a, const FrameConsts& k,
       c0 = mirror_tap(a, t, g, y, x, false);
     } else {
       const QuadIndex q = mip_quad_index(k, l0, fc);
+      debug_choice(a, y, x, kDbgMirrorRow, q.idx);
       c0 = quad_lerp_rgbe(a.spec_rows + (size_t)q.idx * 4, q.fx, q.fy);
     }
     if (a.parent_half) {
@@ -729,6 +775,7 @@ __device__ void shade_pixel(const ShadeArgs& a, const FrameConsts& k,
       c1 = v3(u[0], u[1], u[2]);
     } else {
       const QuadIndex q = mip_quad_index(k, min(l0 + 1, nl - 1), fc);
+      debug_choice(a, y, x, kDbgParentRow, q.idx);
       c1 = quad_lerp_rgbe(a.spec_rows + (size_t)q.idx * 4, q.fx, q.fy);
     }
     // prefiltered = c0 * (1 - f) + c1 * f
@@ -800,7 +847,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       const int i = g.qi0 + ti, j = g.qj0 + tj;
       if (i < a.hq && j < a.wq) {
         const float f =
-            shadow_fast(a, k, plane3(a, 0, 4 * i, a.cb ? 2 * j : 4 * j));
+            shadow_fast(a, k, plane3(a, 0, 4 * i, a.cb ? 2 * j : 4 * j),
+                        -1, 0);
         t.pcf[q] = f;
         if (a.pcf != nullptr && ti < kTileH / 4 && tj < g.qw - 1) {
           a.pcf[(size_t)i * a.wq + j] = f;

@@ -100,9 +100,13 @@ __device__ __forceinline__ V3 psub3(V3 a, V3 b) {
 __device__ __forceinline__ V3 pscale3(V3 a, float s) {
   return v3(pmul(a.x, s), pmul(a.y, s), pmul(a.z, s));
 }
+// (a * b).sum(-1) of a (..., 3) plane as PyTorch's CUDA reduction adds it:
+// two threads an output, (x + z) + y (pinned)
 __device__ __forceinline__ float pdot3(V3 a, V3 b) {
-  return padd(padd(pmul(a.x, b.x), pmul(a.y, b.y)), pmul(a.z, b.z));
+  return padd(padd(pmul(a.x, b.x), pmul(a.z, b.z)), pmul(a.y, b.y));
 }
+// brdf.normalize(v, eps=1e-20) as the plain version computes it on the
+// card (pinned)
 __device__ __forceinline__ V3 pnormalize_eps(V3 v) {
   const float s = maxf(__fsqrt_rn(pdot3(v, v)), (float)1e-20);
   return v3(pdiv(v.x, s), pdiv(v.y, s), pdiv(v.z, s));

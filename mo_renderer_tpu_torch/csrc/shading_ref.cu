@@ -73,11 +73,12 @@
 //   scalar is.
 // A dot product that feeds a choice (V's length, n.v, the reflection, the
 // sky ray's length) adds its three products as PyTorch's CUDA sum(-1) over
-// a 3-channel plane does, two threads an output: (x + z) + y
-// (pdot3_cuda).  Where the plain version's order is a library's, the
-// kernel takes the card's: the light projection [wp, 1] @ light_pv.T
-// (cuBLAS) is a multiply-add chain in k order, and each PCF tap offset is
-// the Python double dx / size rounded to float (the wrapper's tap_off).
+// a 3-channel plane does, two threads an output: (x + z) + y (pdot3,
+// shared with csrc/shading.cu).  Where the plain version's order is a
+// library's, the kernel takes the card's: the light projection [wp, 1] @
+// light_pv.T (cuBLAS) is a multiply-add chain in k order, and each PCF tap
+// offset is the Python double dx / size rounded to float (the wrapper's
+// tap_off).
 // Sampling follows device/sampling.py: sample_cubemap and sample_bilinear
 // clamp the texel indices, not the fractions.
 #include "shading_common.cuh"
@@ -222,19 +223,6 @@ __device__ __forceinline__ V3 bilerp3(const float v[12], const Quad& q) {
             bilerp<3>(v, 2, q.fx, q.fy));
 }
 
-// (a * b).sum(-1) of a (..., 3) plane as PyTorch's CUDA reduction adds it:
-// two threads an output, (x + z) + y (pinned)
-__device__ __forceinline__ float pdot3_cuda(V3 a, V3 b) {
-  return padd(padd(pmul(a.x, b.x), pmul(a.z, b.z)), pmul(a.y, b.y));
-}
-
-// brdf.normalize(v, eps=1e-20) as the plain version computes it on the
-// card (pinned)
-__device__ __forceinline__ V3 pnormalize_cuda(V3 v) {
-  const float s = maxf(__fsqrt_rn(pdot3_cuda(v, v)), (float)1e-20);
-  return v3(pdiv(v.x, s), pdiv(v.y, s), pdiv(v.z, s));
-}
-
 // calculate_shadow: the light projection, the 9 Poisson taps' anchors and
 // their 36 texels, then each tap's bilinear depth against the compare
 // (pinned throughout)
@@ -296,13 +284,13 @@ __device__ __forceinline__ float shadow_ref(const ShadeRefArgs& a,
 
 // ibl_ambient: the irradiance cube at the normal, the trilinear specular
 // chain along the reflection, the BRDF LUT at (n.v, 1 - roughness) and the
-// split sum; v = normalize(eye - pos) (pnormalize_cuda)
+// split sum; v = normalize(eye - pos) (pnormalize_eps)
 __device__ __forceinline__ V3 ibl_ref(const ShadeRefArgs& a,
                                       const FrameConsts& k, V3 nrm, V3 v,
                                       V3 base, V3 f0, float rough,
                                       float metallic, float occlusion,
                                       int* dbg) {
-  const float ndotv = pdot3_cuda(nrm, v);
+  const float ndotv = pdot3(nrm, v);
   const FaceUV fn = cube_face_uv(nrm);
   // ibl_reflection_dir: reflect(V, N) = V - 2 dot(N, V) N
   const FaceUV fr = cube_face_uv(psub3(v, pscale3(nrm, pmul(2.0f, ndotv))));
@@ -364,7 +352,7 @@ __device__ __forceinline__ V3 shade_lit(const ShadeRefArgs& a,
   const V3 to_eye = psub3(load3(k.eye), pos);
   V3 v;
   if (a.has_ibl) {
-    v = pnormalize_cuda(to_eye);
+    v = pnormalize_eps(to_eye);
   } else {
     v = normalize_eps(to_eye);
   }
@@ -412,7 +400,7 @@ __device__ __forceinline__ V3 sky_dir(const FrameConsts& k,
                            pscale3(load3(k.up), pmul(sy, c.hh))),
                      c.nd);
   const float inv =
-      pdiv(1.0f, __fsqrt_rn(maxf(pdot3_cuda(d, d), (float)1e-20)));
+      pdiv(1.0f, __fsqrt_rn(maxf(pdot3(d, d), (float)1e-20)));
   return pscale3(d, inv);
 }
 

@@ -172,13 +172,10 @@ def _select3(k, v0, v1, v2):
     return torch.where(k == 0, v0, torch.where(k == 1, v1, v2))
 
 
-def calculate_shadow_fast(world_pos, light_proj_view, shadow_quad_rows, s):
-    """PCF from the 4x4 texel window around the pixel's shadow texel, all
-    9 Poisson taps arithmetic (shading.py:211).  The layout is read off
-    the table (sampling.py's PCF builders): int32 rows are u16-packed
-    windows, one row gather per pixel, anchored at every even texel when
-    the table has (s/2)^2 rows, else at every texel; float32 rows are the
-    2x4 wide rows, two gathers per pixel."""
+def pcf_window_anchor(world_pos, light_proj_view, s):
+    """calculate_shadow_fast's light projection and the anchor of its 4x4
+    texel window, clamped so the window stays on the map: (x0, y0 int32,
+    the fractions ax, ay, the compare's ``current``, beyond_far)."""
     p = torch.cat([world_pos, torch.ones_like(world_pos[..., :1])], -1)
     lp = p @ light_proj_view.t()
     wc = torch.where(lp[..., 3].abs() > 1e-20, lp[..., 3], 1.0)
@@ -186,16 +183,23 @@ def calculate_shadow_fast(world_pos, light_proj_view, shadow_quad_rows, s):
     uv = proj[..., :2] * 0.5 + 0.5
     beyond_far = proj[..., 2] > 1.0
     current = proj[..., 2] - SHADOW_BIAS
-
-    # window anchor (clamped so the 4x4 window stays on the map)
     xf = torch.clamp(uv[..., 0] * s - 0.5, 1.0, s - 3.0)
     yf = torch.clamp(uv[..., 1] * s - 0.5, 1.0, s - 3.0)
     x0 = torch.floor(xf)
     y0 = torch.floor(yf)
-    ax = xf - x0
-    ay = yf - y0
-    x0i = x0.to(torch.int32)
-    y0i = y0.to(torch.int32)
+    return (x0.to(torch.int32), y0.to(torch.int32), xf - x0, yf - y0,
+            current, beyond_far)
+
+
+def calculate_shadow_fast(world_pos, light_proj_view, shadow_quad_rows, s):
+    """PCF from the 4x4 texel window around the pixel's shadow texel, all
+    9 Poisson taps arithmetic (shading.py:211).  The layout is read off
+    the table (sampling.py's PCF builders): int32 rows are u16-packed
+    windows, one row gather per pixel, anchored at every even texel when
+    the table has (s/2)^2 rows, else at every texel; float32 rows are the
+    2x4 wide rows, two gathers per pixel."""
+    x0i, y0i, ax, ay, current, beyond_far = pcf_window_anchor(
+        world_pos, light_proj_view, s)
 
     if shadow_quad_rows.dtype == torch.int32:
         xa = x0i - 1
@@ -475,11 +479,7 @@ def ibl_ambient_sky_fast(gbuf, eye_pos, ibl, camera_basis,
 
     ``row_offset`` / ``full_height``: the band's first row and the frame's
     height, for the sky rays of a row-sharded frame."""
-    mq = ibl.specular_quad
-    nl = mq.num_levels
-    dev = gbuf.depth.device
-    sizes, offsets = sampling._level_tables(mq, dev)
-
+    nl = ibl.specular_quad.num_levels
     lod = torch.clamp(gbuf.orm[..., 1] * MAX_REFLECTION_LOD, 0.0, nl - 1)
     l0 = torch.floor(lod).to(torch.int32)
     f = (lod - l0.to(lod.dtype))[..., None]
@@ -513,34 +513,14 @@ def ibl_ambient_sky_fast(gbuf, eye_pos, ibl, camera_basis,
         else:
             c0 = _upsample2x_mask_aware(c0h, sky_h, sky_mask, h, w)
     else:
-        # full-rate mirror tap; sky pixels re-point it at the environment
-        r = brdf.ibl_reflection_dir(gbuf.position, gbuf.normal, eye_pos)
-        face, u, v = sampling.cube_face_uv(r)
-        idx0, fx0, fy0 = sampling.mipcube_quad_index(
-            sizes, offsets, l0, face, u, v
-        )
-        eidx, efx, efy = _env_quad_index(
-            ibl, _sky_dirs(h, w, camera_basis, row_offset=row_offset,
-                           full_height=full_height))
-        idx0 = torch.where(sky_mask, eidx, idx0)
-        fx0 = torch.where(sky_mask, efx, fx0)
-        fy0 = torch.where(sky_mask, efy, fy0)
-        c0 = sampling.quad_lerp_rgbe(
-            sampling.take_rows(mq.rows, idx0), fx0, fy0
-        )
+        c0 = mirror_tap_full(gbuf, eye_pos, ibl, camera_basis, row_offset,
+                             full_height)[0]
 
     if c1 is None and parent_mip_half_res:
-        c1 = upsample(parent_tap_half(half_geo, eye_pos, ibl)[0])
+        c1 = upsample(parent_tap(*half_geo[:3], eye_pos, ibl)[0])
     elif c1 is None:
-        r1 = brdf.ibl_reflection_dir(gbuf.position, gbuf.normal, eye_pos)
-        face1, u1, v1 = sampling.cube_face_uv(r1)
-        l1 = torch.clamp(l0 + 1, max=nl - 1)
-        idx1, fx1, fy1 = sampling.mipcube_quad_index(
-            sizes, offsets, l1, face1, u1, v1
-        )
-        c1 = sampling.quad_lerp_rgbe(
-            sampling.take_rows(mq.rows, idx1), fx1, fy1
-        )
+        c1 = parent_tap(gbuf.position, gbuf.normal, gbuf.orm[..., 1],
+                        eye_pos, ibl)[0]
 
     prefiltered = c0 * (1 - f) + c1 * f  # garbage at sky pixels (masked)
     irradiance = sh9_eval(ibl.irradiance_sh9, gbuf.normal)
@@ -588,26 +568,47 @@ def even_grid_taps(half_geo, eye_pos, ibl, camera_basis, height, sky_w,
             idx0)
 
 
-def parent_tap_half(half_geo, eye_pos, ibl):
-    """The parent-mip tap (mip l0 + 1) from its own row on the even grid:
-    (c1h, the table rows it reads)."""
+def spec_tap_index(pos, n, rough, eye_pos, ibl, parent):
+    """The row index and fractions of the specular tap along the
+    reflection at (pos, n): mip l0 = floor(clamp(roughness * 7)), or with
+    ``parent`` its parent l0 + 1."""
     mq = ibl.specular_quad
     nl = mq.num_levels
-    pos_h, n_h, rough_h = half_geo[:3]
-    sizes, offsets = sampling._level_tables(mq, pos_h.device)
-    r2 = brdf.ibl_reflection_dir(pos_h, n_h, eye_pos)
-    l1h = torch.clamp(
-        torch.floor(
-            torch.clamp(rough_h * MAX_REFLECTION_LOD, 0.0, nl - 1)
-        ).to(torch.int32) + 1,
-        max=nl - 1,
-    )
-    f2, u2, v2 = sampling.cube_face_uv(r2)
-    idx1, fx1, fy1 = sampling.mipcube_quad_index(
-        sizes, offsets, l1h, f2, u2, v2
-    )
-    return (sampling.quad_lerp_rgbe(sampling.take_rows(mq.rows, idx1), fx1,
-                                    fy1), idx1)
+    sizes, offsets = sampling._level_tables(mq, pos.device)
+    lvl = torch.floor(torch.clamp(rough * MAX_REFLECTION_LOD, 0.0, nl - 1)
+                      ).to(torch.int32)
+    if parent:
+        lvl = torch.clamp(lvl + 1, max=nl - 1)
+    face, u, v = sampling.cube_face_uv(
+        brdf.ibl_reflection_dir(pos, n, eye_pos))
+    return sampling.mipcube_quad_index(sizes, offsets, lvl, face, u, v)
+
+
+def mirror_tap_full(gbuf, eye_pos, ibl, camera_basis, row_offset=0,
+                    full_height=None):
+    """The mirror tap at full rate, sky pixels (depth >= 1) re-pointed at
+    the environment: (c0, the table rows it reads)."""
+    h, w = gbuf.depth.shape
+    sky = gbuf.depth >= 1.0
+    idx0, fx0, fy0 = spec_tap_index(gbuf.position, gbuf.normal,
+                                    gbuf.orm[..., 1], eye_pos, ibl, False)
+    eidx, efx, efy = _env_quad_index(
+        ibl, _sky_dirs(h, w, camera_basis, row_offset=row_offset,
+                       full_height=full_height))
+    idx0 = torch.where(sky, eidx, idx0)
+    fx0 = torch.where(sky, efx, fx0)
+    fy0 = torch.where(sky, efy, fy0)
+    return (sampling.quad_lerp_rgbe(
+        sampling.take_rows(ibl.specular_quad.rows, idx0), fx0, fy0), idx0)
+
+
+def parent_tap(pos, n, rough, eye_pos, ibl):
+    """The parent-mip tap (mip l0 + 1) from its own row, on the even grid
+    (``half_res_geometry``'s planes) or at full rate: (c1, the table rows
+    it reads)."""
+    idx1, fx1, fy1 = spec_tap_index(pos, n, rough, eye_pos, ibl, True)
+    return (sampling.quad_lerp_rgbe(
+        sampling.take_rows(ibl.specular_quad.rows, idx1), fx1, fy1), idx1)
 
 
 def shading_pass_fast(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
@@ -690,6 +691,13 @@ PCF_DIVISORS = (1, 2, 4)
 LIGHT_COLS = 19
 MAX_LIGHT_BYTES = 40 * 1024
 MAX_LEVELS = 16
+# the debug output's int32 channels per pixel of the shading domain
+# (csrc/shading.cu kDbg*), each a discrete choice the kernel makes at full
+# rate, -1 where it makes none: the table rows of the full-rate mirror tap
+# (at a sky pixel the environment's) and parent tap, the even-grid sample
+# the mask-aware upsample of the mirror tap takes (i * wh + j; -1 where it
+# blends the four), and the PCF window's anchor at divisor 1 (y << 16 | x)
+FAST_DEBUG = ("mirror_row", "parent_row", "mirror_pick", "pcf_anchor")
 
 
 def pcf_layout(shadow_quad_rows, s: int) -> int:
@@ -733,6 +741,7 @@ class ShadeArgs(ctypes.Structure):
             "mirror_half", "parent_half", "merged", "num_levels", "env_size",
             "env_off", "pcf_layout", "shadow_size", "pcf_div", "row_offset",
             "full_height", "sky_w", "light_stride", "n_lights")],
+        ("dbg", ctypes.c_void_p),
     ]
 
 
@@ -751,8 +760,9 @@ def shade_args(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
     alive -- ``out`` and, with ``debug``, the even-grid samples the kernel
     keeps in shared memory: the mirror/sky tap ``c0h``, the parent tap
     ``c1h``, the sky flags ``skyh``, the table rows the two taps read
-    ``rows_h``, and the PCF factor ``pcf`` on the divisor's grid, each where
-    the options evaluate it).  Pure Python over the tensors' pointers,
+    ``rows_h``, and the PCF factor ``pcf`` on the divisor's grid (the whole
+    domain at divisor 1), each where the options evaluate it; and ``dbg``,
+    each pixel's FAST_DEBUG choices).  Pure Python over the tensors' pointers,
     shapes and strides: nothing is read from the device, and the outputs
     come from the caching allocator, so a CUDA graph captures the call."""
     dev = gbuf.depth.device
@@ -780,10 +790,9 @@ def shade_args(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
     has_ibl = ibl is not None
     mirror = has_ibl and mirror_half_res
     parent = has_ibl and parent_mip_half_res
-    half_pcf = layout != PCF_NONE and shadow_res_divisor > 1
     hh, wh = (h + 1) // 2, w if cb else (w + 1) // 2
-    hq, wq = ((hh + 1) // 2, (wh + 1) // 2) if shadow_res_divisor == 4 \
-        else (hh, wh)
+    hq, wq = {1: (h, w), 2: (hh, wh),
+              4: ((hh + 1) // 2, (wh + 1) // 2)}[shadow_res_divisor]
 
     def empty(shape, dtype=torch.float32, want=True):
         return torch.empty(shape, dtype=dtype, device=dev) \
@@ -795,7 +804,8 @@ def shade_args(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
         "c1h": empty((hh, wh, 3), want=parent),
         "skyh": empty((hh, wh), torch.uint8, want=mirror),
         "rows_h": empty((hh, wh, 2), torch.int32, want=mirror or parent),
-        "pcf": empty((hq, wq), want=half_pcf),
+        "pcf": empty((hq, wq), want=layout != PCF_NONE),
+        "dbg": empty((h, w, len(FAST_DEBUG)), torch.int32),
     }
     if lights.stride(-1) != 1:
         lights = lights.contiguous()
@@ -808,7 +818,8 @@ def shade_args(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
     a.strides[:] = [st for t in planes for st in t.stride()]
     a.depth, a.depth_strides[:] = gbuf.depth.data_ptr(), gbuf.depth.stride()
     a.ssao, a.ssao_strides[:] = ssao.data_ptr(), ssao.stride()
-    for k in ("out", "c0h", "c1h", "skyh", "rows_h", "pcf", "lights"):
+    for k in ("out", "c0h", "c1h", "skyh", "rows_h", "pcf", "dbg",
+              "lights"):
         setattr(a, k, _ptr(keep[k]))
     a.eye, a.light_pv = _ptr(small["eye_pos"]), _ptr(small["light_proj_view"])
     a.right, a.up = _ptr(small["right"]), _ptr(small["up"])
@@ -849,7 +860,8 @@ def shade_args(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
 
 def _shading_fast_cuda(*args, debug=False):
     """K9: one launch on the current stream.  ``debug``: also write the
-    even-grid samples (shade_args) and return (colour, the kept tensors)."""
+    even-grid samples and each pixel's full-rate choices (shade_args) and
+    return (colour, the kept tensors)."""
     gbuf, ssao, rows, _, lights, _, params, ibl = args[:8]
     tensors = [getattr(gbuf, k) for k in GBUFFER_PLANES] + [
         gbuf.depth, ssao, lights, params["eye_pos"]] + (

@@ -14,6 +14,10 @@ cubes and spheres with distinct materials on a textured plane, about 52K
 triangles at the default 10 x 10 grid, which loads the rasterizer and the
 binning where the tiny scene does not.
 
+``lit_camera`` and ``tiny_lit_camera`` look down on ``grid_world``'s and
+``tiny_world``'s planes so that every pixel is geometry: the frames with
+no sky, on which every camera-dependent kernel is held.
+
 ``budget_world`` is the reference's error-budget stress scene
 (``tests/test_fast_budget.py`` ``_stress_world``): hard shadow edges and a
 roughness 0 -> 1 gradient sphere, on which every knob set of the fast
@@ -240,6 +244,40 @@ def grid_camera(cfg):
     """The stress scene's camera (``examples.sponza_scale.scene_camera``),
     sized to ``cfg``."""
     cam = sponza_scale.scene_camera()
+    cam.resize((cfg.width, cfg.height))
+    return cam
+
+
+def lit_camera(cfg):
+    """grid_world(10) seen from 10 units over its 40-unit plane, 3 units
+    back along the stress camera's yaw and pitched 1.2 rad towards the
+    plane: the plane and the grid fill every pixel of the 1088-row frame,
+    so no pixel is sky (an interior's share of lit pixels)."""
+    yaw = np.pi * 0.8
+    d = np.array([np.sin(yaw), 0.0, np.cos(yaw)])
+    cam = Camera(position=tuple(-3.0 * d + np.array([0.0, 10.0, 0.0])),
+                 rotation=quat.mul(quat.from_rotation_y(yaw),
+                                   quat.from_rotation_x(1.2)))
+    cam.resize((cfg.width, cfg.height))
+    return cam
+
+
+# the tiny scene's view with no sky: 3 units over its 8-unit plane, 1.25
+# back along the orbit camera's yaw, pitched 1.3 rad down; the frame's
+# corner rays meet the plane within 2.9 units of its centre
+TINY_LIT_VIEW = {"yaw": np.pi * 0.75, "back": 1.25, "height": 2.5,
+                 "pitch": 1.3}
+
+
+def tiny_lit_camera(cfg):
+    """``tiny_world`` seen from TINY_LIT_VIEW: the plane, the cube and the
+    sphere fill every pixel, so no pixel is sky."""
+    v = TINY_LIT_VIEW
+    d = np.array([np.sin(v["yaw"]), 0.0, np.cos(v["yaw"])])
+    cam = Camera(position=tuple(-v["back"] * d
+                                + np.array([0.0, v["height"], 0.0])),
+                 rotation=quat.mul(quat.from_rotation_y(v["yaw"]),
+                                   quat.from_rotation_x(v["pitch"])))
     cam.resize((cfg.width, cfg.height))
     return cam
 

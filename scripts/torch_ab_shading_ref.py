@@ -15,7 +15,7 @@ this checkout's wrapper (passes/shading.py ``_shading_ref_cuda``), so each
 checkout's ShadeRefArgs must have this one's layout (the wrapper checks
 its size).  The calls: the reference path's 1920x1080 call on the tiny
 scene (``tiny``), on scenes.grid_world(10) (``grid``) and on that scene
-from chip_smoke.lit_camera (``lit``, no sky pixel).
+from scenes.lit_camera (``lit``, no sky pixel).
 
 Prints the card's name and power limit; each checkout's registers and
 SASS mix of shade_ref_kernel (chip_smoke.sass_report); each checkout's
@@ -86,7 +86,7 @@ def main() -> int:
     ref = C.PATHS["reference"][0]
     frames = {"tiny": (scenes.tiny_world, scenes.camera),
               "grid": (scenes.grid_world, scenes.grid_camera),
-              "lit": (scenes.grid_world, C.lit_camera)}
+              "lit": (scenes.grid_world, scenes.lit_camera)}
     calls = {}
     for name, (world, camera) in frames.items():
         seen = C.capture_inputs(cfg, "cuda", [(ref, world, camera)],

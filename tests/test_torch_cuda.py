@@ -25,9 +25,10 @@ form's (K4b: bands shorter than their halo, ragged bands, against the
 whole-image kernel); of the reconstruct
 kernel's two entries (planes of odd or unaligned width, strips that end
 inside a warp, one row); of the shading kernel's (K9: random G-buffers,
-its even-grid samples through the debug planes, one launch, no
-fallback); of the G-buffer tail's (K10: random inputs laid out as
-each of its five sources has them, through its debug rows, no
+its even-grid samples through the debug planes, every discrete choice it
+makes at full rate with and without sky, the tiny scene's sky-free frame,
+one launch, no fallback); of the G-buffer tail's (K10: random inputs laid
+out as each of its five sources has them, through its debug rows, no
 fallback on any fast path's frame); and of the reference path's shading
 kernel's (K11: random G-buffers under every option set, 1 to 16 lights,
 its discrete choices through its debug output, no fallback); and of the
@@ -60,9 +61,11 @@ def test_kernels_match_plain_versions_on_the_card(cuda):
     from mo_renderer_tpu_torch import scenes
 
     results = chip_smoke.check_kernels(scenes.tiny_config(), cuda)
+    lit = {f"{name}@lit" for name in chip_smoke.LIT_KERNELS}
     assert set(results) == set(chip_smoke.KERNELS) | {
         f"{name}@grid" for name in chip_smoke.GRID_KERNELS
-        + chip_smoke.BAND_GRID_KERNELS} | {"shading_ref@lit"}
+        + chip_smoke.BAND_GRID_KERNELS} | lit
+    assert all(results[name]["sky_pixels"] == 0 for name in lit)
 
 
 @pytest.mark.cuda
@@ -711,10 +714,10 @@ def test_shading_kernel_holds_every_option_set(cuda):
     assert n == len(scenes.BUDGET_BOUNDS) + 5
 
 
-def _shading_case(cuda, n_lights, cb, seed=0):
-    """A random G-buffer on the card (a quarter of it sky), random SSAO,
-    lights and a PCF table, and the tiny scene's IBL: the arguments of
-    the kernel and its plain version."""
+def _shading_case(cuda, n_lights, cb, seed=0, sky=True):
+    """A random G-buffer on the card (a quarter of it sky; none without
+    ``sky``), random SSAO, lights and a PCF table, and the tiny scene's
+    IBL: the arguments of the kernel and its plain version."""
     import numpy as np
 
     from mo_renderer_tpu_torch import scenes
@@ -729,7 +732,7 @@ def _shading_case(cuda, n_lights, cb, seed=0):
             rng.uniform(lo, hi, shape).astype(np.float32)).to(cuda)
 
     normal = torch.nn.functional.normalize(plane(h, w, 3, lo=-1.0), dim=-1)
-    depth = plane(h, w, lo=0.5, hi=1.33).clamp(max=1.0)
+    depth = plane(h, w, lo=0.5, hi=1.33 if sky else 0.99).clamp(max=1.0)
     gbuf = GBuffer(base_color=plane(h, w, 3), position=plane(h, w, 3, lo=-2),
                    normal=normal, emissive=plane(h, w, 3, hi=0.1),
                    orm=plane(h, w, 3), velocity=plane(h, w, 2), depth=depth,
@@ -811,6 +814,54 @@ def test_shading_even_grid_samples_match_plain(cuda, divisor, cb):
     args[8] = divisor
     chip_smoke.shading_taps_check(tuple(args))
     torch.cuda.synchronize()
+
+
+# (PCF divisor, spec_parent_mip_half_res, spec_mirror_half_res,
+# spec_merged_trilinear): the sets that take a specular tap or the PCF at
+# full rate, and the frame's own
+FULL_RATE_KNOBS = [(1, False, False, False), (2, True, False, False),
+                   (4, False, True, True), (1, True, True, False),
+                   (2, False, False, False), (4, True, True, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", FULL_RATE_KNOBS)
+@pytest.mark.parametrize("sky", [False, True])
+def test_shading_full_rate_choices_match_plain(cuda, knobs, sky):
+    """K9 with ``debug`` on a random G-buffer with and without sky: every
+    discrete choice it makes, on the even grid and at full rate (the
+    full-rate taps' table rows, the environment row of a sky pixel, the
+    mask-aware upsample's pick, the PCF window's anchor and factor at
+    divisor 1), equals the plain version's."""
+    import chip_smoke
+
+    args = list(_shading_case(cuda, 3, False, sky=sky))
+    args[8:12] = knobs
+    res = chip_smoke.shading_taps_check(tuple(args))
+    torch.cuda.synchronize()
+    assert res["choices_apart"] == 0
+    full_rate = knobs[0] == 1 or not (knobs[1] and knobs[2])
+    assert any(k.startswith("full-rate") for k in res) == (full_rate or sky)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [None, (1, False, False), (1, True, False),
+                                   (1, False, True)])
+def test_shading_choices_on_a_sky_free_frame(cuda, knobs):
+    """K9 on the tiny scene's 256x128 frame from scenes.tiny_lit_camera,
+    where no pixel is sky: the frame's own call (``None``) and the
+    full-rate knob sets of the budget matrix, 0 discrete choices apart."""
+    import chip_smoke
+    from mo_renderer_tpu_torch import scenes
+
+    cfg = scenes.tiny_config() if knobs is None else scenes.budget_config(
+        scenes.tiny_config(checkerboard=False, ssao_res_divisor=1), knobs)
+    seen = chip_smoke.capture_inputs(
+        cfg, cuda, [({}, scenes.tiny_world, scenes.tiny_lit_camera)],
+        {"shading"})
+    args = chip_smoke.shading_args(*seen["shading"])
+    assert int((args[0].depth >= 1.0).sum()) == 0
+    assert chip_smoke.shading_taps_check(args)["choices_apart"] == 0
 
 
 @pytest.mark.cuda

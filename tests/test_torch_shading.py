@@ -135,11 +135,12 @@ def _args(gbuf, ssao, rows, s, lights, n, ibl, divisor=4, parent=True,
     (True, 4, 16, 24, (8, 24), (4, 12)),
     (True, 2, 15, 24, (8, 24), (8, 24)),
     (False, 4, 16, 48, (8, 24), (4, 12)),
-    (False, 1, 17, 47, (9, 24), None),
+    (False, 1, 17, 47, (9, 24), (17, 47)),
 ])
 def test_shade_args_sizes(ibl, cb, divisor, h, w, even, pcf):
-    """Domain, even grid and PCF grid; the planes the kernel writes (the
-    even-grid samples with ``debug``)."""
+    """Domain, even grid and PCF grid (the whole domain at divisor 1); the
+    planes the kernel writes (the even-grid samples and the PCF factors
+    with ``debug``)."""
     s = 64
     rows = S.build_pcf_window_u16_half(torch.rand(s, s))
     a, keep = Sh.shade_args(*_args(
@@ -209,6 +210,27 @@ def test_shade_args_specular_flags(ibl, flags, want):
     a, keep = Sh.shade_args(*args)
     assert all(keep[k] is None and getattr(a, k) is None
                for k in ("c0h", "c1h", "skyh", "rows_h", "pcf"))
+
+
+def test_debug_channels_follow_the_c_constants(ibl):
+    """The full-rate choices' channels (FAST_DEBUG) are csrc/shading.cu's
+    kDbg* in their order; ``debug`` gives every pixel its channels, int32,
+    and the frame's call (no ``debug``) passes a null pointer."""
+    consts = {name: int(v) for name, v in re.findall(
+        r"constexpr int kDbg(\w+) = (\d+);", _source())}
+    channels = consts.pop("Channels")
+    snake = {re.sub(r"(?<!^)([A-Z])", r"_\1", k).lower(): v
+             for k, v in consts.items()}
+    assert sorted(snake, key=snake.get) == list(Sh.FAST_DEBUG)
+    assert channels == len(Sh.FAST_DEBUG) == 4
+    args = _args(_gbuf(9, 14), torch.rand(9, 14), None, 64,
+                 torch.zeros(1, 20), 1, ibl, cb=False)
+    a, keep = Sh.shade_args(*args, debug=True)
+    assert keep["dbg"].shape == (9, 14, channels)
+    assert keep["dbg"].dtype == torch.int32
+    assert a.dbg == keep["dbg"].data_ptr()
+    a, keep = Sh.shade_args(*args)
+    assert keep["dbg"] is None and a.dbg is None
 
 
 def test_shade_args_without_ibl_or_shadow():
