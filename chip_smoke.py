@@ -77,15 +77,17 @@ Phases (each raises on failure; the script then exits non-zero):
    read once each.  ``check_shading_ref_options`` holds K11 without IBL,
    without a shadow map, on the UV1 scene under default flags and with a
    sun, a point and a spot light.  Then the reference path's G-buffer
-   ``gbuffer_ref`` (K12, ``csrc/gbuffer_ref.cu``: one launch, one thread a
-   pixel) on the reference path's call (K6's planes, the scene's tables
-   and texture array, the vertex stage's outputs) and as
-   ``gbuffer_ref@grid``, each plane at rtol 2e-3 / atol 1e-4 with its
+   ``gbuffer_ref`` (K12, ``csrc/gbuffer_ref.cu``: one launch, a warp a
+   row span of 32 pixels; phase 1 also prints its dense and strided
+   template instances apart) on the reference path's call (K6's planes,
+   the scene's tables and texture array, the vertex stage's outputs) and
+   as ``gbuffer_ref@grid``, each plane at rtol 2e-3 / atol 1e-4 with its
    texel anchors and UV sets through its debug output equal to the plain
    version's (``gbuffer_ref_check``); its bytes count the vertex and
    material rows and texels the covered pixels touch, once each.
    ``check_gbuffer_ref_options`` holds K12 on the UV1 scene under default
-   flags, the all-slots scene and that call without tangents.  Then
+   flags, the all-slots scene, that call without tangents, and the
+   ``@lit`` call cut to an odd 1079 x 1917 target (``edge_cut``).  Then
    ``...@lit``: every kernel whose input depends on the camera (K1, K6,
    K8, K3, K7 under the stack overrides, K10 on each source, K12, K4, K5,
    K9, K11, and the band forms K1b and K4b) on the calls of the default,
@@ -371,13 +373,15 @@ SHADING_BAR = ("colour rtol 2e-3 / atol 1e-4 per pixel; packed frame "
                "<= 1 LSB on < 1% of pixels")
 
 
-def sass_report(path):
+def sass_report(path, instances=False):
     """{kernel: {"registers", "stack", "instructions", "fp32", "mufu"}} of
     the hand kernels compiled into ``path`` (the built library, or a
     cubin), from ``cuobjdump``: registers and stack bytes a thread, and the
     static SASS instruction count, of which FP32 arithmetic (FFMA, FMUL,
     FADD), special-function (MUFU), global (LDG, STG) and shared (LDS,
-    STS) memory instructions."""
+    STS) memory instructions.  A template's instances add up under its
+    name, or with ``instances`` each is its own entry, its mangled
+    template arguments after the name (``gbuffer_ref_kernel<Lb1>``)."""
     import re
     import shutil
     import subprocess
@@ -397,8 +401,12 @@ def sass_report(path):
                 if not digits.isdigit():
                     continue
                 n = int(digits)
-                cand = mangled[i + n_digits:i + n_digits + n]
+                end = i + n_digits + n
+                cand = mangled[i + n_digits:end]
                 if len(cand) == n and cand.endswith("_kernel"):
+                    if instances and mangled[end:end + 1] == "I":
+                        args = mangled[end + 1:mangled.index("EE", end)]
+                        return f"{cand}<{args}>"
                     return cand
         return mangled
 
@@ -2099,28 +2107,45 @@ def check_shading_ref_options(cfg, device):
     return len(calls)
 
 
+def edge_cut(args):
+    """A ``gbuffer_pass`` call cut to a target 9 rows and 3 columns short
+    of its own (1079 x 1917 of a 1088 x 1920 call): H and W odd, so
+    neither is a multiple of K12's 32-pixel spans, its two-row tiles or a
+    4-float vector, and most spans start off a 16-byte boundary.  The planes are views
+    of the call's, read through their strides."""
+    tri, z, b0, b1, scene, vs = args
+    h, w = tri.shape[0] - 9, tri.shape[1] - 3
+    return (tri[:h, :w], z[:h, :w], b0[:h, :w], b1[:h, :w], scene, vs)
+
+
 def check_gbuffer_ref_options(cfg, device):
     """Phase 2, K12 beyond the paths' own calls, each against its plain
     version at GBUFFER_REF_BAR with 0 texel anchors or UV sets apart
     (``gbuffer_ref_check``): the UV1 scene under default flags (which
     takes the reference path), the all-slots scene on the reference path
-    (five sampled slots, a mesh with tangents) and that call with every
-    has_tangent cleared (the tiny scene's own call has no tangents).
-    ``cfg`` gives the frame size; returns the number of calls held."""
+    (five sampled slots, a mesh with tangents), that call with every
+    has_tangent cleared (the tiny scene's own call has no tangents), and
+    the reference path's call on scenes.grid_world(10) from
+    scenes.lit_camera cut at an odd edge (``edge_cut``: the staged
+    stores' element-by-element tail).  ``cfg`` gives the frame size;
+    returns the number of calls held."""
     import torch
 
     from mo_renderer_tpu_torch import scenes
 
     calls = {}
-    for what, overrides, make_world in (
+    for what, overrides, make_world, camera in (
             ("UV1 scene, default flags", {},
-             functools.partial(scenes.tiny_world, uv1=True)),
+             functools.partial(scenes.tiny_world, uv1=True), scenes.camera),
             ("all slots", {"fast_sampling": False},
-             functools.partial(scenes.tiny_world, all_slots=True))):
-        seen = capture_inputs(cfg, device,
-                              [(overrides, make_world, scenes.camera)],
+             functools.partial(scenes.tiny_world, all_slots=True),
+             scenes.camera),
+            ("@lit at an odd edge", {"fast_sampling": False},
+             scenes.grid_world, scenes.lit_camera)):
+        seen = capture_inputs(cfg, device, [(overrides, make_world, camera)],
                               {"gbuffer_ref"})
         calls[what] = seen["gbuffer_ref"][0]
+    calls["@lit at an odd edge"] = edge_cut(calls["@lit at an odd edge"])
     *planes, scene, vs = calls["all slots"]
     calls["all slots, no tangent"] = (*planes, scene, dataclasses.replace(
         vs, has_tangent=torch.zeros_like(vs.has_tangent)))
@@ -3874,6 +3899,9 @@ def main() -> int:
           f" s total)", flush=True)
     for kernel, res in sass_report(_build.build()).items():
         print(f"[1] {kernel}: {json.dumps(res)}", flush=True)
+    for kernel, res in sass_report(_build.build(), instances=True).items():
+        if kernel.startswith("gbuffer_ref_kernel<"):  # Lb1: dense tables
+            print(f"[1] {kernel}: {json.dumps(res)}", flush=True)
 
     kernels = check_kernels(EngineConfig(width=1920, height=1080), device)
     kernels["shading"]["option_sets"] = check_shading_options(

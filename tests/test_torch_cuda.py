@@ -1065,12 +1065,15 @@ def test_shading_ref_never_falls_back_on_the_card(cuda, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [{}, {"slot_uv": 0.0}, {"slot_uv": 1.0},
                                   {"tangent": True}, {"tangent": False}])
-@pytest.mark.parametrize("shape", [(24, 32, 8), (37, 70, 64)])
+@pytest.mark.parametrize("shape", [(24, 32, 8), (37, 70, 64), (13, 45, 6),
+                                   (33, 129, 16)])
 def test_gbuffer_ref_kernel_matches_plain(cuda, case, shape):
     """K12 away from any frame, on random scenes aimed at its
     discontinuities (texel centres and their ulps, REPEAT both ways, each
-    UV set, has_tangent both ways, the |qs| guard, uncovered pixels; a
-    target ragged against the kernel's 128-pixel blocks): every plane at
+    UV set, has_tangent both ways, the |qs| guard, uncovered pixels;
+    targets ragged against the kernel's 32-pixel spans and its 4-float
+    vectors, odd in H and W; a 6 x 6 texture, whose REPEAT wrap takes the
+    integer remainder, not the power-of-two mask): every plane at
     rtol 2e-3 / atol 1e-4, the mask equal, no texel anchor or UV set apart
     from the plain version's."""
     import chip_smoke
@@ -1087,12 +1090,13 @@ def test_gbuffer_ref_kernel_matches_plain(cuda, case, shape):
 @pytest.mark.cuda
 def test_gbuffer_ref_holds_its_option_sets(cuda):
     """K12 on the frames' own calls at 256x128: the UV1 scene under default
-    flags, the all-slots scene and that call without tangents."""
+    flags, the all-slots scene, that call without tangents, and the grid
+    seen from lit_camera cut to an odd 119x253 target."""
     import chip_smoke
     from mo_renderer_tpu_torch import scenes
 
     assert chip_smoke.check_gbuffer_ref_options(scenes.tiny_config(),
-                                                cuda) == 3
+                                                cuda) == 4
 
 
 @pytest.mark.cuda

@@ -3,8 +3,10 @@ the kernel K12, ``csrc/gbuffer_ref.cu``) on the CPU: its plain version,
 ``_gbuffer_ref_plain``, against the JAX package's ``gbuffer_pass`` on
 random inputs made with numpy (``chip_smoke.random_ref_inputs``), and the
 kernel's host side (the argument block ``gbuffer_ref_args`` packs, the
-ctypes layout against the C struct, the dispatch).  The kernel itself
-runs only on a card (tests/test_torch_cuda.py, chip_smoke.py phase 2).
+ctypes layout against the C struct, the kernel's constants, the
+dispatch), chip_smoke.py's odd-edge cut of a call (``edge_cut``) and its
+SASS report of each template instance.  The kernel itself runs only on
+a card (tests/test_torch_cuda.py, chip_smoke.py phase 2).
 
 The inputs aim at the pass's discontinuities: UVs on texel centres and
 one ulp either side, negative UVs and UVs past 1 (REPEAT), each slot on
@@ -17,6 +19,8 @@ Bar: rtol 2e-3 / atol 1e-4 per plane, the mask equal.
 import ctypes
 import os
 import re
+import shutil
+import subprocess
 import sys
 import types
 
@@ -154,6 +158,8 @@ def test_kernel_constants_follow_the_python_side():
         M.MAT_BASE_COLOR_MAP, M.MAT_NORMAL_MAP, M.MAT_MR_MAP,
         M.MAT_OCCLUSION_MAP, M.MAT_EMISSIVE_MAP]
     assert consts["kMatRoughness"] + 1 == GB.REF_MAT_COLS
+    assert consts["kMatCols"] == GB.REF_MAT_COLS  # read as 4-float vectors
+    assert GB.REF_MAT_COLS % 4 == 0
     names = ["WorldPos", "Normal", "Tangent", "Bitangent", "Clip",
              "PrevClip", "Uv0", "Uv1"]
     assert [consts[f"kAttr{n}"] for n in names] == list(range(8))
@@ -260,3 +266,63 @@ def test_choices_follow_the_plain_sampler():
     n_texels = scene.textures.reshape(-1, 4).shape[0]
     taps = torch.cat(rows)
     assert 0 <= int(taps.min()) and int(taps.max()) < n_texels
+
+
+def test_edge_cut_is_odd_and_strided():
+    """chip_smoke.edge_cut, the odd-edge call of chip_smoke phase 2: H and
+    W odd and neither a multiple of the kernel's tile or of a 4-float
+    vector; the planes are views of the call's (its row strides), the
+    tables the call's own; the plain version on the cut is the cut of the
+    plain version on the whole (the mask exactly; the planes within an
+    ulp or so, as the CPU's vector loops round a tail apart)."""
+    with open(SOURCE) as f:
+        consts = {k: int(v) for k, v in
+                  re.findall(r"constexpr int (k\w+) = (\d+);", f.read())}
+    args = chip_smoke.ref_call(chip_smoke.random_ref_inputs(h=40, w=70),
+                               "cpu")
+    cut = chip_smoke.edge_cut(args)
+    h, w = cut[0].shape
+    assert (h, w) == (31, 67) and h % 2 == w % 2 == 1
+    assert h % consts["kTileH"] and w % 32 and w % 4
+    for a, b in zip(cut[:4], args[:4]):
+        assert a.data_ptr() == b.data_ptr() and a.stride() == (70, 1)
+    assert cut[4] is args[4] and cut[5] is args[5]
+    whole, part = GB._gbuffer_ref_plain(*args), GB._gbuffer_ref_plain(*cut)
+    assert torch.equal(part.mask, whole.mask[:h, :w])
+    for name in GB.GBUFFER_OUT:
+        np.testing.assert_allclose(getattr(part, name).numpy(),
+                                   getattr(whole, name)[:h, :w].numpy(),
+                                   rtol=1e-6, atol=1e-7, err_msg=name)
+
+
+def test_sass_report_splits_template_instances(monkeypatch):
+    """chip_smoke.sass_report adds a template's instances up under its
+    name, or keeps each apart with its mangled arguments (K12's dense and
+    strided instances), from cuobjdump's resource and SASS listings."""
+    res = ("Function _ZN12_GLOBAL__N_118gbuffer_ref_kernelILb1EEEv11GbufRef"
+           "Args:\n REG:56 STACK:0 SHARED:8704\n"
+           "Function _ZN12_GLOBAL__N_118gbuffer_ref_kernelILb0EEEv11GbufRef"
+           "Args:\n REG:64 STACK:8 SHARED:8704\n")
+    sass = ("\t\tFunction : _ZN12_GLOBAL__N_118gbuffer_ref_kernelILb1EEEv11"
+            "GbufRefArgs\n"
+            "        /*0000*/                   LDG.E R2, desc[UR4][R2.64] ;\n"
+            "        /*0010*/                   FMUL R3, R2, R2 ;\n"
+            "\t\tFunction : _ZN12_GLOBAL__N_118gbuffer_ref_kernelILb0EEEv11"
+            "GbufRefArgs\n"
+            "        /*0000*/                   STS [R0], R1 ;\n")
+
+    def run(cmd, **kw):
+        return types.SimpleNamespace(stdout=res if cmd[1] == "-res-usage"
+                                     else sass)
+
+    monkeypatch.setattr(shutil, "which", lambda _: "cuobjdump")
+    monkeypatch.setattr(subprocess, "run", run)
+    both = chip_smoke.sass_report("lib.so")["gbuffer_ref_kernel"]
+    assert (both["registers"], both["stack"], both["instructions"],
+            both["ldg"], both["fp32"], both["sts"]) == (64, 8, 3, 1, 1, 1)
+    apart = chip_smoke.sass_report("lib.so", instances=True)
+    assert set(apart) == {"gbuffer_ref_kernel<Lb1>", "gbuffer_ref_kernel<Lb0>"}
+    dense = apart["gbuffer_ref_kernel<Lb1>"]
+    assert (dense["registers"], dense["instructions"], dense["ldg"]) == (
+        56, 2, 1)
+    assert apart["gbuffer_ref_kernel<Lb0>"]["sts"] == 1
