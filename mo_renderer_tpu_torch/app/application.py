@@ -21,6 +21,7 @@ import numpy as np
 from ..config import DEFAULT_CONFIG, EngineConfig
 from ..device import resolve_device
 from ..scene.world import Schedule, World
+from ..utils import trace
 from .plugin import FunctionPlugin, PluginState, PluginTrait
 
 logger = logging.getLogger("mo_renderer_tpu_torch")
@@ -149,11 +150,16 @@ class App:
 
     # --- frame loop (mod.rs:197-268) ------------------------------------
     def render_frame(self) -> np.ndarray:
-        """Run the runtime systems and one frame; returns (H, W, 4) uint8."""
+        """Run the runtime systems and one frame; returns (H, W, 4) uint8.
+        The tracer's spans of the frame carry ``frame_index``."""
         if not self._resumed:
             self.resumed()
-        self.runtime_schedule.run(self.world)
-        frame = self.renderer.render(self.world)
+        trace.set_frame(self.frame_index)
+        with trace.span("frame"):
+            with trace.span("runtime_systems"):
+                self.runtime_schedule.run(self.world)
+            with trace.span("render"):
+                frame = self.renderer.render(self.world)
         self.frame_index += 1
         return frame
 
@@ -161,7 +167,12 @@ class App:
             profile_dir: str | None = None) -> np.ndarray:
         """Headless frame loop; returns the last frame.
 
-        profile_dir: capture a torch.profiler trace of the loop there."""
+        profile_dir: capture a torch.profiler trace of the loop there
+        (``utils.profile_trace``): a Chrome trace that TensorBoard or
+        chrome://tracing opens, with the port's tracer on over the loop,
+        so its spans show as ``mo::<name>`` ranges beside the device's
+        operations and each replayed pass between its marker kernels
+        (``utils/trace.py``)."""
         self.resumed()
         from ..utils import profile_trace
 

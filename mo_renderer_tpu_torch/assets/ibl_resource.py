@@ -24,6 +24,7 @@ import torch
 
 from ..device import resolve_device, sampling
 from ..kernels import ibl as ibl_kernels
+from ..utils import trace
 
 logger = logging.getLogger("mo_renderer_tpu_torch")
 
@@ -103,12 +104,21 @@ class IBLResource:
         return self
 
     def ensure_computed(self) -> None:
+        """The maps, loaded or computed on ``self.device`` once (the
+        tracer's ``ibl_precompute`` span; with the tracer on it ends in a
+        synchronise, so its time holds the device's work)."""
         if self._maps is not None:
             return
         if self.device is None:
             raise RuntimeError(
                 "IBLResource has no device: pass device= or call .to(device)"
             )
+        with trace.span("ibl_precompute"):
+            self._compute()
+            if trace.enabled() and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+    def _compute(self) -> None:
         cached = self._load_cache() if self.use_cache else None
         if cached is not None:
             self._maps = cached

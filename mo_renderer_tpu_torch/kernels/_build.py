@@ -77,6 +77,7 @@ LAUNCHES: dict[str, int] = {
     "gbuffer": 0,
     "shading_ref": 0,
     "gbuffer_ref": 0,
+    "mark": 0,
 }
 
 _lock = threading.Lock()

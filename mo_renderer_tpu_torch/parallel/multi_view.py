@@ -32,6 +32,7 @@ from ..config import EngineConfig
 from ..passes.frame_graph import Renderer, build_camera_params, stack_params
 from ..passes.present import unpack_rgba8
 from ..scene.scene_buffers import find_shadow_light, refresh_transforms
+from ..utils import trace
 
 logger = logging.getLogger("mo_renderer_tpu_torch")
 
@@ -93,6 +94,7 @@ class MultiViewRenderer:
         self.config = config
         self.group = group
         self._inner = _RankRenderer(config, group, device)
+        self._calls = 0  # the frame id of the tracer's spans of a call
 
     @property
     def scene(self):
@@ -135,21 +137,30 @@ class MultiViewRenderer:
         card), with the memoized shadow when every one has the world's
         light."""
         inner = self._inner
-        quads, has_light = inner._sequence_shadow(world, params)
-        frames, overflow = inner._render_params(stack_params(params), quads,
-                                                has_light)
+        with trace.span("params"):
+            quads, has_light = inner._sequence_shadow(world, params)
+            stack = stack_params(params)
+        frames, overflow = inner._render_params(stack, quads, has_light)
         inner._note_overflow(overflow)
         return frames
+
+    def _call_span(self):
+        """The tracer's ``render_views`` span of one call, its frame id the
+        call's index."""
+        trace.set_frame(self._calls)
+        self._calls += 1
+        return trace.span("render_views")
 
     def render_views_device(self, cameras, world):
         """One frame per camera, this rank's block left on its device as
         (V_pad / n, H, W) int32 packed rgba8 bits (multi_view.py:185).
         The view-independent shadow table is memoized once."""
-        self._sync_topology(world)
-        light_pv, _ = find_shadow_light(world)
-        return self._render(world, [
-            build_camera_params(c, light_pv, self._inner.device)
-            for c in self._local(cameras)])
+        with self._call_span():
+            self._sync_topology(world)
+            light_pv, _ = find_shadow_light(world)
+            return self._render(world, [
+                build_camera_params(c, light_pv, self._inner.device)
+                for c in self._local(cameras)])
 
     def render_view_sequence_device(self, camera_steps, world):
         """K camera-path steps x V views, this rank's views left on its
@@ -159,13 +170,14 @@ class MultiViewRenderer:
         lists of per-view ``CameraParams``, all the same length.  The
         memoized shadow only when every step and view has the world's
         light."""
-        self._sync_topology(world)
-        v = len(camera_steps[0])
-        if any(len(step) != v for step in camera_steps):
-            raise ValueError("ragged camera_steps: every step needs the "
-                             f"same {v} views")
-        local = [self._local(step) for step in camera_steps]
-        frames = self._render(world, [p for step in local for p in step])
+        with self._call_span():
+            self._sync_topology(world)
+            v = len(camera_steps[0])
+            if any(len(step) != v for step in camera_steps):
+                raise ValueError("ragged camera_steps: every step needs the "
+                                 f"same {v} views")
+            local = [self._local(step) for step in camera_steps]
+            frames = self._render(world, [p for step in local for p in step])
         return frames.reshape(len(local), len(local[0]), *frames.shape[1:])
 
     def check_overflow(self) -> None:

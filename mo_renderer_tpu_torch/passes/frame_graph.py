@@ -38,6 +38,11 @@ by device copies (``_Staged``, ``_StagedScene``), so a camera, entity or
 light move, a spawn and a despawn replay the same graph.  On the CPU the
 frame runs eagerly, op by op, with exact binning.  Nothing falls back to
 another path: a capture that fails raises.
+
+Each pass of ``frame_program`` runs in ``kernels/mark.py``'s
+``pass_span``, the tracer's span of the pass (``utils/trace.py``): with
+the tracer on, a captured program holds a marker kernel at each pass
+boundary, and its key says so.
 """
 
 from __future__ import annotations
@@ -56,7 +61,7 @@ from ..device.sampling import (
     build_pcf_window_u16_half,
     build_window_rows_2x4,
 )
-from ..kernels import _build
+from ..kernels import _build, mark
 from ..kernels.decimate import decimate_cols
 from ..kernels.raster_setup import (
     bin_triangles,
@@ -72,6 +77,7 @@ from ..scene.scene_buffers import (
     pack_scene,
     refresh_transforms,
 )
+from ..utils import trace
 from .checkerboard import reconstruct_present
 from .gbuffer import gbuffer_pass, gbuffer_pass_fast, gbuffer_pass_from_planes
 from .present import present_pass, unpack_rgba8
@@ -270,97 +276,118 @@ def frame_program(scene, ibl, params, *, cfg, pad_w, pad_h, binned_cap,
     attrs_setup = fast and not megakernel
     # a pass sees full-resolution arrays (RenderPass): no checkerboard
     use_cb = attrs_setup and cfg.checkerboard and not extra_passes
-    vs = None if attrs_setup else run_vertex_stage(
-        scene, params["proj_view"], params["prev_proj_view"],
-        params["light_proj_view"],
-    )
+    vs = None
+    if not attrs_setup:
+        with mark.pass_span("vertex stage"):
+            vs = run_vertex_stage(
+                scene, params["proj_view"], params["prev_proj_view"],
+                params["light_proj_view"],
+            )
 
     shadow_map, shadow_overflow = None, 0
     if use_shadow and not (fast and shadow_quads is not None):
-        shadow_map, shadow_overflow = shadow_map_from_clip(
-            scene, cfg=cfg, binned_cap=binned_cap,
-            shadow_clip=None if attrs_setup else vs.shadow_clip,
-            light_pv=params["light_proj_view"], static_bins=static_bins,
-        )
+        with mark.pass_span("shadow"):
+            shadow_map, shadow_overflow = shadow_map_from_clip(
+                scene, cfg=cfg, binned_cap=binned_cap,
+                shadow_clip=None if attrs_setup else vs.shadow_clip,
+                light_pv=params["light_proj_view"], static_bins=static_bins,
+            )
 
-    if attrs_setup:
-        setup = triangle_setup_from_attrs(
-            scene.tri_attrs, scene.tri_valid, params["proj_view"], pad_w,
-            pad_h, cull_backface=True,  # gbuffer_pass.rs:350
-        )
-    else:
-        setup = triangle_setup(
-            vs.clip, scene.indices, scene.tri_valid, pad_w, pad_h,
-            cull_backface=True,
-        )
-    binned = _bin(setup, pad_w, pad_h, binned_cap, static_bins)
+    with mark.pass_span("triangle setup"):
+        if attrs_setup:
+            setup = triangle_setup_from_attrs(
+                scene.tri_attrs, scene.tri_valid, params["proj_view"], pad_w,
+                pad_h, cull_backface=True,  # gbuffer_pass.rs:350
+            )
+        else:
+            setup = triangle_setup(
+                vs.clip, scene.indices, scene.tri_valid, pad_w, pad_h,
+                cull_backface=True,
+            )
+    with mark.pass_span("binning"):
+        binned = _bin(setup, pad_w, pad_h, binned_cap, static_bins)
     if megakernel:
-        tri, z, attrs, mat_plane, ht_plane = rasterize_attrs(
-            binned, width=pad_w, height=pad_h,
-            attr_rows=pack_raster_attr_rows(scene.tri_attrs,
-                                            params["proj_view"]),
-        )
-        gbuf = gbuffer_pass_from_planes(tri, z, attrs, mat_plane, ht_plane,
-                                        scene, params, slot_map)
+        with mark.pass_span("vertex stage"):
+            attr_rows = pack_raster_attr_rows(scene.tri_attrs,
+                                              params["proj_view"])
+        with mark.pass_span("raster"):
+            tri, z, attrs, mat_plane, ht_plane = rasterize_attrs(
+                binned, width=pad_w, height=pad_h, attr_rows=attr_rows)
+        with mark.pass_span("G-buffer"):
+            gbuf = gbuffer_pass_from_planes(tri, z, attrs, mat_plane,
+                                            ht_plane, scene, params, slot_map)
     elif not fast:
-        tri, z, b0, b1 = rasterize(binned, width=pad_w, height=pad_h)
-        gbuf = gbuffer_pass(tri, z, b0, b1, scene, vs)
+        with mark.pass_span("raster"):
+            tri, z, b0, b1 = rasterize(binned, width=pad_w, height=pad_h)
+        with mark.pass_span("G-buffer"):
+            gbuf = gbuffer_pass(tri, z, b0, b1, scene, vs)
     else:
-        tri, z, _, _ = rasterize(binned, width=pad_w, height=pad_h,
-                                 slim=True)
+        with mark.pass_span("raster"):
+            tri, z, _, _ = rasterize(binned, width=pad_w, height=pad_h,
+                                     slim=True)
         tri_g, z_g = tri, z
         if use_cb:
-            tri_g, z_g = decimate_cols(tri, "cb"), decimate_cols(z, "cb")
-        gbuf = gbuffer_pass_fast(tri_g, z_g, scene, scene.tri_attrs, params,
-                                 slot_map, cb=use_cb, full_wh=(pad_w, pad_h),
-                                 plane_kernel=cfg.attrs_plane_kernel,
-                                 stack_kernel=cfg.stack_plane_kernel)
+            with mark.pass_span("decimate"):
+                tri_g, z_g = decimate_cols(tri, "cb"), decimate_cols(z, "cb")
+        with mark.pass_span("G-buffer"):
+            gbuf = gbuffer_pass_fast(tri_g, z_g, scene, scene.tri_attrs,
+                                     params, slot_map, cb=use_cb,
+                                     full_wh=(pad_w, pad_h),
+                                     plane_kernel=cfg.attrs_plane_kernel,
+                                     stack_kernel=cfg.stack_plane_kernel)
 
     # SSAO on the full-resolution depth; ssao_res_divisor > 1 evaluates it
     # on the even grid, edge-padded to tile multiples exactly as the
     # reference does (the padded width enters the radius formula)
     half_ssao = cfg.ssao_enabled and cfg.ssao_res_divisor > 1
-    if cfg.ssao_enabled:
-        d_in = _even_grid(z) if half_ssao else z
-        d_pad = _pad_edge(
-            d_in,
-            _round_up(d_in.shape[0], cfg.tile_h) - d_in.shape[0],
-            _round_up(d_in.shape[1], cfg.tile_w) - d_in.shape[1],
-        ).contiguous()
-        ssao = (ssao_pass_tiles if cfg.ssao_pallas else ssao_pass)(
-            d_pad, near=cfg.ssao_near, far=cfg.ssao_far
-        )
-        ssao = ssao[: d_in.shape[0], : d_in.shape[1]]
-        if half_ssao and use_cb:
-            ssao = _upsample_to_cb(ssao, *gbuf.depth.shape, 2, 1)
-        elif half_ssao:
-            ssao = _upsample_pow2(ssao, *gbuf.depth.shape, 2)
-        elif use_cb:
-            ssao = decimate_cols(ssao, "cb")
-    else:
-        ssao = torch.ones_like(gbuf.depth)
+    with mark.pass_span("SSAO"):
+        if cfg.ssao_enabled:
+            d_in = _even_grid(z) if half_ssao else z
+            d_pad = _pad_edge(
+                d_in,
+                _round_up(d_in.shape[0], cfg.tile_h) - d_in.shape[0],
+                _round_up(d_in.shape[1], cfg.tile_w) - d_in.shape[1],
+            ).contiguous()
+            ssao = (ssao_pass_tiles if cfg.ssao_pallas else ssao_pass)(
+                d_pad, near=cfg.ssao_near, far=cfg.ssao_far
+            )
+            ssao = ssao[: d_in.shape[0], : d_in.shape[1]]
+            if half_ssao and use_cb:
+                ssao = _upsample_to_cb(ssao, *gbuf.depth.shape, 2, 1)
+            elif half_ssao:
+                ssao = _upsample_pow2(ssao, *gbuf.depth.shape, 2)
+            elif use_cb:
+                ssao = decimate_cols(ssao, "cb")
+        else:
+            ssao = torch.ones_like(gbuf.depth)
 
     if fast:
         if use_shadow and shadow_quads is None:
-            shadow_quads = _pcf_build(cfg)(shadow_map)
-        color = shading_pass_fast(
-            gbuf, ssao, shadow_quads if use_shadow else None,
-            cfg.shadow_map_size, scene.lights, n_lights, params, ibl=ibl,
-            shadow_res_divisor=cfg.pcf_res_divisor,
-            parent_mip_half_res=cfg.spec_parent_mip_half_res,
-            mirror_half_res=cfg.spec_mirror_half_res,
-            merged_trilinear=cfg.spec_merged_trilinear, cb=use_cb,
-        )
+            with mark.pass_span("shadow"):
+                shadow_quads = _pcf_build(cfg)(shadow_map)
+        with mark.pass_span("shading"):
+            color = shading_pass_fast(
+                gbuf, ssao, shadow_quads if use_shadow else None,
+                cfg.shadow_map_size, scene.lights, n_lights, params, ibl=ibl,
+                shadow_res_divisor=cfg.pcf_res_divisor,
+                parent_mip_half_res=cfg.spec_parent_mip_half_res,
+                mirror_half_res=cfg.spec_mirror_half_res,
+                merged_trilinear=cfg.spec_merged_trilinear, cb=use_cb,
+            )
     else:
-        color = shading_pass(gbuf, ssao, shadow_map, scene.lights, n_lights,
-                             params, ibl=ibl)
+        with mark.pass_span("shading"):
+            color = shading_pass(gbuf, ssao, shadow_map, scene.lights,
+                                 n_lights, params, ibl=ibl)
     ctx = {"color": color, "gbuffer": gbuf, "ssao": ssao}
-    for p in extra_passes:
-        ctx = p.render(ctx)
-    if use_cb:  # never with extra passes
-        rgba = reconstruct_present(ctx["color"], tri)
-    else:
-        rgba = present_pass(ctx["color"])
+    if extra_passes:
+        with mark.pass_span("render passes"):
+            for p in extra_passes:
+                ctx = p.render(ctx)
+    with mark.pass_span("present"):
+        if use_cb:  # never with extra passes
+            rgba = reconstruct_present(ctx["color"], tri)
+        else:
+            rgba = present_pass(ctx["color"])
     return rgba[: cfg.height, : cfg.width], (binned.overflow, shadow_overflow)
 
 
@@ -399,12 +426,18 @@ class Renderer(torch.nn.Module):
 
     # --- scene preparation ------------------------------------------------
     def prepare(self, world) -> None:
+        with trace.span("prepare"):
+            self._prepare(world)
+        trace.count("prepares")
+
+    def _prepare(self, world) -> None:
         self._world_generation = getattr(world, "generation", None)
         self._prepare_count += 1
         # the old scene's graphs and staged buffers go before the new pack
         self._graph = self._shadow_graph = self._staged = None
         cfg = self.config
-        self.scene = pack_scene(world, cfg, self.device)
+        with trace.span("pack_scene"):
+            self.scene = pack_scene(world, cfg, self.device)
         ibl_res = world.get_resource(IBLResource)
         if ibl_res is not None:
             ibl_res.to(self.device)  # raises if computed on another device
@@ -507,22 +540,27 @@ class Renderer(torch.nn.Module):
         if not (self._fast and has_light and cfg.shadow_enabled
                 and cfg.shadow_cache):
             return None
-        key = np.asarray(key_pv, np.float32).tobytes()
-        if key != self._shadow_key or self._shadow_scene is not self.scene:
-            if self.device.type == "cuda":
-                graph = self._capture_shadow(light_pv)
-                graph.replay(light_pv)
-                self._shadow_quads = graph.out
-                self._note_overflow(graph.overflow.clone())
-            else:
-                self._shadow_quads, ovf = shadow_program(
-                    self.scene, light_pv, cfg=cfg,
-                    binned_cap=self._binned_cap
-                )
-                self._note_overflow((0, ovf))
-            self._shadow_key = key
-            self._shadow_scene = self.scene
+        with trace.span("shadow_memo"):
+            key = np.asarray(key_pv, np.float32).tobytes()
+            if key != self._shadow_key or self._shadow_scene is not self.scene:
+                with trace.span("shadow_replay"):
+                    self._recompute_shadow(light_pv)
+                self._shadow_key = key
+                self._shadow_scene = self.scene
         return self._shadow_quads
+
+    def _recompute_shadow(self, light_pv) -> None:
+        if self.device.type == "cuda":
+            graph = self._capture_shadow(light_pv)
+            graph.replay(light_pv)
+            self._shadow_quads = graph.out
+            self._note_overflow(graph.overflow.clone())
+        else:
+            self._shadow_quads, ovf = shadow_program(
+                self.scene, light_pv, cfg=self.config,
+                binned_cap=self._binned_cap
+            )
+            self._note_overflow((0, ovf))
 
     def _sync_topology(self, world) -> None:
         """Bring the packed scene up to date with a spawn or despawn after
@@ -531,22 +569,28 @@ class Renderer(torch.nn.Module):
         tables in place; what the static layout cannot absorb (new texture
         content, a capacity overflow, a light-count change, a UV1 material
         on the fast path) falls back to a full ``prepare``."""
-        gen = getattr(world, "generation", None)
-        if gen is None or gen == self._world_generation:
-            return
-        new_scene = incremental_repack(self.scene, world, self.config,
-                                       forbid_uv1=self._fast)
-        if new_scene is None:
+        with trace.span("sync_topology"):
+            gen = getattr(world, "generation", None)
+            if gen is None or gen == self._world_generation:
+                return
+            with trace.span("repack"):
+                new_scene = incremental_repack(self.scene, world, self.config,
+                                               forbid_uv1=self._fast)
+            if new_scene is None:
+                logger.info("world topology changed (generation %s -> %s): "
+                            "full re-prepare", self._world_generation, gen)
+                self.prepare(world)
+                return
             logger.info("world topology changed (generation %s -> %s): "
-                        "full re-prepare", self._world_generation, gen)
-            self.prepare(world)
-            return
-        logger.info("world topology changed (generation %s -> %s): "
-                    "incremental repack", self._world_generation, gen)
-        self.scene = new_scene
-        self._world_generation = gen
+                        "incremental repack", self._world_generation, gen)
+            self.scene = new_scene
+            self._world_generation = gen
 
     def frame_params(self, world):
+        with trace.span("frame_params"):
+            return self._frame_params(world)
+
+    def _frame_params(self, world):
         camera: Camera = world.resource(Camera)
         light_pv, has_light = find_shadow_light(world)
         fp = (
@@ -591,21 +635,27 @@ class Renderer(torch.nn.Module):
         overwritten by the next; its dropped-pair counts stay on the
         device until the lag window reads them.  Elsewhere
         ``frame_program`` runs eagerly."""
-        self._sync_topology(world)
-        self.scene = refresh_transforms(self.scene)
-        params, has_light = self.frame_params(world)
-        quads = self._cached_shadow_quads(
-            params.host_field("light_proj_view"), params["light_proj_view"],
-            has_light,
-        )
-        if self.device.type != "cuda":
-            rgba, overflow = self._frame(params, quads, has_light)
-            self._note_overflow(overflow)
-            return rgba
-        graph = self._capture(params.vec, quads, has_light)
-        graph.replay(params.vec)
-        self._note_overflow(graph.overflow.clone())
-        return graph.out.clone()
+        with trace.span("render_device"):
+            self._sync_topology(world)
+            with trace.span("refresh_transforms"):
+                self.scene = refresh_transforms(self.scene)
+            params, has_light = self.frame_params(world)
+            quads = self._cached_shadow_quads(
+                params.host_field("light_proj_view"),
+                params["light_proj_view"], has_light,
+            )
+            if self.device.type != "cuda":
+                with trace.span("eager_frame"):
+                    rgba, overflow = self._frame(params, quads, has_light)
+                with trace.span("note_overflow"):
+                    self._note_overflow(overflow)
+                return rgba
+            graph = self._capture(params.vec, quads, has_light)
+            with trace.span("replay"):
+                graph.replay(params.vec)
+            with trace.span("note_overflow"):
+                self._note_overflow(graph.overflow.clone())
+            return graph.out.clone()
 
     # --- camera-path sequences ----------------------------------------------
     def _sequence_shadow(self, world, params_list):
@@ -664,13 +714,14 @@ class Renderer(torch.nn.Module):
             return torch.stack(frames), (g, s)
         steps = stack.vec.to(self.device)
         graph = self._capture(steps[0], quads, has_light)
-        frames = torch.empty((n, self.config.height, self.config.width),
-                             dtype=torch.int32, device=self.device)
-        total = torch.zeros(2, dtype=torch.int64, device=self.device)
-        for i in range(n):
-            graph.replay(steps[i])
-            frames[i].copy_(graph.out)  # the next replay overwrites it
-            total += graph.overflow
+        with trace.span("replay"):
+            frames = torch.empty((n, self.config.height, self.config.width),
+                                 dtype=torch.int32, device=self.device)
+            total = torch.zeros(2, dtype=torch.int64, device=self.device)
+            for i in range(n):
+                graph.replay(steps[i])
+                frames[i].copy_(graph.out)  # the next replay overwrites it
+                total += graph.overflow
         return frames, total
 
     # --- captured programs (on a card) ----------------------------------
@@ -686,14 +737,16 @@ class Renderer(torch.nn.Module):
         """The captured frame's key: the layout, the pad size, the config
         (its values), the light, whether the shadow is memoized (``quads``
         given) or rastered in the frame, the IBL maps and the extra
-        passes.  A new camera, entity transform, light matrix, spawn or
+        passes, and whether the tracer is on (its graph holds the pass
+        markers).  A new camera, entity transform, light matrix, spawn or
         despawn keeps it; a resize, a full prepare, a light that appears
-        or goes, an extra pass or another shadow mode changes it."""
+        or goes, an extra pass, another shadow mode or the tracer switched
+        changes it."""
         ibl_maps = self.ibl.maps() if self.ibl is not None else None
         return (self._layout(), self.pad_w, self.pad_h,
                 dataclasses.astuple(self.config), has_light,
                 quads is not None, id(ibl_maps),
-                tuple(id(p) for p in self.extra_passes))
+                tuple(id(p) for p in self.extra_passes), trace.enabled())
 
     def _staged_scene(self):
         """The scene as the captured programs read it, staged from
@@ -712,6 +765,10 @@ class Renderer(torch.nn.Module):
         table or None.  The table is the shadow graph's output, which the
         frame reads in place: a new shadow graph drops the frame graph
         (``_capture_shadow``)."""
+        with trace.span("graph_lookup"):
+            return self._lookup(params, quads, has_light)
+
+    def _lookup(self, params, quads, has_light):
         key = self._graph_key(has_light, quads)
         scene = self._staged_scene()
         if self._graph is not None and self._graph.key == key:
@@ -733,11 +790,11 @@ class Renderer(torch.nn.Module):
     def _capture_shadow(self, light_pv):
         """The memoized shadow's graph (the reference's ``_shadow_fn``):
         ``shadow_program`` with static binning on the staged scene, the
-        (4, 4) light matrix its input.  Keyed on the layout and the config
-        but its size, so a resize keeps it."""
+        (4, 4) light matrix its input.  Keyed on the layout, the config
+        but its size (a resize keeps it) and whether the tracer is on."""
         cfg = self.config
         key = (self._layout(), dataclasses.astuple(
-            dataclasses.replace(cfg, width=0, height=0)))
+            dataclasses.replace(cfg, width=0, height=0)), trace.enabled())
         scene = self._staged_scene()
         if self._shadow_graph is not None and self._shadow_graph.key == key:
             return self._shadow_graph
@@ -749,7 +806,8 @@ class Renderer(torch.nn.Module):
                                         binned_cap=cap, static_bins=True)
             return table, overflow_counts(0, ovf, self.device)
 
-        self._shadow_graph = _FrameGraph(key, self.device, shadow, light_pv)
+        self._shadow_graph = _FrameGraph(key, self.device, shadow, light_pv,
+                                         name="shadow")
         self._shadow_captures += 1
         return self._shadow_graph
 
@@ -757,8 +815,11 @@ class Renderer(torch.nn.Module):
 
     def render(self, world) -> np.ndarray:
         """One frame fetched to the host as (H, W, 4) uint8 rgba."""
-        frame = unpack_rgba8(self.render_device(world))
-        self.check_overflow()
+        packed = self.render_device(world)
+        with trace.span("fetch"):
+            frame = unpack_rgba8(packed)
+        with trace.span("check_overflow"):
+            self.check_overflow()
         return frame
 
 
@@ -836,28 +897,31 @@ class _FrameGraph:
     count their launches while the graph is captured, which launches
     nothing: those counts are taken back, and each replay adds them
     (``launches``) instead.  ``refs`` keeps what the key names by
-    identity alive."""
+    identity alive.  ``name`` is the program's pass in ``mark.PASSES``:
+    with the tracer on, the graph opens and closes with its markers."""
 
-    def __init__(self, key, device, fn, first, refs=()):
+    def __init__(self, key, device, fn, first, refs=(), name="frame"):
         self.key = key
         self.refs = refs
         self.input = _Staged(first)
         self.overflow = torch.zeros(2, dtype=torch.int64, device=device)
 
         def run():
-            out, counts = fn(self.input.buf)
-            self.overflow.copy_(counts)
+            with mark.pass_span(name):
+                out, counts = fn(self.input.buf)
+                self.overflow.copy_(counts)
             return out
 
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            run()
-        torch.cuda.current_stream(device).wait_stream(side)
-        before = dict(_build.LAUNCHES)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.out = run()
+        with trace.span("capture"):
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                run()
+            torch.cuda.current_stream(device).wait_stream(side)
+            before = dict(_build.LAUNCHES)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.out = run()
         self.launches = {k: v - before[k] for k, v in _build.LAUNCHES.items()
                          if v != before[k]}
         _build.LAUNCHES.update(before)

@@ -5,7 +5,8 @@ top-level names, ``utils`` and the oracle rasterizer
 - Every name of ``mo_renderer_tpu.__all__`` resolves in
   ``mo_renderer_tpu_torch`` to the port's own class, from the port's copy
   of the module the JAX package names for it; ``__version__`` is equal.
-- ``clamp``, ``log_span`` and ``profile_trace`` (through
+- ``clamp``, the tracer's span (``utils.trace``, which replaced
+  ``log_span``) and ``profile_trace`` (through
   ``App.run(profile_dir=...)``, which writes a torch.profiler trace).
 - ``rasterize_reference`` against the JAX ``rasterize_reference`` on the
   same setup rows (the JAX setup's, as numpy), at 64x32: ids exactly
@@ -18,7 +19,6 @@ top-level names, ``utils`` and the oracle rasterizer
 
 import glob
 import importlib
-import logging
 import os
 import sys
 
@@ -65,13 +65,19 @@ def test_clamp(value, expected):
     assert j_clamp(value, 0, 2) == expected
 
 
-def test_log_span(caplog):
-    caplog.set_level(logging.INFO, logger="mo_renderer_tpu_torch")
-    with utils.log_span("pack"):
-        pass
-    (rec,) = [r for r in caplog.records if r.name == "mo_renderer_tpu_torch"]
-    assert rec.getMessage().startswith("pack: ") and rec.getMessage().endswith(
-        " ms")
+def test_log_span():
+    """A timed, named span: the tracer's ``span`` (``log_span``, which
+    only logged one, is gone)."""
+    assert not hasattr(utils, "log_span")
+    n = len(utils.trace.snapshot()["spans"])
+    utils.trace.enable()
+    try:
+        with utils.trace.span("pack"):
+            pass
+    finally:
+        utils.trace.disable()
+    (rec,) = utils.trace.snapshot()["spans"][n:]
+    assert rec[0] == "pack" and rec[4] >= rec[3]
 
 
 def test_profile_trace_through_app_run(tmp_path):
@@ -83,6 +89,10 @@ def test_profile_trace_through_app_run(tmp_path):
     assert frame.shape == (32, 128, 4)
     traces = glob.glob(str(tmp_path / "trace" / "*.pt.trace.json"))
     assert len(traces) == 1 and os.path.getsize(traces[0]) > 0
+    # the tracer was on over the loop: its spans are in the trace
+    text = open(traces[0]).read()
+    assert '"mo::render_device"' in text and '"mo::pass::raster"' in text
+    assert not utils.trace.enabled()
 
 
 def _assert_oracle_equal(port_out, ref_out, what):
