@@ -469,6 +469,7 @@ def run_windowed(app, window: PygameWindow | None = None,
             rgba_dev = app.renderer.render_device(app.world)
             if present_divisor > 1:
                 rgba_dev = rgba_dev[::present_divisor, ::present_divisor]
+            app.renderer.stage_overflow()  # as Renderer.render
             frame = unpack_rgba8(rgba_dev)
             app.renderer.check_overflow()
             app.frame_index += 1

@@ -363,7 +363,10 @@ class TileShardedRenderer:
         self._inner.check_overflow()
 
     def render(self, world):
-        """The whole frame fetched to the host as (H, W, 4) uint8 rgba."""
-        frame = unpack_rgba8(self.render_device(world))
+        """The whole frame fetched to the host as (H, W, 4) uint8 rgba,
+        its counts copied before it (``Renderer.render``)."""
+        full = self.render_device(world)
+        self._inner.stage_overflow()
+        frame = unpack_rgba8(full)
         self.check_overflow()
         return frame

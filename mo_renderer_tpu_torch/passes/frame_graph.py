@@ -505,8 +505,16 @@ class Renderer(torch.nn.Module):
         while len(self._pending_overflow) > self._OVERFLOW_LAG:
             self._raise_if_overflow(self._pending_overflow.pop(0))
 
+    @staticmethod
+    def _counts(ovf) -> list:
+        """[G-buffer, shadow] of one pending entry: a (2,) tensor (one
+        read), or a pair of ints or 0-d tensors."""
+        if torch.is_tensor(ovf):
+            return ovf.tolist()
+        return [int(v) for v in ovf]
+
     def _raise_if_overflow(self, ovf) -> None:
-        g, s = (int(v) for v in ovf)  # host ints, or a (2,) tensor
+        g, s = self._counts(ovf)
         if g or s:
             raise RuntimeError(
                 f"rasterizer bin overflow: {g} G-buffer and {s} shadow "
@@ -515,12 +523,25 @@ class Renderer(torch.nn.Module):
                 f"{self._binned_cap}) and re-prepare."
             )
 
+    def stage_overflow(self) -> None:
+        """Non-blocking copies of the pending device counts into
+        page-locked host memory, in place of them in the pending list, on
+        the current stream.  Call it just before the frame's fetch
+        (``unpack_rgba8`` of a card's frame), whose one wait on that stream
+        covers these copies too; the drain after the fetch then reads host
+        integers.  Drain only after such a wait."""
+        pending = self._pending_overflow
+        for i, v in enumerate(pending):
+            if torch.is_tensor(v) and v.is_cuda:
+                host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                pending[i] = host.copy_(v, non_blocking=True)
+
     def drain_overflow(self) -> np.ndarray:
         """Every pending overflow count summed and emptied: (G-buffer,
         shadow) dropped pairs as a (2,) int64 host array."""
         total = np.zeros(2, np.int64)
         while self._pending_overflow:
-            total += [int(v) for v in self._pending_overflow.pop(0)]
+            total += self._counts(self._pending_overflow.pop(0))
         return total
 
     def check_overflow(self) -> None:
@@ -814,9 +835,14 @@ class Renderer(torch.nn.Module):
     forward = render_device
 
     def render(self, world) -> np.ndarray:
-        """One frame fetched to the host as (H, W, 4) uint8 rgba."""
+        """One frame fetched to the host as (H, W, 4) uint8 rgba.  On a
+        card the frame's dropped-pair counts are copied to the host
+        without blocking (``stage_overflow``) before the frame's own copy
+        (``unpack_rgba8``), whose one wait finishes both; the check after
+        it reads host integers and raises on this frame, as before."""
         packed = self.render_device(world)
         with trace.span("fetch"):
+            self.stage_overflow()
             frame = unpack_rgba8(packed)
         with trace.span("check_overflow"):
             self.check_overflow()

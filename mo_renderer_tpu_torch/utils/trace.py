@@ -15,8 +15,11 @@ Counters are always on.
 - ``kernels/mark.py``'s ``pass_span(name)`` is the span ``pass::<name>``
   of one pass of a captured program, with a marker kernel at each of its
   ends in a graph being captured.
-- ``count(name, n)`` adds to a plain dict of integers.  Its one counter
-  is ``prepares``, the full prepares of every renderer of the process.
+- ``count(name, n)`` adds to a plain dict of integers.  Its counters:
+  ``prepares``, the full prepares of every renderer of the process;
+  ``fetch_bytes``, the bytes of the frames ``passes/present.py``
+  ``unpack_rgba8`` fetched from a tensor; ``fetch_pinned``, those fetches
+  that came from a card through page-locked memory.
 - ``snapshot()`` returns the counters, the kernels' launch counts
   (``kernels/_build.py`` ``LAUNCHES``, as ``launches.<kernel>``) and a
   copy of the span log.  The log grows while the spans are on;
@@ -24,6 +27,8 @@ Counters are always on.
 
 The spans of a frame (``App.render_frame``): ``frame`` > ``runtime_systems``,
 ``render``; ``render`` > ``render_device``, ``fetch``, ``check_overflow``;
+on a card ``fetch`` > ``fetch_issue`` (the copy's issue), ``fetch_wait``
+(the one wait, for the frame and its copy);
 ``render_device`` > ``sync_topology`` (> ``repack``, ``prepare``),
 ``refresh_transforms``, ``frame_params``, ``shadow_memo`` (>
 ``shadow_replay``), ``graph_lookup`` (the key and the staging; > ``capture``

@@ -1130,3 +1130,127 @@ def test_gbuffer_ref_never_falls_back_on_the_card(cuda, monkeypatch):
     before = _build.LAUNCHES["gbuffer_ref"]
     r.render(world)
     assert _build.LAUNCHES["gbuffer_ref"] > before
+
+
+def _pinned_root(frame):
+    """The tensor a fetched frame's byte view keeps alive."""
+    import numpy as np
+
+    while isinstance(frame, np.ndarray):
+        frame = frame.base
+    return frame
+
+
+def _turn(world, cfg, angle):
+    from mo_renderer_tpu_torch import scenes
+    from mo_renderer_tpu_torch.scene.camera import Camera
+
+    cam, pose = world.resource(Camera), scenes.camera(cfg, angle)
+    cam.transform.translation = pose.transform.translation
+    cam.transform.rotation = pose.transform.rotation
+    cam.refresh_view()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["default", "reference", "megakernel"])
+def test_render_fetches_through_pinned_memory(cuda, path, monkeypatch):
+    """``Renderer.render`` on the card: its array equals the byte view of
+    ``render_device(...).cpu()`` bit for bit and views a pinned tensor; a
+    held frame survives 8 later frames; ``fetch_pinned`` counts one a
+    frame and ``fetch_bytes`` H*W*4; the counts reach ``check_overflow``
+    already in pinned host memory; ``fetch`` splits into ``fetch_issue``
+    and ``fetch_wait``; 50 dropped frames reuse a few host buffers."""
+    import numpy as np
+
+    import chip_smoke
+    from mo_renderer_tpu_torch import Renderer, scenes
+    from mo_renderer_tpu_torch.utils import trace
+
+    cfg = scenes.tiny_config(**chip_smoke.PATHS[path][0])
+    world = scenes.tiny_world()
+    world.insert_resource(scenes.camera(cfg))
+    r = Renderer(cfg, cuda)
+    r.prepare(world)
+    r.render(world)  # the captures
+    h, w = cfg.height, cfg.width
+
+    before = trace.snapshot()["counters"]
+    frame = r.render(world)
+    after = trace.snapshot()["counters"]
+    assert after["fetch_pinned"] - before.get("fetch_pinned", 0) == 1
+    assert after["fetch_bytes"] - before.get("fetch_bytes", 0) == h * w * 4
+    want = r.render_device(world).cpu().numpy()
+    r.check_overflow()
+    want = want.view(np.uint8).reshape(h, w, 4)
+    assert frame.shape == (h, w, 4) and frame.dtype == np.uint8
+    np.testing.assert_array_equal(frame, want)
+    root = _pinned_root(frame)
+    assert torch.is_tensor(root) and root.is_pinned()
+
+    held = frame.copy()
+    later = []
+    for k in range(1, 9):
+        _turn(world, cfg, 0.2 * k)
+        later.append(r.render(world))
+    np.testing.assert_array_equal(frame, held)
+    assert not np.array_equal(later[-1], held)  # the camera moved
+    assert all(not np.shares_memory(frame, f) for f in later)
+
+    seen = []
+    check = r.check_overflow
+
+    def spy():
+        seen.append([(v.device.type, v.is_pinned())
+                     for v in r._pending_overflow])
+        check()
+
+    monkeypatch.setattr(r, "check_overflow", spy)
+    _turn(world, cfg, 0.0)
+    r.render(world)
+    assert seen and seen[-1] and all(s == ("cpu", True) for s in seen[-1])
+    monkeypatch.undo()
+
+    n0 = len(trace.snapshot()["spans"])
+    trace.enable()
+    try:
+        r.render(world)
+    finally:
+        trace.disable()
+    spans = trace.snapshot()["spans"][n0:]
+    fetch = next(i for i, s in enumerate(spans) if s[0] == "fetch")
+    assert [s[0] for s in spans if s[1] == n0 + fetch] == [
+        "fetch_issue", "fetch_wait"]
+
+    ptrs = set()
+    for k in range(50):
+        _turn(world, cfg, 0.05 * k)
+        ptrs.add(_pinned_root(r.render(world)).data_ptr())
+    assert len(ptrs) <= 4, len(ptrs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["default", "reference", "megakernel"])
+def test_overflow_raises_on_its_frame_on_the_card(cuda, path):
+    """Under a pair capacity of 720 the tiny scene's 515 pairs fit; a
+    sphere spawned in view brings 943, and the frame after the spawn
+    raises with the drained counts in its message."""
+    import chip_smoke
+    from mo_renderer_tpu_torch import Renderer, scenes
+    from mo_renderer_tpu_torch.assets.procedural import procedural_model
+    from mo_renderer_tpu_torch.math.transform import Transform
+
+    cfg = scenes.tiny_config(binned_cap=720, shadow_enabled=False,
+                             **chip_smoke.PATHS[path][0])
+    world = scenes.tiny_world()
+    world.insert_resource(scenes.camera(cfg))
+    r = Renderer(cfg, cuda)
+    r.prepare(world)
+    for _ in range(2):
+        r.render(world)
+    world.spawn((Transform.from_xyz(0.6, 0.5, 0.6),
+                 procedural_model("sphere")))
+    with pytest.raises(RuntimeError, match=(
+            r"rasterizer bin overflow: 223 G-buffer and 0 shadow \(tile, "
+            r"triangle\) pairs dropped .* \(current 720\)")):
+        r.render(world)
+    assert r._pending_overflow == []
