@@ -661,6 +661,8 @@ class Renderer(torch.nn.Module):
             with trace.span("refresh_transforms"):
                 self.scene = refresh_transforms(self.scene)
             params, has_light = self.frame_params(world)
+            if not self._fast:
+                trace.count("reference_frames")
             quads = self._cached_shadow_quads(
                 params.host_field("light_proj_view"),
                 params["light_proj_view"], has_light,
@@ -724,6 +726,8 @@ class Renderer(torch.nn.Module):
         ``frames[i]``, and its counts added up on the device.  Elsewhere:
         a loop over ``frame_program``."""
         n = stack.vec.shape[0]
+        if not self._fast:
+            trace.count("reference_frames", n)
         if self.device.type != "cuda":
             frames, g, s = [], 0, 0
             for i in range(n):

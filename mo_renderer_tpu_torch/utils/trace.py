@@ -19,7 +19,10 @@ Counters are always on.
   ``prepares``, the full prepares of every renderer of the process;
   ``fetch_bytes``, the bytes of the frames ``passes/present.py``
   ``unpack_rgba8`` fetched from a tensor; ``fetch_pinned``, those fetches
-  that came from a card through page-locked memory.
+  that came from a card through page-locked memory; ``reference_frames``,
+  the frames rendered on the reference sampling path (``fast_sampling``
+  off, or a material that samples UV set 1), each frame of a sequence or
+  a views call one.
 - ``snapshot()`` returns the counters, the kernels' launch counts
   (``kernels/_build.py`` ``LAUNCHES``, as ``launches.<kernel>``) and a
   copy of the span log.  The log grows while the spans are on;

@@ -1,8 +1,9 @@
 """The port's tracer (``mo_renderer_tpu_torch/utils/trace.py``): spans off
 by default and recorded with their parents and frame ids when on, the
-topology layer's repack spans and full-prepare counter, the marker
-kernel's count against the pass list, ``profile_trace`` switching the tracer,
-and on a card the pass markers in the captured frame.
+topology layer's repack spans and full-prepare counter, the count of
+frames on the reference sampling path, the marker kernel's count against
+the pass list, ``profile_trace`` switching the tracer, and on a card the
+pass markers in the captured frame.
 
 CPU frames at 128x32 with one computed IBL for the module; no JAX.  The
 card's case (``cuda``) skips here and runs on one with
@@ -24,6 +25,9 @@ from mo_renderer_tpu_torch import App, Renderer, scenes, utils  # noqa: E402
 from mo_renderer_tpu_torch.assets.procedural import procedural_model  # noqa: E402
 from mo_renderer_tpu_torch.kernels import _build, mark  # noqa: E402
 from mo_renderer_tpu_torch.math.transform import Transform  # noqa: E402
+from mo_renderer_tpu_torch.passes.frame_graph import build_camera_params  # noqa: E402
+from mo_renderer_tpu_torch.scene.camera import Camera  # noqa: E402
+from mo_renderer_tpu_torch.scene.scene_buffers import find_shadow_light  # noqa: E402
 from mo_renderer_tpu_torch.scene.components import DirectionalLight  # noqa: E402
 from mo_renderer_tpu_torch.scene.world import World  # noqa: E402
 from mo_renderer_tpu_torch.utils import trace  # noqa: E402
@@ -170,6 +174,39 @@ def test_spawn_despawn_count_repacks_and_a_fallback_counts_a_prepare(
     chain = [spans[prep[1]][0], spans[spans[prep[1]][1]][0]]
     assert chain == ["sync_topology", "render_device"]
     assert _children(spans, spans.index(prep)) == ["pack_scene"]
+
+
+# (config overrides, a UV-set-1 material, frames counted per frame)
+REFERENCE_FRAMES = {
+    "fast_sampling_off": ({"fast_sampling": False}, False, 1),
+    "uv1_material": ({}, True, 1),
+    "fast_path": ({}, False, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFERENCE_FRAMES))
+def test_reference_frames_counts_the_reference_sampling_path(tracer, ibl,
+                                                             case):
+    """``reference_frames`` counts each frame rendered on the reference
+    sampling path, whichever way the scene came to it, a sequence's
+    frames one each, and nothing on the fast path; the counters stay on
+    with the spans off."""
+    overrides, uv1, per_frame = REFERENCE_FRAMES[case]
+    world = scenes.tiny_world(uv1=uv1)
+    world.insert_resource(ibl)
+    cfg = scenes.tiny_config(width=128, height=32, **overrides)
+    world.insert_resource(scenes.camera(cfg))
+    r = Renderer(cfg, "cpu")
+    r.prepare(world)
+    assert r._fast == (per_frame == 0)
+    r.render(world)
+    r.render_device(world)
+    light_pv, _ = find_shadow_light(world)
+    params = [build_camera_params(world.resource(Camera), light_pv, "cpu")
+              for _ in range(3)]
+    r.render_sequence_device(world, params)
+    assert trace.snapshot()["counters"].get("reference_frames", 0) == \
+        5 * per_frame
 
 
 def test_profile_trace_turns_the_tracer_on_and_off_again(tracer, tmp_path,
