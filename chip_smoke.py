@@ -278,21 +278,30 @@ N_BANDS = 4  # the bands phase 2 cuts the 1080p inputs into
 
 STACKS = {"attrs_plane_kernel": False, "stack_plane_kernel": True}
 
+# triangle setup and binning (csrc/raster_setup.cu), every path's first
+# kernels: their launch names; they replace no TPU kernel (the reference's
+# triangle_setup, raster_setup.py:122, and bin_triangles, :339, are XLA
+# ops)
+SETUP_KERNELS = ("tri_setup", "bin_count", "bin_scan", "bin_fill")
+SETUP_SOURCE = "mo_renderer_tpu_torch/csrc/raster_setup.cu"
+SETUP_REPLACES = ("none: triangle_setup, mo_renderer_tpu/kernels/"
+                  "raster_setup.py:122, and bin_triangles, :339 (XLA ops)")
+
 # the port's four paths: EngineConfig overrides, the kernels each runs,
 # and the scene variant (scenes.tiny_world keywords)
 PATHS = {
     "default": ({}, ("raster_slim", "raster_depth", "attr_planes",
-                     "gbuffer", "ssao", "shading", "interleave_present"),
-                {}),
+                     "gbuffer", "ssao", "shading", "interleave_present")
+                + SETUP_KERNELS, {}),
     "reference": ({"fast_sampling": False},
                   ("raster_full", "raster_depth", "gbuffer_ref", "ssao",
-                   "shading_ref"), {}),
+                   "shading_ref") + SETUP_KERNELS, {}),
     "megakernel": ({"raster_interp_attrs": True},
                    ("raster_attrs", "raster_depth", "gbuffer", "ssao",
-                    "shading"), {}),
+                    "shading") + SETUP_KERNELS, {}),
     "stacks": (STACKS, ("raster_slim", "raster_depth", "stack_planes",
-                        "gbuffer", "ssao", "shading", "interleave_present"),
-               {"all_slots": True}),
+                        "gbuffer", "ssao", "shading", "interleave_present")
+               + SETUP_KERNELS, {"all_slots": True}),
 }
 
 # the dense inputs of phase 2: the frames of scenes.grid_world that give
@@ -321,7 +330,8 @@ LIT_KERNELS = ("raster_slim", "raster_full", "raster_attrs", "attr_planes",
 # kernels it runs, and the scene of each of its phase-4 paths
 ROWS_OVERRIDES = {"ssao_res_divisor": 1}
 ROWS_KERNELS = ("raster_slim_band", "raster_depth_band", "attr_planes",
-                "gbuffer", "ssao_halo", "shading", "interleave_present")
+                "gbuffer", "ssao_halo", "shading",
+                "interleave_present") + SETUP_KERNELS
 ROWS_PATHS = {"rows": "tiny", "rows@grid": "grid", "rows@lit": "lit"}
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -476,6 +486,23 @@ def median_ms(fn, runs=20, sleep_cycles=50_000_000):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_split(fn, runs=20):
+    """{kernel: device ms a call} of ``fn`` under torch.profiler, over
+    ``runs`` calls after a warm one."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return {_kernel_label(row.key): row.self_device_time_total / runs / 1e3
+            for row in prof.key_averages()
+            if row.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def bound(n_bytes, n_flops):
@@ -2169,6 +2196,154 @@ def check_gbuffer_ref_options(cfg, device):
     return len(calls)
 
 
+def setup_binning_cases(device):
+    """The main path's tilings of ``scenes.grid_world(10)`` (51,802
+    triangles) from ``scenes.lit_camera`` (no sky pixel, as in the walk):
+    {name: (setup source, inputs, the setup's other arguments, bin
+    keywords)} -- the 1080p frame from the packed corners, the 2048^2
+    light view (shadow bias, no cull), the reference path's 1080p frame
+    from the vertex stage's clip and the indices, the 4K frame, a band of
+    the 1080p frame (the 9 of its 34 bin rows with the most pairs), and
+    the 1080p frame under a capacity below its pair count (static and
+    exact)."""
+    from mo_renderer_tpu_torch import Renderer, scenes
+    from mo_renderer_tpu_torch.config import EngineConfig
+    from mo_renderer_tpu_torch.kernels import raster_setup as RS
+    from mo_renderer_tpu_torch.kernels import rasterizer as R
+    from mo_renderer_tpu_torch.passes.vertex_stage import run_vertex_stage
+
+    cases = {}
+    for tag, w, h in (("1080p", 1920, 1080), ("4k", 3840, 2160)):
+        cfg = EngineConfig(width=w, height=h)
+        world = scenes.grid_world(10)
+        world.insert_resource(scenes.lit_camera(cfg))
+        r = Renderer(cfg, device)
+        r.prepare(world)
+        params, _ = r.frame_params(world)
+        sc = r.scene
+
+        def grid(pw, ph, cap=r._binned_cap, **kw):
+            return dict(tile_h=R.BIN_H, tile_w=R.BIN_W,
+                        n_tiles_x=-(-pw // R.BIN_W),
+                        n_tiles_y=-(-ph // R.BIN_H), binned_cap=cap, **kw)
+
+        attrs = (sc.tri_attrs, params["proj_view"])
+        # tri_valid, width, height, cull, depth bias (const, slope), w_eps
+        frame = (sc.tri_valid, r.pad_w, r.pad_h, True, 0.0, 0.0, 1e-6)
+        cases[f"frame@{tag}"] = (RS.SRC_ATTRS, attrs, frame,
+                                 grid(r.pad_w, r.pad_h))
+        if tag != "1080p":
+            continue
+        s = cfg.shadow_map_size
+        cases[f"shadow@{s}"] = (
+            RS.SRC_ATTRS, (sc.tri_attrs, params["light_proj_view"]),
+            (sc.tri_valid, s, s, False, cfg.shadow_depth_bias_const,
+             cfg.shadow_depth_bias_slope, 1e-6), grid(s, s))
+        vs = run_vertex_stage(sc, params["proj_view"],
+                              params["prev_proj_view"],
+                              params["light_proj_view"])
+        cases["reference@1080p"] = (RS.SRC_INDEXED, (vs.clip, sc.indices),
+                                    frame, grid(r.pad_w, r.pad_h))
+        setup = RS.triangle_setup_from_attrs(sc.tri_attrs, sc.tri_valid,
+                                             params["proj_view"], r.pad_w,
+                                             r.pad_h)
+        counts = RS.bin_triangles(
+            setup, **grid(r.pad_w, r.pad_h, cap=None)).tile_count
+        total = int(counts.sum())
+        rows = counts.reshape(-1, -(-r.pad_w // R.BIN_W)).sum(1).tolist()
+        row0 = max(range(len(rows) - 8), key=lambda y: sum(rows[y:y + 9]))
+        cases["band@1080p"] = (RS.SRC_ATTRS, attrs, frame,
+                               grid(r.pad_w, r.pad_h, band_row0=row0,
+                                    band_tile_rows=9))
+        cases["capped@1080p"] = (RS.SRC_ATTRS, attrs, frame,
+                                 grid(r.pad_w, r.pad_h, cap=total // 2))
+    return cases
+
+
+def _bins_equal(a, b):
+    """Two binnings list the same runs, boxes and dropped count."""
+    import torch
+
+    n = int(b.tile_count.sum())
+    return (torch.equal(a.bbox, b.bbox)
+            and torch.equal(a.tile_start, b.tile_start)
+            and torch.equal(a.tile_count, b.tile_count)
+            and a.pair_tri.shape == b.pair_tri.shape
+            and torch.equal(a.pair_tri[:n], b.pair_tri[:n])
+            and int(a.overflow) == int(b.overflow)
+            and torch.is_tensor(a.overflow) == torch.is_tensor(b.overflow))
+
+
+def check_setup_binning(device, timing=True):
+    """Phase 2: ``tri_setup_kernel`` and the three binning kernels against
+    their plain versions (the torch ops, run on the card) on
+    ``setup_binning_cases``: rows and boxes bit for bit, and the static
+    and exact binnings' boxes, runs and dropped counts.  With ``timing``,
+    each case's median device ms of the kernels (the static binning, what
+    a captured frame runs) and of the plain versions, and the byte bound
+    (inputs read once, outputs written once).  Returns {case: result}."""
+    import torch
+
+    from mo_renderer_tpu_torch.kernels import raster_setup as RS
+
+    results = {}
+    for name, (src, inputs, args, bins) in setup_binning_cases(
+            device).items():
+        k = RS._setup_cuda(src, inputs, *args)
+        p = RS._setup_plain(src, inputs, *args)
+        if not (torch.equal(k.tri_data.view(torch.int32),
+                            p.tri_data.view(torch.int32))
+                and torch.equal(k.bbox, p.bbox)):
+            raise AssertionError(f"tri_setup {name}: rows or boxes differ "
+                                 "from the plain version")
+        grid = (bins["tile_h"], bins["tile_w"], bins["n_tiles_x"],
+                bins["n_tiles_y"], bins["binned_cap"],
+                bins.get("band_row0"), bins.get("band_tile_rows"))
+        pairs = {}
+        for static in (True, False):
+            a = RS._bin_cuda(p, *grid, static)
+            b = RS._bin_plain(p, *grid, static)
+            if not _bins_equal(a, b):
+                raise AssertionError(
+                    f"binning {name} ({'static' if static else 'exact'}): "
+                    "boxes, runs or dropped count differ from the plain "
+                    "version")
+            pairs["static" if static else "exact"] = (
+                int(b.tile_count.sum()), int(b.overflow))
+        t = args[0].shape[0]
+        n_tiles = bins["n_tiles_x"] * bins["n_tiles_y"]
+        res = {"triangles": t, "tiles": n_tiles,
+               "pairs_listed": pairs["static"][0],
+               "dropped": pairs["static"][1],
+               "binned_cap": bins["binned_cap"], "bit_equal": True}
+        if timing:
+            in_bytes = {RS.SRC_ATTRS: 36, RS.SRC_INDEXED: 12 + 3 * 16,
+                        RS.SRC_CORNERS: 48}[src] + 1
+            setup_bytes = t * (in_bytes + 4 * RS.TRI_STRIDE + 16)
+            # rows' columns 0..5 and 15 and the boxes in, the boxes, the
+            # pairs and the run table out
+            bin_bytes = (t * (7 * 4 + 16 + 16) + 4 * res["pairs_listed"]
+                         + 8 * n_tiles)
+            res.update({
+                "tri_setup_ms": median_ms(
+                    lambda: RS._setup_cuda(src, inputs, *args)),
+                "tri_setup_plain_ms": median_ms(
+                    lambda: RS._setup_plain(src, inputs, *args)),
+                "binning_ms": median_ms(
+                    lambda: RS._bin_cuda(p, *grid, True)),
+                "binning_plain_ms": median_ms(
+                    lambda: RS._bin_plain(p, *grid, True)),
+                "binning_split_ms": device_split(
+                    lambda: RS._bin_cuda(p, *grid, True)),
+                "tri_setup_bound_ms": bound(setup_bytes, 0)[0],
+                "binning_bound_ms": bound(bin_bytes, 0)[0],
+                "library_ms": None,
+            })
+        results[name] = res
+        print(f"[2] setup+binning {name}: {json.dumps(res)}", flush=True)
+    return results
+
+
 def check_small_frames(device):
     """Phase 3: the 256x128 frames on the card vs on the CPU; the stack
     kernel launches on the card exactly where the config and the path
@@ -3280,7 +3455,8 @@ PROFILE_ATTEMPTS = 3
 HAND_KERNELS = ("raster_kernel", "raster_attrs_kernel", "attr_planes_kernel",
                 "ssao_kernel", "reconstruct_kernel", "stack_planes_kernel",
                 "shade_kernel", "gbuffer_kernel", "shade_ref_kernel",
-                "gbuffer_ref_kernel")
+                "gbuffer_ref_kernel", "tri_setup_kernel", "bin_count_kernel",
+                "bin_scan_kernel", "bin_fill_kernel")
 # the pass each hand kernel's device time is added to, by its name (each
 # launches from C inside that pass's range; the shadow's raster runs in the
 # raster pass)
@@ -3291,6 +3467,8 @@ PASS_HAND_KERNELS = {
     "SSAO (K4)": ("ssao_kernel",),
     "shading": ("shade_kernel", "shade_ref_kernel"),
     "present (K5)": ("reconstruct_kernel",),
+    "triangle setup": ("tri_setup_kernel",),
+    "binning": ("bin_count_kernel", "bin_scan_kernel", "bin_fill_kernel"),
 }
 
 
@@ -3912,6 +4090,7 @@ def main() -> int:
         EngineConfig(width=1920, height=1080), device)
     kernels["gbuffer_ref"]["option_sets"] = check_gbuffer_ref_options(
         EngineConfig(width=1920, height=1080), device)
+    setup_binning = check_setup_binning(device)
     check_small_frames(device)
     check_topology(device)
     check_window_loop(device)
@@ -3927,8 +4106,8 @@ def main() -> int:
         check_interactive(device, group)
         # kernel (or kernel@grid) -> {path: launches during that path's
         # run}, and {path: its launches in one replay of the frame graph}
-        launches = {name: {} for name in kernels}
-        replays = {name: {} for name in kernels}
+        launches = {name: {} for name in [*kernels, *SETUP_KERNELS]}
+        replays = {name: {} for name in [*kernels, *SETUP_KERNELS]}
         for path, n_frames in (("default", 16), ("reference", 8),
                                ("megakernel", 8), ("stacks", 8),
                                ("default@grid", 4), ("reference@grid", 4),
@@ -3949,6 +4128,8 @@ def main() -> int:
             else:
                 names = [(name, name) for name in set(kernels) & set(KERNELS)
                          if name in PATHS[path][1]]
+            # every path sets up and bins: one entry each, by path
+            names += [(name, name) for name in SETUP_KERNELS]
             for entry, name in names:
                 if entry in launches:
                     launches[entry][path] = counts[name]
@@ -3999,7 +4180,17 @@ def main() -> int:
             "replay_launches_by_path": replays[name], **result,
         }
         for name, result in kernels.items()
-    ], "sequence_profile_attempts": profiles}
+    ] + [
+        {
+            "name": name, "route": "cuda", "source": SETUP_SOURCE,
+            "replaces": SETUP_REPLACES,
+            "launches": sum(launches[name].values()),
+            "launches_by_path": launches[name],
+            "replay_launches_by_path": replays[name],
+        }
+        for name in SETUP_KERNELS
+    ], "setup_binning": setup_binning,
+        "sequence_profile_attempts": profiles}
     print(json.dumps(summary))
     print(line)
     print(json.dumps({"ok": True, "device": {

@@ -78,6 +78,10 @@ LAUNCHES: dict[str, int] = {
     "shading_ref": 0,
     "gbuffer_ref": 0,
     "mark": 0,
+    "tri_setup": 0,
+    "bin_count": 0,
+    "bin_scan": 0,
+    "bin_fill": 0,
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,5 @@
-"""Triangle setup and exact tile binning, in PyTorch ops.
+"""Triangle setup and exact tile binning: CUDA kernels for a card's
+tensors, PyTorch ops (the plain version) for the CPU's.
 
 Port of ``mo_renderer_tpu/kernels/raster_setup.py``:
 
@@ -28,6 +29,15 @@ Port of ``mo_renderer_tpu/kernels/raster_setup.py``:
   way, captured in a CUDA graph.  ``pair_capacity`` is the
   reference's static capacity (``Renderer.prepare``,
   frame_graph.py:481-511), built from its class caps.
+
+On a CUDA tensor every entry point launches the hand kernels of
+``csrc/raster_setup.cu`` instead (or raises; nothing falls back): one
+setup launch with the corners' source fused in, and binning as a stable
+counting sort by tile (a histogram of each chunk of triangles' pairs, a
+scan, a fill in draw order) that touches only the real pairs.  Rows,
+boxes, runs and dropped counts equal the plain version's bit for bit;
+the slots of a static capacity past the runs, which no reader reads,
+are zeros in the plain version and left unwritten by the kernels.
 """
 
 from __future__ import annotations
@@ -35,6 +45,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from . import _build
 
 # tri_data column layout (16 f32 per triangle), as in the reference
 COL_A0, COL_A1, COL_A2 = 0, 1, 2
@@ -141,15 +153,8 @@ def triangle_setup(
 ) -> TriangleSetup:
     """Setup from per-VERTEX clip positions (V, 4) and indices (T, 3)
     (raster_setup.py:122); triangles with any w <= w_eps are culled."""
-    idx = indices.to(torch.int64)
-    return setup_from_corners(
-        clip[idx[:, 0]], clip[idx[:, 1]], clip[idx[:, 2]], tri_valid,
-        width, height,
-        cull_backface=cull_backface,
-        depth_bias_const=depth_bias_const,
-        depth_bias_slope=depth_bias_slope,
-        w_eps=w_eps,
-    )
+    return _setup(SRC_INDEXED, (clip, indices), tri_valid, width, height,
+                  cull_backface, depth_bias_const, depth_bias_slope, w_eps)
 
 
 def triangle_setup_from_attrs(
@@ -158,19 +163,9 @@ def triangle_setup_from_attrs(
 ) -> TriangleSetup:
     """Setup straight from the packed per-triangle world corners
     (columns 0..8 of ``tri_attrs``): clip = [wp, 1] @ PV^T per corner."""
-    def clip_of(k):
-        wp = tri_attrs[:, 3 * k : 3 * k + 3]
-        return project(
-            torch.cat([wp, torch.ones_like(wp[:, :1])], dim=-1), proj_view
-        )
-
-    return setup_from_corners(
-        clip_of(0), clip_of(1), clip_of(2), tri_valid, width, height,
-        cull_backface=cull_backface,
-        depth_bias_const=depth_bias_const,
-        depth_bias_slope=depth_bias_slope,
-        w_eps=w_eps,
-    )
+    return _setup(SRC_ATTRS, (tri_attrs, proj_view), tri_valid, width,
+                  height, cull_backface, depth_bias_const, depth_bias_slope,
+                  w_eps)
 
 
 def setup_from_corners(
@@ -179,6 +174,49 @@ def setup_from_corners(
     w_eps=1e-6,
 ) -> TriangleSetup:
     """Core setup math over per-triangle clip corners (T, 4) x 3."""
+    return _setup(SRC_CORNERS, (v0, v1, v2), tri_valid, width, height,
+                  cull_backface, depth_bias_const, depth_bias_slope, w_eps)
+
+
+# the corners' source of a setup: (v0, v1, v2) (T, 4) each; (clip (V, 4),
+# indices (T, 3)); (tri_attrs (T, C >= 9), proj_view (4, 4))
+SRC_CORNERS, SRC_INDEXED, SRC_ATTRS = 0, 1, 2
+
+
+def _setup(src, inputs, *args) -> TriangleSetup:
+    """The CUDA kernel for a card's tensors, the plain version for the
+    CPU's."""
+    fn = _setup_cuda if inputs[0].is_cuda else _setup_plain
+    return fn(src, inputs, *args)
+
+
+def _setup_plain(src, inputs, tri_valid, width, height, cull_backface,
+                 depth_bias_const, depth_bias_slope, w_eps) -> TriangleSetup:
+    """The setup in torch ops, on any device: the corners from ``src``'s
+    inputs, then ``_corners_plain``."""
+    if src == SRC_INDEXED:
+        clip, indices = inputs
+        idx = indices.to(torch.int64)
+        corners = clip[idx[:, 0]], clip[idx[:, 1]], clip[idx[:, 2]]
+    elif src == SRC_ATTRS:
+        tri_attrs, proj_view = inputs
+
+        def clip_of(k):
+            wp = tri_attrs[:, 3 * k : 3 * k + 3]
+            return project(
+                torch.cat([wp, torch.ones_like(wp[:, :1])], dim=-1),
+                proj_view,
+            )
+
+        corners = clip_of(0), clip_of(1), clip_of(2)
+    else:
+        corners = inputs
+    return _corners_plain(*corners, tri_valid, width, height, cull_backface,
+                          depth_bias_const, depth_bias_slope, w_eps)
+
+
+def _corners_plain(v0, v1, v2, tri_valid, width, height, cull_backface,
+                   depth_bias_const, depth_bias_slope, w_eps):
     w0, w1, w2 = v0[:, 3], v1[:, 3], v2[:, 3]
     w_ok = (w0 > w_eps) & (w1 > w_eps) & (w2 > w_eps)
 
@@ -347,6 +385,16 @@ def bin_triangles(
     the band), so a band raster reads the same runs it would read from
     the whole frame's bins; ``overflow`` counts the band's pairs past
     ``binned_cap`` (with ``static``, the band fills that many slots)."""
+    if static and binned_cap is None:
+        raise ValueError("bin_triangles(static=True) needs binned_cap")
+    fn = _bin_cuda if setup.tri_data.is_cuda else _bin_plain
+    return fn(setup, tile_h, tile_w, n_tiles_x, n_tiles_y, binned_cap,
+              band_row0, band_tile_rows, static)
+
+
+def _bin_plain(setup, tile_h, tile_w, n_tiles_x, n_tiles_y, binned_cap,
+               band_row0, band_tile_rows, static) -> BinnedTriangles:
+    """The binning in torch ops, on any device (``bin_triangles``)."""
     tri_data, bbox = setup.tri_data, setup.bbox
     dev = tri_data.device
     t = tri_data.shape[0]
@@ -375,8 +423,6 @@ def bin_triangles(
     bbox = torch.where(huge[:, None], tiles_box, bbox)
     stride = max(t, 1)
     if static:
-        if binned_cap is None:
-            raise ValueError("bin_triangles(static=True) needs binned_cap")
         key, overflow = _pair_keys_static(pairs, span_x, ly0, tx0,
                                           n_tiles_x, n_tiles, binned_cap)
     else:
@@ -402,3 +448,145 @@ def bin_triangles(
         n_tiles_y=n_tiles_y,
         overflow=overflow,
     )
+
+
+# --- the CUDA kernels (csrc/raster_setup.cu) ---------------------------------
+
+# a binning block's tile tables live in shared memory: 12 bytes a tile
+MAX_CUDA_TILES = 16 * 1024
+
+
+def _setup_cuda(src, inputs, tri_valid, width, height, cull_backface,
+                depth_bias_const, depth_bias_slope, w_eps) -> TriangleSetup:
+    """``tri_setup_kernel``: one launch from the corners ``inputs``, as
+    ``src`` says."""
+    inputs = [x.contiguous() for x in inputs]
+    if src == SRC_INDEXED and inputs[1].dtype != torch.int32:
+        inputs[1] = inputs[1].to(torch.int32)
+    valid = tri_valid.contiguous()
+    f32, i32 = torch.float32, torch.int32
+    dtypes = {SRC_CORNERS: (f32, f32, f32), SRC_INDEXED: (f32, i32),
+              SRC_ATTRS: (f32, f32)}[src]
+    _build.require_cuda("tri_setup", *inputs, valid,
+                        dtypes=dtypes + (torch.bool,))
+    t = valid.shape[0]
+    if src == SRC_CORNERS:
+        shapes_ok = all(x.shape == (t, 4) for x in inputs)
+    elif src == SRC_INDEXED:
+        shapes_ok = (inputs[0].dim() == 2 and inputs[0].shape[1] == 4
+                     and inputs[1].shape == (t, 3))
+    else:
+        shapes_ok = (inputs[0].dim() == 2 and inputs[0].shape[0] == t
+                     and inputs[0].shape[1] >= 9
+                     and inputs[1].shape == (4, 4))
+    if not shapes_ok or valid.shape != (t,):
+        raise ValueError(
+            f"tri_setup: inputs {[tuple(x.shape) for x in inputs]} do not "
+            f"fit {t} triangles")
+    tri_data = torch.empty((t, TRI_STRIDE), dtype=f32, device=valid.device)
+    bbox = torch.empty((t, 4), dtype=i32, device=valid.device)
+    if t == 0:
+        return TriangleSetup(tri_data=tri_data, bbox=bbox)
+    ptrs = [x.data_ptr() for x in inputs] + [None] * (3 - len(inputs))
+    idx = None
+    if src == SRC_INDEXED:
+        ptrs[1], idx = None, ptrs[1]
+    fn = _build.function(
+        "mo_tri_setup",
+        [_build.I] + [_build.P] * 7 + [_build.I] * 2 + [_build.F]
+        + [_build.I] * 4 + [_build.F] * 2 + [_build.P],
+    )
+    bias = depth_bias_const != 0.0 or depth_bias_slope != 0.0
+    err = fn(
+        src, ptrs[0], ptrs[1], ptrs[2], idx, valid.data_ptr(),
+        tri_data.data_ptr(), bbox.data_ptr(), t,
+        inputs[0].shape[1] if src == SRC_ATTRS else 0, w_eps, width, height,
+        int(cull_backface), int(bias), depth_bias_const * (2.0**-23),
+        depth_bias_slope, _build.stream_of(tri_data),
+    )
+    _build.check("tri_setup", err)
+    _build.count("tri_setup")
+    return TriangleSetup(tri_data=tri_data, bbox=bbox)
+
+
+def _bin_cuda(setup, tile_h, tile_w, n_tiles_x, n_tiles_y, binned_cap,
+              band_row0, band_tile_rows, static) -> BinnedTriangles:
+    """``bin_count_kernel`` + ``bin_scan_kernel``, then (after one host
+    read of the pair count unless ``static``) ``bin_fill_kernel``."""
+    tri_data, bbox = setup.tri_data.contiguous(), setup.bbox.contiguous()
+    _build.require_cuda("binning", tri_data, bbox,
+                        dtypes=(torch.float32, torch.int32))
+    t = tri_data.shape[0]
+    n_tiles = n_tiles_x * n_tiles_y
+    if (tri_data.dim() != 2 or tri_data.shape[1] < TRI_STRIDE
+            or bbox.shape != (t, 4)):
+        raise ValueError(f"binning: rows {tuple(tri_data.shape)} and boxes "
+                         f"{tuple(bbox.shape)}")
+    if not 0 < n_tiles <= MAX_CUDA_TILES:
+        raise ValueError(f"binning: {n_tiles} tiles; the kernels take 1 to "
+                         f"{MAX_CUDA_TILES}")
+    if t * n_tiles > _build.INT32_MAX:
+        raise ValueError(f"binning: {t} triangles over {n_tiles} tiles "
+                         "overflow its 32-bit pair counts")
+    dev = tri_data.device
+    i32 = torch.int32
+    tile_start = torch.empty(n_tiles, dtype=i32, device=dev)
+    tile_count = torch.empty(n_tiles, dtype=i32, device=dev)
+
+    def binned(pair_tri, box, overflow):
+        return BinnedTriangles(
+            tri_data=tri_data, bbox=box, pair_tri=pair_tri,
+            tile_start=tile_start, tile_count=tile_count, tile_h=tile_h,
+            tile_w=tile_w, n_tiles_x=n_tiles_x, n_tiles_y=n_tiles_y,
+            overflow=overflow)
+
+    if t == 0:
+        tile_start.zero_()
+        tile_count.zero_()
+        if static:
+            return binned(torch.zeros(binned_cap, dtype=i32, device=dev),
+                          bbox, torch.zeros((), dtype=torch.int64,
+                                            device=dev))
+        return binned(torch.zeros(0, dtype=i32, device=dev), bbox, 0)
+
+    n_ws = _build.function("mo_bin_workspace_ints",
+                           [_build.I, _build.I])(t, n_tiles)
+    if n_ws < 0:
+        raise ValueError(f"binning: {t} triangles over {n_tiles} tiles need "
+                         "too large a workspace")
+    ws = torch.empty(n_ws, dtype=i32, device=dev)
+    totals = torch.empty(2, dtype=torch.int64, device=dev)
+    box = torch.empty_like(bbox)
+    stream = _build.stream_of(ws)
+    band = band_tile_rows is not None
+    prepare = _build.function(
+        "mo_bin_prepare",
+        [_build.P, _build.I, _build.P] + [_build.I] * 9
+        + [_build.P] * 4,
+    )
+    err = prepare(
+        tri_data.data_ptr(), tri_data.shape[1], bbox.data_ptr(), t, tile_h,
+        tile_w, n_tiles_x, n_tiles, int(band), band_row0 if band else 0,
+        band_tile_rows if band else 0, binned_cap if static else -1,
+        ws.data_ptr(), totals.data_ptr(), box.data_ptr(), stream,
+    )
+    _build.check("binning", err)
+    _build.count("bin_count")
+    _build.count("bin_scan")
+    if static:
+        cap_len, overflow = binned_cap, totals[1]
+    else:
+        total = int(totals[0])  # the pass's host sync
+        cap_len = total if binned_cap is None else min(total, binned_cap)
+        overflow = total - cap_len
+    pair_tri = torch.empty(cap_len, dtype=i32, device=dev)
+    fill = _build.function(
+        "mo_bin_fill", [_build.I] * 6 + [_build.P] * 5)
+    err = fill(
+        t, n_tiles_x, n_tiles, int(static), binned_cap if static else 0,
+        cap_len, ws.data_ptr(), pair_tri.data_ptr(), tile_start.data_ptr(),
+        tile_count.data_ptr(), stream,
+    )
+    _build.check("bin_fill", err)
+    _build.count("bin_fill")
+    return binned(pair_tri, box, overflow)

@@ -1254,3 +1254,84 @@ def test_overflow_raises_on_its_frame_on_the_card(cuda, path):
             r"triangle\) pairs dropped .* \(current 720\)")):
         r.render(world)
     assert r._pending_overflow == []
+
+
+_SETUP_CASES = {}
+
+
+def _setup_binning(case):
+    """chip_smoke.check_setup_binning on one case, untimed; the cases'
+    scenes are built once for the module."""
+    import chip_smoke
+
+    if not _SETUP_CASES:
+        _SETUP_CASES.update(chip_smoke.check_setup_binning(
+            "cuda", timing=False))
+    return _SETUP_CASES[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["frame@1080p", "shadow@2048",
+                                  "reference@1080p", "frame@4k",
+                                  "band@1080p", "capped@1080p"])
+def test_setup_binning_kernels_match_plain(cuda, case):
+    """tri_setup_kernel and the binning kernels against the torch ops on
+    the card, bit for bit (rows, boxes, runs, dropped counts, static and
+    exact), on scenes.grid_world(10): the 1080p frame from the packed
+    corners, the 2048^2 light view (shadow bias, no cull), the reference
+    path's clip through the indices, the 4K frame, a band, and a
+    capacity below the pair count."""
+    res = _setup_binning(case)
+    assert res["bit_equal"] and res["pairs_listed"] > 0
+    assert (res["dropped"] > 0) == (case == "capped@1080p")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,static", [
+    (case, static) for case in ("below_cap", "past_cap", "band")
+    for static in (False, True)])
+def test_binning_contract_on_the_card(cuda, case, static):
+    """tests/test_torch_binning_contract.py's checks on the kernels."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "test_torch_binning_contract.py")
+    spec = importlib.util.spec_from_file_location("binning_contract", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.check_contract(case, static, cuda)
+
+
+@pytest.mark.cuda
+def test_replayed_walk_frame_bins_through_the_kernels(cuda):
+    """A replayed 1080p frame of scenes.grid_world(10) (the shadow
+    memoized): one launch of each setup and binning kernel a tiling in
+    the frame's graph and in the shadow's, one more of each a replay,
+    and no radix sort on the device."""
+    from mo_renderer_tpu_torch import Renderer, scenes
+    from mo_renderer_tpu_torch.config import EngineConfig
+    from mo_renderer_tpu_torch.kernels import _build
+
+    names = ("tri_setup", "bin_count", "bin_scan", "bin_fill")
+    cfg = EngineConfig(width=1920, height=1080)
+    world = scenes.grid_world(10)
+    world.insert_resource(scenes.grid_camera(cfg))
+    r = Renderer(cfg, cuda)
+    r.prepare(world)
+    for _ in range(2):
+        r.render_device(world)
+    for graph in (r._graph, r._shadow_graph):
+        assert {k: graph.launches.get(k) for k in names} == dict.fromkeys(
+            names, 1)
+    before = dict(_build.LAUNCHES)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        r.render_device(world)
+        torch.cuda.synchronize()
+    assert {k: _build.LAUNCHES[k] - before[k] for k in names} == (
+        dict.fromkeys(names, 1))
+    ran = [row.key for row in prof.key_averages()
+           if row.device_type == torch.autograd.DeviceType.CUDA]
+    assert not [k for k in ran if "RadixSort" in k], ran
+    assert any("bin_fill_kernel" in k for k in ran), ran
