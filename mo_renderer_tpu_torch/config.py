@@ -74,8 +74,10 @@ class EngineConfig:
     tile_w: int = 128
     raster_sub_y: int | None = None
     raster_sub_x: int = 1
-    # Capacity of the (tile, triangle) pair table.  None: the port bins
-    # every pair exactly; a number caps it, and dropped pairs raise.
+    # Capacity of the (tile, triangle) pair table, the slots every binning
+    # fills; pairs past it are dropped and raise.  None: the reference's
+    # pair_capacity over the larger of the frame's and the shadow map's
+    # tilings.
     binned_cap: int | None = None
 
     # Scene capacities.

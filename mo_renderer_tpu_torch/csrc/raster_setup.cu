@@ -32,10 +32,9 @@
 //                     by a binary search of the prefix), so a triangle
 //                     over many tiles costs no more than many triangles.
 //   bin_scan_kernel   32 tiles a block: every chunk's offset inside each
-//                     tile's run, and the tiles' totals.  Static binning
-//                     past its capacity keeps the first triangles' pairs:
-//                     the chunk the capacity cuts is counted up to the
-//                     cut.
+//                     tile's run, and the tiles' totals.  Past the
+//                     capacity the first triangles' pairs are kept: the
+//                     chunk the capacity cuts is counted up to the cut.
 //   bin_fill_kernel   a block a chunk: the tiles' starts (a scan of the
 //                     totals), then the block walks the chunk's pairs in
 //                     slot order, 256 at a time: equal tiles ranked by
@@ -46,7 +45,7 @@
 //                     order through the offsets, the slots of a chunk in
 //                     order through the walk, so a triangle over
 //                     thousands of tiles takes a few steps.
-// Only real pairs are written; the padding of a static capacity is not
+// Only real pairs are written; the capacity's slots past them are not
 // touched.  Pair counts are 32-bit (the wrapper checks triangles x tiles).
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -206,7 +205,7 @@ struct BinArgs {
   int tile_h, tile_w, n_tiles_x, n_tiles;
   int band, band_row0, band_rows;
   int n_chunks;
-  int cap;  // static: binned_cap; exact: INT_MAX (no cut by slot)
+  int cap;  // binned_cap: the slots kept
   // workspace
   int4* rect;    // (T,) tx0, listed row0, span_x, pairs
   int* lstart;   // (T,) exclusive pair prefix within the chunk
@@ -214,7 +213,7 @@ struct BinArgs {
   int* cstart;   // (n_chunks,) the chunk's first slot in triangle order
   int* hist;     // (n_chunks, n_tiles): counts, then offsets in the runs
   int* ttotal;   // (n_tiles,) pairs a tile (kept)
-  long long* totals;  // (2,) all pairs; pairs dropped by a static cap
+  long long* totals;  // (2,) all pairs; pairs dropped by the cap
   int4* bbox_out;
 };
 
@@ -226,8 +225,7 @@ struct FillArgs {
   const int* offs;
   const int* ttotal;
   int t, n_tiles_x, n_tiles, n_chunks;
-  int is_static, cap;  // static: the slots kept
-  int cap_len;         // pair_tri's length: a pair at or past it drops
+  int cap;  // binned_cap, pair_tri's length: a pair at or past it drops
   int* pair_tri;
   int* tile_start;
   int* tile_count;
@@ -458,8 +456,7 @@ __global__ void __launch_bounds__(kChunk) bin_fill_kernel(FillArgs a) {
   __shared__ int ws[32];
   const int c = blockIdx.x, i = threadIdx.x;
   const int pairs = a.ctotal[c];
-  const int m = a.is_static ? min(max(a.cap - a.cstart[c], 0), pairs)
-                            : pairs;
+  const int m = min(max(a.cap - a.cstart[c], 0), pairs);
   if (m == 0 && c != 0) return;  // the whole block
   for (int k = i; k < a.n_tiles; k += kChunk) {
     base[k] = a.ttotal[k];
@@ -469,9 +466,9 @@ __global__ void __launch_bounds__(kChunk) bin_fill_kernel(FillArgs a) {
   block_scan(base, a.n_tiles, ws);
   if (c == 0) {
     for (int k = i; k < a.n_tiles; k += kChunk) {
-      const int s0 = min(base[k], a.cap_len);
+      const int s0 = min(base[k], a.cap);
       a.tile_start[k] = s0;
-      a.tile_count[k] = min(base[k] + a.ttotal[k], a.cap_len) - s0;
+      a.tile_count[k] = min(base[k] + a.ttotal[k], a.cap) - s0;
     }
   }
   if (m == 0) return;  // the whole block
@@ -517,7 +514,7 @@ __global__ void __launch_bounds__(kChunk) bin_fill_kernel(FillArgs a) {
       base[k] += all;
       step[k] = 0;
     }
-    if (k >= 0 && pos < a.cap_len) a.pair_tri[pos] = c * kChunk + j;
+    if (k >= 0 && pos < a.cap) a.pair_tri[pos] = c * kChunk + j;
     __syncthreads();
   }
 }
@@ -580,14 +577,14 @@ extern "C" int mo_tri_setup(int src, const void* p0, const void* p1,
 
 // The counts and offsets of a binning (bin_count_kernel, bin_scan_kernel);
 // ws: the int32 workspace, laid out as mo_bin_workspace_ints says.
-// totals (2,) int64: all pairs, and the pairs a static cap drops.
+// totals (2,) int64: all pairs, and the pairs the cap drops.
 extern "C" int mo_bin_prepare(const void* tri_data, int stride,
                               const void* bbox, int t, int tile_h,
                               int tile_w, int n_tiles_x, int n_tiles,
                               int band, int band_row0, int band_rows,
                               int cap, void* ws, void* totals,
                               void* bbox_out, void* stream) {
-  if (t <= 0 || n_tiles <= 0) return (int)cudaErrorInvalidValue;
+  if (t <= 0 || n_tiles <= 0 || cap < 0) return (int)cudaErrorInvalidValue;
   BinArgs a;
   a.tri_data = (const float*)tri_data;
   a.bbox = (const int4*)bbox;
@@ -601,7 +598,7 @@ extern "C" int mo_bin_prepare(const void* tri_data, int stride,
   a.band_row0 = band_row0;
   a.band_rows = band_rows;
   a.n_chunks = (t + kChunk - 1) / kChunk;
-  a.cap = cap < 0 ? INT_MAX : cap;
+  a.cap = cap;
   int* w = (int*)ws;
   a.rect = (int4*)w;
   w += 4 * (size_t)t;
@@ -629,13 +626,12 @@ extern "C" int mo_bin_prepare(const void* tri_data, int stride,
   return (int)cudaGetLastError();
 }
 
-// The runs: pair_tri (cap_len,) int32, tile_start / tile_count
-// (n_tiles,) int32, from mo_bin_prepare's workspace.
-extern "C" int mo_bin_fill(int t, int n_tiles_x, int n_tiles, int is_static,
-                           int cap, int cap_len, const void* ws,
-                           void* pair_tri, void* tile_start,
+// The runs: pair_tri (cap,) int32, tile_start / tile_count (n_tiles,)
+// int32, from mo_bin_prepare's workspace.
+extern "C" int mo_bin_fill(int t, int n_tiles_x, int n_tiles, int cap,
+                           const void* ws, void* pair_tri, void* tile_start,
                            void* tile_count, void* stream) {
-  if (t <= 0 || n_tiles <= 0) return (int)cudaErrorInvalidValue;
+  if (t <= 0 || n_tiles <= 0 || cap < 0) return (int)cudaErrorInvalidValue;
   FillArgs a;
   const int n_chunks = (t + kChunk - 1) / kChunk;
   const int* w = (const int*)ws;
@@ -654,9 +650,7 @@ extern "C" int mo_bin_fill(int t, int n_tiles_x, int n_tiles, int is_static,
   a.n_tiles_x = n_tiles_x;
   a.n_tiles = n_tiles;
   a.n_chunks = n_chunks;
-  a.is_static = is_static;
   a.cap = cap;
-  a.cap_len = cap_len;
   a.pair_tri = (int*)pair_tri;
   a.tile_start = (int*)tile_start;
   a.tile_count = (int*)tile_count;

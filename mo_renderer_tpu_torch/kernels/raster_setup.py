@@ -1,5 +1,5 @@
-"""Triangle setup and exact tile binning: CUDA kernels for a card's
-tensors, PyTorch ops (the plain version) for the CPU's.
+"""Triangle setup and tile binning: CUDA kernels for a card's tensors,
+PyTorch ops (the plain version) for the CPU's.
 
 Port of ``mo_renderer_tpu/kernels/raster_setup.py``:
 
@@ -10,23 +10,16 @@ Port of ``mo_renderer_tpu/kernels/raster_setup.py``:
   pixel centres at +0.5, top-left fill rule, front face = negative signed
   area in y-down screen space, LessOrEqual depth with later-draw-wins.
 
-- ``bin_triangles`` lists every (tile, triangle) pair EXACTLY instead of
-  through the reference's static class caps (those exist because a TPU
-  program needs static shapes under ``jit``): per-triangle pair counts,
-  an exclusive ``cumsum``, ``repeat_interleave``, then one sort of the key
-  ``tile * T + tri``.  The sort puts each tile's run in draw order, which
-  the rasterizer's later-wins tie rule needs.  The pair count is read on
-  the host once per call (the one host sync of a raster pass).  The pairs
-  past ``binned_cap`` are dropped and counted in ``overflow``, as the
-  reference does.  The single-device frame on the CPU bins this way.
-
-- ``bin_triangles(static=True)`` gives the same runs without reading
-  anything on the host, so a CUDA graph can capture it: the pairs are
-  enumerated into exactly ``binned_cap`` slots (slot -> triangle by
-  ``searchsorted`` over the inclusive ``cumsum`` of the pair counts), the
-  slots past the true total get a key after the last tile, and
-  ``overflow`` stays a device tensor.  Every frame on a card bins this
-  way, captured in a CUDA graph.  ``pair_capacity`` is the
+- ``bin_triangles`` lists every (tile, triangle) pair into exactly
+  ``binned_cap`` slots, a static capacity as in the reference (whose
+  ``jit`` needs static shapes), with nothing read on the host, so a CUDA
+  graph can capture it: the pairs are enumerated in draw order (slot ->
+  triangle by ``searchsorted`` over the inclusive ``cumsum`` of the pair
+  counts), then one sort of the key ``tile * T + tri`` puts each tile's
+  run in draw order, which the rasterizer's later-wins tie rule needs;
+  the slots past the true total get a key after the last tile.  The
+  pairs past ``binned_cap`` (the last triangles') are dropped and counted
+  in ``overflow``, a 0-d device tensor.  ``pair_capacity`` is the
   reference's static capacity (``Renderer.prepare``,
   frame_graph.py:481-511), built from its class caps.
 
@@ -36,8 +29,8 @@ setup launch with the corners' source fused in, and binning as a stable
 counting sort by tile (a histogram of each chunk of triangles' pairs, a
 scan, a fill in draw order) that touches only the real pairs.  Rows,
 boxes, runs and dropped counts equal the plain version's bit for bit;
-the slots of a static capacity past the runs, which no reader reads,
-are zeros in the plain version and left unwritten by the kernels.
+the slots past the runs, which no reader reads, are zeros in the plain
+version and left unwritten by the kernels.
 """
 
 from __future__ import annotations
@@ -124,16 +117,14 @@ class BinnedTriangles:
 
     tri_data: torch.Tensor  # (T, 16) f32
     bbox: torch.Tensor  # (T, 4) int32
-    pair_tri: torch.Tensor  # (P,) int32; P = binned_cap when static
+    pair_tri: torch.Tensor  # (binned_cap,) int32
     tile_start: torch.Tensor  # (n_tiles,) int32
     tile_count: torch.Tensor  # (n_tiles,) int32
     tile_h: int
     tile_w: int
     n_tiles_x: int
     n_tiles_y: int
-    # pairs dropped by binned_cap (0 = none): an int, or a 0-d int64
-    # device tensor from static binning
-    overflow: int | torch.Tensor
+    overflow: torch.Tensor  # 0-d int64: pairs dropped by binned_cap
 
 
 def project(points, m):
@@ -304,43 +295,13 @@ def _corners_plain(v0, v1, v2, tri_valid, width, height, cull_backface,
     return TriangleSetup(tri_data=tri_data, bbox=bbox)
 
 
-def _pair_key(slot, first, tri_rep, span_x, ly0, tx0, n_tiles_x, stride):
-    """tile * stride + triangle of each pair ``slot`` of triangle
-    ``tri_rep`` (``first``: each triangle's first slot)."""
-    local = slot - first[tri_rep]
-    sx = span_x[tri_rep]
-    dy = torch.div(local, sx, rounding_mode="floor")
-    dx = local - dy * sx
-    tile = (ly0[tri_rep] + dy) * n_tiles_x + tx0[tri_rep] + dx
-    return tile * stride + tri_rep
-
-
-def _pair_keys_exact(pairs, span_x, ly0, tx0, n_tiles_x, binned_cap):
-    """Sorted keys of every pair, cut at ``binned_cap`` (the lowest tiles
-    kept), and the host int count dropped.  One host sync reads the
-    total."""
-    t = pairs.shape[0]
-    dev = pairs.device
-    total = int(pairs.sum())  # the pass's host sync
-    tri_rep = torch.repeat_interleave(
-        torch.arange(t, device=dev), pairs, output_size=total
-    )
-    first = torch.cumsum(pairs, 0) - pairs
-    slot = torch.arange(total, device=dev)
-    key, _ = torch.sort(_pair_key(slot, first, tri_rep, span_x, ly0, tx0,
-                                  n_tiles_x, max(t, 1)))
-    if binned_cap is None or total <= binned_cap:
-        return key, 0
-    return key[:binned_cap], total - binned_cap
-
-
-def _pair_keys_static(pairs, span_x, ly0, tx0, n_tiles_x, n_tiles,
-                      binned_cap):
-    """Sorted keys of exactly ``binned_cap`` slots, with no host read:
-    slot -> the triangle whose pairs hold it by ``searchsorted`` over the
-    inclusive ``cumsum``; the slots past the total sort after the last
-    tile, so no run reaches them.  The count dropped is a device
-    tensor."""
+def _pair_keys(pairs, span_x, ly0, tx0, n_tiles_x, n_tiles, binned_cap):
+    """Sorted keys ``tile * T + triangle`` of exactly ``binned_cap``
+    slots, with no host read: slot -> the triangle whose pairs hold it by
+    ``searchsorted`` over the inclusive ``cumsum``, then its tile from
+    the slot's place among that triangle's tiles (row-major); the slots
+    past the total sort after the last tile, so no run reaches them.  The
+    count dropped is a 0-d device tensor."""
     t = pairs.shape[0]
     stride = max(t, 1)
     incl = torch.cumsum(pairs, 0)
@@ -349,9 +310,12 @@ def _pair_keys_static(pairs, span_x, ly0, tx0, n_tiles_x, n_tiles,
     tri_rep = torch.searchsorted(incl, slot, right=True)
     listed_slot = tri_rep < t  # t past the last pair
     tri_rep = torch.clamp(tri_rep, max=max(t - 1, 0))
-    key = _pair_key(slot, first, tri_rep, span_x, ly0, tx0, n_tiles_x,
-                    stride)
-    key, _ = torch.sort(torch.where(listed_slot, key, n_tiles * stride))
+    local = slot - first[tri_rep]
+    sx = span_x[tri_rep]
+    dy = torch.div(local, sx, rounding_mode="floor")
+    tile = (ly0[tri_rep] + dy) * n_tiles_x + tx0[tri_rep] + local - dy * sx
+    key, _ = torch.sort(torch.where(listed_slot, tile * stride + tri_rep,
+                                    n_tiles * stride))
     return key, torch.clamp(pairs.sum() - binned_cap, min=0)
 
 
@@ -362,38 +326,31 @@ def bin_triangles(
     tile_w: int,
     n_tiles_x: int,
     n_tiles_y: int,
-    binned_cap: int | None = None,
+    binned_cap: int,
     band_row0: int | None = None,
     band_tile_rows: int | None = None,
-    static: bool = False,
 ) -> BinnedTriangles:
     """Every (tile, triangle) pair of the triangles' bboxes, sorted by
-    (tile, draw order).  One host sync reads the pair count.
-
-    ``static`` (needs ``binned_cap``): no host read.  The pairs fill
-    exactly ``binned_cap`` slots; ``pair_tri`` has that length, the runs
-    cover its first min(total, cap) entries, and ``overflow`` is the
-    device tensor max(total - cap, 0).  While total <= cap the runs equal
-    the exact binning's pair for pair; past the cap the same number of
-    pairs is dropped, though not the same pairs (the exact binning keeps
-    the lowest tiles, this the first triangles).
+    (tile, draw order), with no host read.  The pairs fill exactly
+    ``binned_cap`` slots: ``pair_tri`` has that length, the runs cover
+    its first min(total, cap) entries, and ``overflow`` is the 0-d device
+    tensor max(total - cap, 0).  Past the cap the first triangles' pairs
+    are kept (the first slots in draw order).
 
     Band mode (raster_setup.py:350): with ``band_row0`` and
     ``band_tile_rows``, only the pairs whose tile row lies in [band_row0,
     band_row0 + band_tile_rows) are listed.  Tile ids stay global and the
     run table covers all ``n_tiles_x * n_tiles_y`` tiles (empty outside
     the band), so a band raster reads the same runs it would read from
-    the whole frame's bins; ``overflow`` counts the band's pairs past
-    ``binned_cap`` (with ``static``, the band fills that many slots)."""
-    if static and binned_cap is None:
-        raise ValueError("bin_triangles(static=True) needs binned_cap")
+    the whole frame's bins; the band fills ``binned_cap`` slots and
+    ``overflow`` counts its pairs past them."""
     fn = _bin_cuda if setup.tri_data.is_cuda else _bin_plain
     return fn(setup, tile_h, tile_w, n_tiles_x, n_tiles_y, binned_cap,
-              band_row0, band_tile_rows, static)
+              band_row0, band_tile_rows)
 
 
 def _bin_plain(setup, tile_h, tile_w, n_tiles_x, n_tiles_y, binned_cap,
-               band_row0, band_tile_rows, static) -> BinnedTriangles:
+               band_row0, band_tile_rows) -> BinnedTriangles:
     """The binning in torch ops, on any device (``bin_triangles``)."""
     tri_data, bbox = setup.tri_data, setup.bbox
     dev = tri_data.device
@@ -422,12 +379,8 @@ def _bin_plain(setup, tile_h, tile_w, n_tiles_x, n_tiles_y, binned_cap,
     ).to(torch.int32)
     bbox = torch.where(huge[:, None], tiles_box, bbox)
     stride = max(t, 1)
-    if static:
-        key, overflow = _pair_keys_static(pairs, span_x, ly0, tx0,
-                                          n_tiles_x, n_tiles, binned_cap)
-    else:
-        key, overflow = _pair_keys_exact(pairs, span_x, ly0, tx0, n_tiles_x,
-                                         binned_cap)
+    key, overflow = _pair_keys(pairs, span_x, ly0, tx0, n_tiles_x, n_tiles,
+                               binned_cap)
     tile_sorted = torch.div(key, stride, rounding_mode="floor")
     pair_tri = (key - tile_sorted * stride).to(torch.int32)
     tile_end = torch.searchsorted(
@@ -510,9 +463,9 @@ def _setup_cuda(src, inputs, tri_valid, width, height, cull_backface,
 
 
 def _bin_cuda(setup, tile_h, tile_w, n_tiles_x, n_tiles_y, binned_cap,
-              band_row0, band_tile_rows, static) -> BinnedTriangles:
-    """``bin_count_kernel`` + ``bin_scan_kernel``, then (after one host
-    read of the pair count unless ``static``) ``bin_fill_kernel``."""
+              band_row0, band_tile_rows) -> BinnedTriangles:
+    """``bin_count_kernel`` + ``bin_scan_kernel``, then
+    ``bin_fill_kernel``."""
     tri_data, bbox = setup.tri_data.contiguous(), setup.bbox.contiguous()
     _build.require_cuda("binning", tri_data, bbox,
                         dtypes=(torch.float32, torch.int32))
@@ -543,11 +496,8 @@ def _bin_cuda(setup, tile_h, tile_w, n_tiles_x, n_tiles_y, binned_cap,
     if t == 0:
         tile_start.zero_()
         tile_count.zero_()
-        if static:
-            return binned(torch.zeros(binned_cap, dtype=i32, device=dev),
-                          bbox, torch.zeros((), dtype=torch.int64,
-                                            device=dev))
-        return binned(torch.zeros(0, dtype=i32, device=dev), bbox, 0)
+        return binned(torch.zeros(binned_cap, dtype=i32, device=dev), bbox,
+                      torch.zeros((), dtype=torch.int64, device=dev))
 
     n_ws = _build.function("mo_bin_workspace_ints",
                            [_build.I, _build.I])(t, n_tiles)
@@ -567,26 +517,20 @@ def _bin_cuda(setup, tile_h, tile_w, n_tiles_x, n_tiles_y, binned_cap,
     err = prepare(
         tri_data.data_ptr(), tri_data.shape[1], bbox.data_ptr(), t, tile_h,
         tile_w, n_tiles_x, n_tiles, int(band), band_row0 if band else 0,
-        band_tile_rows if band else 0, binned_cap if static else -1,
-        ws.data_ptr(), totals.data_ptr(), box.data_ptr(), stream,
+        band_tile_rows if band else 0, binned_cap, ws.data_ptr(),
+        totals.data_ptr(), box.data_ptr(), stream,
     )
     _build.check("binning", err)
     _build.count("bin_count")
     _build.count("bin_scan")
-    if static:
-        cap_len, overflow = binned_cap, totals[1]
-    else:
-        total = int(totals[0])  # the pass's host sync
-        cap_len = total if binned_cap is None else min(total, binned_cap)
-        overflow = total - cap_len
-    pair_tri = torch.empty(cap_len, dtype=i32, device=dev)
+    pair_tri = torch.empty(binned_cap, dtype=i32, device=dev)
     fill = _build.function(
-        "mo_bin_fill", [_build.I] * 6 + [_build.P] * 5)
+        "mo_bin_fill", [_build.I] * 4 + [_build.P] * 5)
     err = fill(
-        t, n_tiles_x, n_tiles, int(static), binned_cap if static else 0,
-        cap_len, ws.data_ptr(), pair_tri.data_ptr(), tile_start.data_ptr(),
-        tile_count.data_ptr(), stream,
+        t, n_tiles_x, n_tiles, binned_cap, ws.data_ptr(),
+        pair_tri.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
+        stream,
     )
     _build.check("bin_fill", err)
     _build.count("bin_fill")
-    return binned(pair_tri, box, overflow)
+    return binned(pair_tri, box, totals[1])

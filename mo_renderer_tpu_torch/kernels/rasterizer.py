@@ -174,7 +174,7 @@ def _winners(binned, with_winner=True, chunk=4096, row0=0, n_rows=None):
         n_rows = nty - row0
     canvas_w = ntx * tw
     n_pix = n_rows * th * canvas_w
-    # the runs fill pair_tri's head; static binning pads it past them
+    # the runs fill pair_tri's head; the capacity's slots pad it past them
     n_listed = int(binned.tile_count.sum())
     tiles = torch.repeat_interleave(
         torch.arange(ntx * nty, device=dev), binned.tile_count.to(torch.int64),

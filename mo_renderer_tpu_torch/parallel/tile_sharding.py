@@ -23,11 +23,11 @@ Each rank renders one horizontal band of the padded framebuffer:
   reference's ``overflow.reshape(-1, 2).sum(axis=0)``), so no count is
   read on the host until the lag window drains it.
 
-Binning is static (``bin_triangles(static=True)``, under the inner
-Renderer's pair capacity), so nothing reads the device on the host: on a
-card the whole frame, collectives included, is captured in a CUDA graph
-keyed on the layout, as the single-device frame is, and replayed per
-frame; on the CPU (gloo) it runs eagerly.
+Binning fills the inner Renderer's static pair capacity, so nothing
+reads the device on the host: on a card the whole frame, collectives
+included, is captured in a CUDA graph keyed on the layout, as the
+single-device frame is, and replayed per frame; on the CPU (gloo) it
+runs eagerly.
 
 What differs from the single-device frame (the tests hold both): the
 half-resolution upsamplers and the checkerboard reconstruction interpolate
@@ -113,8 +113,7 @@ def shadow_bands_divisible(cfg: EngineConfig, n_ranks: int) -> bool:
     return cfg.shadow_map_size % (n_ranks * BIN_H) == 0
 
 
-def _shadow_quads_banded(scene, light_pv, cfg, binned_cap, group: RankGroup,
-                         static_bins=True):
+def _shadow_quads_banded(scene, light_pv, cfg, binned_cap, group: RankGroup):
     """The shadow map in light-space bands: each rank bins and rasters
     ``shadow_map_size / n`` rows (K2b), one ``all_gather`` puts the whole
     map on every rank (any pixel may sample any texel), then the PCF
@@ -133,7 +132,7 @@ def _shadow_quads_banded(scene, light_pv, cfg, binned_cap, group: RankGroup,
     binned = bin_triangles(
         setup, tile_h=BIN_H, tile_w=BIN_W, n_tiles_x=-(-smap // BIN_W),
         n_tiles_y=smap // BIN_H, binned_cap=binned_cap,
-        band_row0=row0, band_tile_rows=bins_per_band, static=static_bins,
+        band_row0=row0, band_tile_rows=bins_per_band,
     )
     _, band, _, _ = rasterize(binned, width=smap, height=smap // group.size,
                               depth_only=True, tile_row_offset=row0)
@@ -157,18 +156,15 @@ def _ssao_halo(z, n_rows, group: RankGroup):
 
 def row_sharded_frame_body(scene, ibl, params, *, cfg, pad_w, pad_h,
                            pad_h_split, binned_cap, has_shadow_light,
-                           slot_map, n_lights, group: RankGroup,
-                           static_bins=True):
+                           slot_map, n_lights, group: RankGroup):
     """This rank's band of the frame: rows ``rank * h`` to ``(rank + 1) *
     h`` of the ``pad_h_split``-row split canvas, ``h = pad_h_split / n``.
-    ``static_bins`` bins under ``binned_cap`` with no host read (what a
-    CUDA graph captures); False enumerates the pairs exactly.
 
     ``pad_h`` is the viewport height, as in the single-device frame, so
     the image is the same; the rows from ``pad_h`` to ``pad_h_split`` have
     no triangle, render sky and are cropped away.  Returns (rgba (h,
     pad_w) int32 packed rgba8 bits, (G-buffer, shadow) dropped pairs of
-    this rank's bands)."""
+    this rank's bands as a (2,) int64 tensor)."""
     if pad_h_split % band_rows(cfg, group.size):
         raise ValueError(f"split height {pad_h_split} is not a multiple of "
                          f"{band_rows(cfg, group.size)}")
@@ -176,16 +172,15 @@ def row_sharded_frame_body(scene, ibl, params, *, cfg, pad_w, pad_h,
     row0 = group.rank * h_local
     bin_row0 = row0 // BIN_H
 
-    shadow_quads, shadow_overflow = None, 0
+    shadow_quads, shadow_overflow = None, None
     if cfg.shadow_enabled and has_shadow_light:
         if shadow_bands_divisible(cfg, group.size):
             shadow_quads, shadow_overflow = _shadow_quads_banded(
-                scene, params["light_proj_view"], cfg, binned_cap, group,
-                static_bins)
+                scene, params["light_proj_view"], cfg, binned_cap, group)
         else:  # the whole map on every rank
             shadow_quads, shadow_overflow = shadow_program(
                 scene, params["light_proj_view"], cfg=cfg,
-                binned_cap=binned_cap, static_bins=static_bins)
+                binned_cap=binned_cap)
 
     setup = triangle_setup_from_attrs(
         scene.tri_attrs, scene.tri_valid, params["proj_view"], pad_w, pad_h,
@@ -196,7 +191,6 @@ def row_sharded_frame_body(scene, ibl, params, *, cfg, pad_w, pad_h,
         setup, tile_h=BIN_H, tile_w=BIN_W, n_tiles_x=-(-pad_w // BIN_W),
         n_tiles_y=pad_h_split // BIN_H, binned_cap=binned_cap,
         band_row0=bin_row0, band_tile_rows=h_local // BIN_H,
-        static=static_bins,
     )
     tri, z, _, _ = rasterize(binned, width=pad_w, height=h_local, slim=True,
                              tile_row_offset=bin_row0)
@@ -230,7 +224,7 @@ def row_sharded_frame_body(scene, ibl, params, *, cfg, pad_w, pad_h,
         row_offset=row0, full_height=pad_h,
     )
     rgba = reconstruct_present(color, tri) if use_cb else present_pass(color)
-    return rgba, (binned.overflow, shadow_overflow)
+    return rgba, overflow_counts(binned.overflow, shadow_overflow)
 
 
 class TileShardedRenderer:
@@ -299,7 +293,7 @@ class TileShardedRenderer:
             n_lights=inner._n_lights, group=self.group,
         )
 
-    def _frame(self, params, has_light, scene=None, static_bins=True):
+    def _frame(self, params, has_light, scene=None):
         """The whole frame on every rank: this rank's band, one
         ``all_gather`` of the bands and one of their (2,) dropped-pair
         counts, summed on the device.  Returns (rgba (H, W), (2,) int64
@@ -307,11 +301,10 @@ class TileShardedRenderer:
         prepared one)."""
         inner = self._inner
         ibl_maps = self.ibl.maps() if self.ibl is not None else None
-        band, (g, s) = self._frame_fn(
+        band, counts = self._frame_fn(
             inner.scene if scene is None else scene, ibl_maps, params,
-            has_shadow_light=has_light, static_bins=static_bins)
+            has_shadow_light=has_light)
         full = torch.cat(_all_gather(band, self.group))
-        counts = overflow_counts(g, s, band.device)
         total = torch.stack(_all_gather(counts, self.group)).sum(0)
         return full[: self.config.height, : self.config.width], total
 

@@ -28,16 +28,16 @@ switch the checkerboard off, so they see full-resolution arrays.
 On a card the frame runs as one compiled program, as the reference's
 ``jax.jit`` runs it: ``render_device``, ``render_sequence_device`` and
 ``MultiViewRenderer`` replay one ``torch.cuda.CUDAGraph`` of the frame
-(binning under the static pair capacity, ``bin_triangles(static=True)``,
-so nothing reads the device on the host), and the memoized shadow is a
-second graph (the reference's ``_shadow_fn``).  A graph is keyed on the
-layout, not on objects: the prepare, the pad size, the config, the
-light, the shadow mode, the IBL maps, the extra passes and the shape of
-every scene field.  Its inputs are buffers it owns, which each call fills
+(``bin_triangles`` bins under the static pair capacity, so nothing reads
+the device on the host), and the memoized shadow is a second graph (the
+reference's ``_shadow_fn``).  A graph is keyed on the layout, not on
+objects: the prepare, the pad size, the config, the light, the shadow
+mode, the IBL maps, the extra passes and the shape of every scene
+field.  Its inputs are buffers it owns, which each call fills
 by device copies (``_Staged``, ``_StagedScene``), so a camera, entity or
 light move, a spawn and a despawn replay the same graph.  On the CPU the
-frame runs eagerly, op by op, with exact binning.  Nothing falls back to
-another path: a capture that fails raises.
+frame runs eagerly, op by op, binned the same way.  Nothing falls back
+to another path: a capture that fails raises.
 
 Each pass of ``frame_program`` runs in ``kernels/mark.py``'s
 ``pass_span``, the tracer's span of the pass (``utils/trace.py``): with
@@ -196,21 +196,21 @@ def build_camera_params(camera: Camera, light_proj_view, device,
     return CameraParams(torch.from_numpy(buf).to(device), host=buf)
 
 
-def _bin(setup, width, height, binned_cap, static=False):
+def _bin(setup, width, height, binned_cap):
     return bin_triangles(
         setup, tile_h=BIN_H, tile_w=BIN_W,
         n_tiles_x=-(-width // BIN_W), n_tiles_y=-(-height // BIN_H),
-        binned_cap=binned_cap, static=static,
+        binned_cap=binned_cap,
     )
 
 
 def shadow_map_from_clip(scene, *, cfg, binned_cap, shadow_clip=None,
-                         light_pv=None, static_bins=False):
+                         light_pv=None):
     """Depth-only raster from the light (no culling, depth bias 2/2,
     shadow_pass.rs:132-140): from per-vertex light clip positions, or,
     when ``shadow_clip`` is None, from the packed per-triangle corners
     projected by ``light_pv``.  Returns (shadow map (S, S), dropped pair
-    count); ``static_bins`` bins with no host read."""
+    count, a 0-d device tensor)."""
     smap = cfg.shadow_map_size
     bias = dict(
         cull_backface=False,
@@ -225,33 +225,28 @@ def shadow_map_from_clip(scene, *, cfg, binned_cap, shadow_clip=None,
         setup = triangle_setup(
             shadow_clip, scene.indices, scene.tri_valid, smap, smap, **bias
         )
-    binned = _bin(setup, smap, smap, binned_cap, static_bins)
+    binned = _bin(setup, smap, smap, binned_cap)
     _, shadow_map, _, _ = rasterize(binned, width=smap, height=smap,
                                     depth_only=True)
     return shadow_map, binned.overflow
 
 
-def shadow_program(scene, light_proj_view, *, cfg, binned_cap,
-                   static_bins=False):
+def shadow_program(scene, light_proj_view, *, cfg, binned_cap):
     """The fast path's memoizable shadow: the map from the packed corners
     -> the configured PCF window table.  Returns (table, dropped pair
-    count); ``static_bins`` bins with no host read."""
+    count, a 0-d device tensor)."""
     shadow_map, overflow = shadow_map_from_clip(
         scene, cfg=cfg, binned_cap=binned_cap, light_pv=light_proj_view,
-        static_bins=static_bins,
     )
     return _pcf_build(cfg)(shadow_map), overflow
 
 
-def overflow_counts(g, s, device):
-    """A frame's (G-buffer, shadow) dropped pairs as one (2,) int64 tensor
-    on ``device``; each count is a 0-d tensor (static binning) or an int,
-    which becomes a fill, never a host-to-device copy."""
-    return torch.stack([
-        v if torch.is_tensor(v)
-        else torch.full((), v, dtype=torch.int64, device=device)
-        for v in (g, s)
-    ])
+def overflow_counts(gbuffer=None, shadow=None):
+    """(G-buffer, shadow) dropped pairs as one (2,) int64 tensor: each a
+    binning's 0-d device count, or None (zero) for a pass not binned."""
+    zero = torch.zeros_like(shadow if gbuffer is None else gbuffer)
+    return torch.stack([zero if gbuffer is None else gbuffer,
+                        zero if shadow is None else shadow])
 
 
 def _pad_edge(a, ph, pw):
@@ -264,13 +259,12 @@ def _pad_edge(a, ph, pw):
 
 def frame_program(scene, ibl, params, *, cfg, pad_w, pad_h, binned_cap,
                   has_shadow_light, slot_map, n_lights, fast=True,
-                  shadow_quads=None, extra_passes=(), static_bins=False):
+                  shadow_quads=None, extra_passes=()):
     """One deferred frame on the path ``fast`` and the config choose (see
     the module docstring).  ``extra_passes`` run on the full-resolution
-    context between shading and present; ``static_bins`` bins under
-    ``binned_cap`` with no host read (what a CUDA graph can capture).
-    Returns (rgba (H, W) int32 packed rgba8 bits, (G-buffer, shadow)
-    dropped-pair counts)."""
+    context between shading and present.  Returns (rgba (H, W) int32
+    packed rgba8 bits, (G-buffer, shadow) dropped-pair counts as a (2,)
+    int64 tensor on the frame's device)."""
     use_shadow = cfg.shadow_enabled and has_shadow_light
     megakernel = fast and cfg.raster_interp_attrs
     attrs_setup = fast and not megakernel
@@ -284,13 +278,13 @@ def frame_program(scene, ibl, params, *, cfg, pad_w, pad_h, binned_cap,
                 params["light_proj_view"],
             )
 
-    shadow_map, shadow_overflow = None, 0
+    shadow_map, shadow_overflow = None, None
     if use_shadow and not (fast and shadow_quads is not None):
         with mark.pass_span("shadow"):
             shadow_map, shadow_overflow = shadow_map_from_clip(
                 scene, cfg=cfg, binned_cap=binned_cap,
                 shadow_clip=None if attrs_setup else vs.shadow_clip,
-                light_pv=params["light_proj_view"], static_bins=static_bins,
+                light_pv=params["light_proj_view"],
             )
 
     with mark.pass_span("triangle setup"):
@@ -305,7 +299,7 @@ def frame_program(scene, ibl, params, *, cfg, pad_w, pad_h, binned_cap,
                 cull_backface=True,
             )
     with mark.pass_span("binning"):
-        binned = _bin(setup, pad_w, pad_h, binned_cap, static_bins)
+        binned = _bin(setup, pad_w, pad_h, binned_cap)
     if megakernel:
         with mark.pass_span("vertex stage"):
             attr_rows = pack_raster_attr_rows(scene.tri_attrs,
@@ -388,7 +382,8 @@ def frame_program(scene, ibl, params, *, cfg, pad_w, pad_h, binned_cap,
             rgba = reconstruct_present(ctx["color"], tri)
         else:
             rgba = present_pass(ctx["color"])
-    return rgba[: cfg.height, : cfg.width], (binned.overflow, shadow_overflow)
+    return (rgba[: cfg.height, : cfg.width],
+            overflow_counts(binned.overflow, shadow_overflow))
 
 
 class Renderer(torch.nn.Module):
@@ -507,11 +502,9 @@ class Renderer(torch.nn.Module):
 
     @staticmethod
     def _counts(ovf) -> list:
-        """[G-buffer, shadow] of one pending entry: a (2,) tensor (one
-        read), or a pair of ints or 0-d tensors."""
-        if torch.is_tensor(ovf):
-            return ovf.tolist()
-        return [int(v) for v in ovf]
+        """[G-buffer, shadow] of one pending (2,) counts tensor (one
+        read), or of the drained host array."""
+        return ovf.tolist()
 
     def _raise_if_overflow(self, ovf) -> None:
         g, s = self._counts(ovf)
@@ -532,7 +525,7 @@ class Renderer(torch.nn.Module):
         integers.  Drain only after such a wait."""
         pending = self._pending_overflow
         for i, v in enumerate(pending):
-            if torch.is_tensor(v) and v.is_cuda:
+            if v.is_cuda:
                 host = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
                 pending[i] = host.copy_(v, non_blocking=True)
 
@@ -581,7 +574,7 @@ class Renderer(torch.nn.Module):
                 self.scene, light_pv, cfg=self.config,
                 binned_cap=self._binned_cap
             )
-            self._note_overflow((0, ovf))
+            self._note_overflow(overflow_counts(shadow=ovf))
 
     def _sync_topology(self, world) -> None:
         """Bring the packed scene up to date with a spawn or despawn after
@@ -632,10 +625,9 @@ class Renderer(torch.nn.Module):
         self._params_fp = fp
         return params, has_light
 
-    def _frame(self, params, quads, has_light, static_bins=False,
-               scene=None):
+    def _frame(self, params, quads, has_light, scene=None):
         """``frame_program`` on the prepared scene (or ``scene``, the
-        staged one a graph reads): (rgba, overflow)."""
+        staged one a graph reads): (rgba, (2,) dropped-pair counts)."""
         ibl_maps = self.ibl.maps() if self.ibl is not None else None
         return frame_program(
             self.scene if scene is None else scene, ibl_maps, params,
@@ -643,7 +635,7 @@ class Renderer(torch.nn.Module):
             binned_cap=self._binned_cap, has_shadow_light=has_light,
             slot_map=self._slot_map, n_lights=self._n_lights,
             fast=self._fast, shadow_quads=quads,
-            extra_passes=self.extra_passes, static_bins=static_bins,
+            extra_passes=self.extra_passes,
         )
 
     def render_device(self, world):
@@ -729,14 +721,10 @@ class Renderer(torch.nn.Module):
         if not self._fast:
             trace.count("reference_frames", n)
         if self.device.type != "cuda":
-            frames, g, s = [], 0, 0
-            for i in range(n):
-                rgba, (go, so) = self._frame(
-                    CameraParams(stack.vec[i], stack.host[i]), quads,
-                    has_light)
-                frames.append(rgba)
-                g, s = g + go, s + so
-            return torch.stack(frames), (g, s)
+            frames, counts = zip(*(
+                self._frame(CameraParams(stack.vec[i], stack.host[i]), quads,
+                            has_light) for i in range(n)))
+            return torch.stack(frames), torch.stack(counts).sum(0)
         steps = stack.vec.to(self.device)
         graph = self._capture(steps[0], quads, has_light)
         with trace.span("replay"):
@@ -802,9 +790,8 @@ class Renderer(torch.nn.Module):
         ibl_maps = self.ibl.maps() if self.ibl is not None else None
 
         def frame(p):
-            rgba, (g, s) = self._frame(CameraParams(p), quads, has_light,
-                                       static_bins=True, scene=scene)
-            return rgba, overflow_counts(g, s, self.device)
+            return self._frame(CameraParams(p), quads, has_light,
+                               scene=scene)
 
         self._graph = _FrameGraph(
             key, self.device, frame, params,
@@ -814,9 +801,9 @@ class Renderer(torch.nn.Module):
 
     def _capture_shadow(self, light_pv):
         """The memoized shadow's graph (the reference's ``_shadow_fn``):
-        ``shadow_program`` with static binning on the staged scene, the
-        (4, 4) light matrix its input.  Keyed on the layout, the config
-        but its size (a resize keeps it) and whether the tracer is on."""
+        ``shadow_program`` on the staged scene, the (4, 4) light matrix its
+        input.  Keyed on the layout, the config but its size (a resize
+        keeps it) and whether the tracer is on."""
         cfg = self.config
         key = (self._layout(), dataclasses.astuple(
             dataclasses.replace(cfg, width=0, height=0)), trace.enabled())
@@ -828,8 +815,8 @@ class Renderer(torch.nn.Module):
 
         def shadow(light):
             table, ovf = shadow_program(scene, light, cfg=cfg,
-                                        binned_cap=cap, static_bins=True)
-            return table, overflow_counts(0, ovf, self.device)
+                                        binned_cap=cap)
+            return table, overflow_counts(shadow=ovf)
 
         self._shadow_graph = _FrameGraph(key, self.device, shadow, light_pv,
                                          name="shadow")

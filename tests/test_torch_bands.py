@@ -72,11 +72,16 @@ def _port_setup(clip, idx):
                              cull_backface=False)
 
 
-def _bin(setup, band=None, **kw):
+def _bin(setup, band=None, binned_cap=None):
+    """The whole frame's or band ``band``'s bins, under ``binned_cap``
+    (default: the reference's pair capacity)."""
     extra = {} if band is None else dict(band_row0=band * BAND_BINS,
                                          band_tile_rows=BAND_BINS)
+    if binned_cap is None:
+        binned_cap = RS.pair_capacity(setup.bbox.shape[0], NTX * NTY)
     return RS.bin_triangles(setup, tile_h=R.BIN_H, tile_w=R.BIN_W,
-                            n_tiles_x=NTX, n_tiles_y=NTY, **extra, **kw)
+                            n_tiles_x=NTX, n_tiles_y=NTY,
+                            binned_cap=binned_cap, **extra)
 
 
 def _pairs_for_rows(binned, row0, rows):
@@ -97,14 +102,14 @@ def test_band_pairs_match_the_whole_frame():
         band = _bin(setup, d)
         want = _pairs_for_rows(whole, d * BAND_BINS, BAND_BINS)
         assert _pairs_for_rows(band, d * BAND_BINS, BAND_BINS) == want
-        assert band.pair_tri.shape[0] == len(want)  # nothing outside
+        assert int(band.tile_count.sum()) == len(want)  # nothing outside
         count = band.tile_count.reshape(NTY, NTX)
         outside = torch.ones(NTY, dtype=torch.bool)
         outside[d * BAND_BINS: (d + 1) * BAND_BINS] = False
         assert int(count[outside].sum()) == 0
         torch.testing.assert_close(band.bbox, whole.bbox, rtol=0, atol=0)
         total += len(want)
-    assert total == whole.pair_tri.shape[0]
+    assert total == int(whole.tile_count.sum())
 
 
 @pytest.mark.parametrize("mode", ["slim", "depth"])
@@ -129,8 +134,10 @@ def test_band_raster_is_the_whole_frame_rows(mode):
 def test_band_overflow_counts_the_band_pairs_only():
     setup = _port_setup(*_soup(n=2000, seed=5, huge=False))
     cap = 64
-    n_pairs = [_bin(setup, d).pair_tri.shape[0] for d in range(N_BANDS)]
-    assert sum(n_pairs) == _bin(setup).pair_tri.shape[0]
+    n_pairs = [int(_bin(setup, d).tile_count.sum()) for d in range(N_BANDS)]
+    whole = _bin(setup)
+    assert whole.overflow == 0
+    assert sum(n_pairs) == int(whole.tile_count.sum())
     for d in range(N_BANDS):
         capped = _bin(setup, d, binned_cap=cap)
         assert capped.overflow == max(0, n_pairs[d] - cap) > 0

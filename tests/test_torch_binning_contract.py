@@ -1,13 +1,12 @@
 """The contract of the port's ``bin_triangles`` that its CUDA kernels are
 held to, checked here on the plain version (CPU) against pairs listed
-one by one from the boxes; ``tests/test_torch_cuda.py`` runs the same
-checks on the card's kernels.
+one by one from the boxes, on two random soups; ``tests/test_torch_cuda.py``
+runs the same checks on the card's kernels.
 
-- static and exact binning list the same runs while the pairs fit the
-  capacity;
-- past the capacity both drop the same count: static binning keeps the
-  first triangles' pairs (the first slots in draw order), exact binning
-  the lowest tiles;
+- while the pairs fit the capacity the runs are every listed pair,
+  sorted by (tile, draw order), in a pair table of the capacity's length;
+- past the capacity the first triangles' pairs are kept (the first slots
+  in draw order) and the rest counted as dropped, a 0-d device tensor;
 - a band's runs are the whole frame's runs restricted to its tile rows,
   and its dropped count is its own pairs past the capacity.
 
@@ -45,21 +44,23 @@ def soup_setup(device, n=N_TRI, seed=5):
         cull_backface=False)
 
 
-def listed_pairs(setup, row0=None, rows=None):
+def listed_pairs(setup, row0=None, rows=None, tile_h=TILE_H, tile_w=TILE_W,
+                 n_tiles_x=NTX):
     """Every (tile, triangle) pair of the setup's boxes, in slot order
-    (draw order, each triangle's tiles row-major), one by one."""
+    (draw order, each triangle's tiles row-major), one by one; with
+    ``row0`` and ``rows``, only those of that band of tile rows."""
     data = setup.tri_data.cpu().numpy()
     box = setup.bbox.cpu().numpy()
     out = []
     for t in range(box.shape[0]):
         if data[t, RS.COL_VALID] <= 0 or box[t, 0] > box[t, 2]:
             continue
-        ty0, ty1 = box[t, 1] // TILE_H, box[t, 3] // TILE_H
+        ty0, ty1 = box[t, 1] // tile_h, box[t, 3] // tile_h
         if row0 is not None:
             ty0, ty1 = max(ty0, row0), min(ty1, row0 + rows - 1)
         for ty in range(ty0, ty1 + 1):
-            for tx in range(box[t, 0] // TILE_W, box[t, 2] // TILE_W + 1):
-                out.append((ty * NTX + tx, t))
+            for tx in range(box[t, 0] // tile_w, box[t, 2] // tile_w + 1):
+                out.append((ty * n_tiles_x + tx, t))
     return out
 
 
@@ -70,51 +71,58 @@ def runs(binned):
     count = binned.tile_count.cpu().numpy()
     ids = binned.pair_tri.cpu().numpy()
     assert np.array_equal(start, np.concatenate([[0], np.cumsum(count)[:-1]]))
-    return [(k, int(ids[i])) for k in range(NTX * NTY)
+    return [(k, int(ids[i])) for k in range(len(count))
             for i in range(start[k], start[k] + count[k])]
 
 
-def check_contract(case, static, device):
-    setup = soup_setup(device)
+def dropped(binned):
+    """The dropped count, held to be a 0-d int64 tensor on the bins'
+    device."""
+    ovf = binned.overflow
+    assert torch.is_tensor(ovf) and ovf.shape == () and (
+        ovf.dtype == torch.int64 and ovf.device == binned.pair_tri.device)
+    return int(ovf)
+
+
+def check_contract(case, seed, device):
+    setup = soup_setup(device, seed=seed)
     grid = dict(tile_h=TILE_H, tile_w=TILE_W, n_tiles_x=NTX, n_tiles_y=NTY)
     pairs = listed_pairs(setup)
     total = len(pairs)
     if case == "below_cap":
         for cap in (total, total + 9):
-            b = RS.bin_triangles(setup, binned_cap=cap, static=static, **grid)
+            b = RS.bin_triangles(setup, binned_cap=cap, **grid)
             assert runs(b) == sorted(pairs)
-            assert int(b.overflow) == 0
-            assert b.pair_tri.shape == ((cap,) if static else (total,))
+            assert dropped(b) == 0
+            assert b.pair_tri.shape == (cap,)
     elif case == "past_cap":
         for cap in (total // 3, total - 1, 0):
-            b = RS.bin_triangles(setup, binned_cap=cap, static=static, **grid)
-            kept = sorted(pairs[:cap]) if static else sorted(pairs)[:cap]
-            assert runs(b) == kept
-            assert int(b.overflow) == total - cap
+            b = RS.bin_triangles(setup, binned_cap=cap, **grid)
+            assert runs(b) == sorted(pairs[:cap])
+            assert dropped(b) == total - cap
             assert b.pair_tri.shape == (cap,)
-            assert torch.is_tensor(b.overflow) == static
     else:  # band
-        whole = runs(RS.bin_triangles(setup, binned_cap=total,
-                                      static=static, **grid))
+        whole = runs(RS.bin_triangles(setup, binned_cap=total, **grid))
         for row0, rows in ((0, 3), (3, 4), (7, 1), (2, 6)):
             band_pairs = listed_pairs(setup, row0, rows)
             cap = len(band_pairs) + 4
-            b = RS.bin_triangles(setup, binned_cap=cap, static=static,
-                                 band_row0=row0, band_tile_rows=rows, **grid)
+            b = RS.bin_triangles(setup, binned_cap=cap, band_row0=row0,
+                                 band_tile_rows=rows, **grid)
             assert runs(b) == [p for p in whole
                                if row0 <= p[0] // NTX < row0 + rows]
-            assert int(b.overflow) == 0
-            short = RS.bin_triangles(setup, binned_cap=len(band_pairs) // 2,
-                                     static=static, band_row0=row0,
+            assert dropped(b) == 0
+            half = len(band_pairs) // 2
+            short = RS.bin_triangles(setup, binned_cap=half, band_row0=row0,
                                      band_tile_rows=rows, **grid)
-            assert int(short.overflow) == (len(band_pairs)
-                                           - len(band_pairs) // 2)
+            assert runs(short) == sorted(band_pairs[:half])
+            assert dropped(short) == len(band_pairs) - half
 
 
-CASES = [(case, static) for case in ("below_cap", "past_cap", "band")
-         for static in (False, True)]
+SEEDS = (5, 6)
+CASES = [(case, seed) for case in ("below_cap", "past_cap", "band")
+         for seed in SEEDS]
 
 
-@pytest.mark.parametrize("case,static", CASES)
-def test_binning_contract(case, static):
-    check_contract(case, static, "cpu")
+@pytest.mark.parametrize("case,seed", CASES)
+def test_binning_contract(case, seed):
+    check_contract(case, seed, "cpu")

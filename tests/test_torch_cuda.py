@@ -9,8 +9,8 @@ the conftest:
 
 ``python3 chip_smoke.py`` runs the same checks at 1920x1080.  The
 interactive and sequence checks replay each path's CUDA graph against its
-eager frames,
-and static binning is held to the exact binning on random soups.  The
+eager frames, and the binning kernels are held to pairs listed one by one
+on random soups.  The
 random soups below hold the full-mode raster (K6) and the megakernel (K8)
 to their plain versions away from the frame's own inputs; the cases after
 them aim at the seams of the region walk that raster.cu and
@@ -112,7 +112,7 @@ def test_interactive_loop_on_the_card(cuda):
 def test_sequences_and_passes_on_the_card(cuda):
     """A probe RenderPass on the card against the CPU; every path's
     sequence, replayed from its CUDA graph, against the eager frames bit
-    for bit; static binning and the graph's overflow sum on the card
+    for bit; the binning kernels and the graph's overflow sum on the card
     (chip_smoke's phase 3)."""
     import chip_smoke
 
@@ -141,26 +141,29 @@ def test_interactive_replay_equals_eager(cuda, path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", [0, 1])
 def test_static_binning_matches_exact_binning(cuda, seed):
-    """Random soups on the card: the static binning lists the exact
-    binning's runs pair for pair while the pairs fit its capacity, and
-    past the capacity it drops as many pairs (a device count)."""
+    """Random soups on the card: the binning kernels list the pairs
+    listed one by one from the boxes (the exact pairs), sorted by tile
+    and draw order, while they fit the capacity, and past it keep the
+    first triangles' pairs and count the rest on the device; runs, boxes
+    and counts equal the plain version's."""
+    from test_torch_binning_contract import listed_pairs, runs
+
     from mo_renderer_tpu_torch.kernels import raster_setup as RS
     from mo_renderer_tpu_torch.kernels import rasterizer as R
 
     setup = _soup_setup(seed, 400, 640, 200, device=cuda)
     kw = dict(tile_h=R.BIN_H, tile_w=R.BIN_W, n_tiles_x=5, n_tiles_y=7)
-    total = int(RS.bin_triangles(setup, **kw).tile_count.sum())
+    pairs = listed_pairs(setup, tile_h=R.BIN_H, tile_w=R.BIN_W, n_tiles_x=5)
+    total = len(pairs)
+    cpu = RS.TriangleSetup(setup.tri_data.cpu(), setup.bbox.cpu())
     for cap in (total + 8, total, total // 3):
-        exact = RS.bin_triangles(setup, binned_cap=cap, **kw)
-        static = RS.bin_triangles(setup, binned_cap=cap, static=True, **kw)
-        assert static.pair_tri.shape == (cap,)
-        assert int(static.overflow) == exact.overflow == max(total - cap, 0)
-        if cap >= total:
-            assert torch.equal(static.tile_start, exact.tile_start)
-            assert torch.equal(static.tile_count, exact.tile_count)
-            assert torch.equal(static.pair_tri[:total], exact.pair_tri)
-        else:
-            assert int(static.tile_count.sum()) == cap
+        got = RS.bin_triangles(setup, binned_cap=cap, **kw)
+        plain = RS.bin_triangles(cpu, binned_cap=cap, **kw)
+        assert got.pair_tri.shape == (cap,) and got.overflow.is_cuda
+        assert int(got.overflow) == int(plain.overflow) == max(total - cap,
+                                                               0)
+        assert runs(got) == runs(plain) == sorted(pairs[:cap])
+        assert torch.equal(got.bbox.cpu(), plain.bbox)
 
 
 def _soup_setup(seed, n_tri, width, height, extra_cols=0, device="cpu"):
@@ -191,16 +194,24 @@ def _soup_setup(seed, n_tri, width, height, extra_cols=0, device="cpu"):
     return setup
 
 
-def _soup_binned(seed, n_tri, width, height, extra_cols=0, device="cpu"):
-    """``_soup_setup``'s triangles binned exactly."""
+def _bins_of(setup, width, height, **band):
+    """``setup`` binned over a ``width`` x ``height`` target under the
+    reference's pair capacity (``band``: ``bin_triangles``' band
+    keywords)."""
     from mo_renderer_tpu_torch.kernels import raster_setup as RS
     from mo_renderer_tpu_torch.kernels import rasterizer as R
 
+    nx, ny = -(-width // R.BIN_W), -(-height // R.BIN_H)
     return RS.bin_triangles(
-        _soup_setup(seed, n_tri, width, height, extra_cols, device),
-        tile_h=R.BIN_H, tile_w=R.BIN_W,
-        n_tiles_x=-(-width // R.BIN_W), n_tiles_y=-(-height // R.BIN_H),
-    )
+        setup, tile_h=R.BIN_H, tile_w=R.BIN_W, n_tiles_x=nx, n_tiles_y=ny,
+        binned_cap=RS.pair_capacity(setup.bbox.shape[0], nx * ny), **band)
+
+
+def _soup_binned(seed, n_tri, width, height, extra_cols=0, device="cpu"):
+    """``_soup_setup``'s triangles binned (``_bins_of``)."""
+    return _bins_of(
+        _soup_setup(seed, n_tri, width, height, extra_cols, device), width,
+        height)
 
 
 @pytest.mark.cuda
@@ -252,10 +263,7 @@ def _binned_from_points(pts, z, width, height, device):
                               height, cull_backface=False)
     setup.tri_data = setup.tri_data.to(device)
     setup.bbox = setup.bbox.to(device)
-    return RS.bin_triangles(
-        setup, tile_h=R.BIN_H, tile_w=R.BIN_W,
-        n_tiles_x=-(-width // R.BIN_W), n_tiles_y=-(-height // R.BIN_H),
-    )
+    return _bins_of(setup, width, height)
 
 
 KERNELS = ["raster", "raster_attrs"]  # the sources that share the walk
@@ -383,10 +391,7 @@ def test_raster_near_plane_triangles(cuda, seed, n_near, kernel):
                               width, height, cull_backface=False)
     setup.tri_data = setup.tri_data.to(cuda)
     setup.bbox = setup.bbox.to(cuda)
-    binned = RS.bin_triangles(
-        setup, tile_h=R.BIN_H, tile_w=R.BIN_W,
-        n_tiles_x=-(-width // R.BIN_W), n_tiles_y=-(-height // R.BIN_H),
-    )
+    binned = _bins_of(setup, width, height)
     assert int((binned.bbox != setup.bbox).any(1).sum()) > 20
     tri = _assert_raster_modes_exact(binned, width, height, kernel)
     assert (tri >= 0).float().mean().item() > 0.05
@@ -462,13 +467,9 @@ def _assert_bands_exact(setup, width, height, bands):
     target: each band from the whole frame's bins and from its own
     band-local bins equals its plain version and the same rows of the
     whole-frame kernel (ids and depth exact)."""
-    from mo_renderer_tpu_torch.kernels import raster_setup as RS
     from mo_renderer_tpu_torch.kernels import rasterizer as R
 
-    grid = dict(tile_h=R.BIN_H, tile_w=R.BIN_W,
-                n_tiles_x=-(-width // R.BIN_W),
-                n_tiles_y=-(-height // R.BIN_H))
-    whole = RS.bin_triangles(setup, **grid)
+    whole = _bins_of(setup, width, height)
     covered = 0
     for mode, kw in (("slim", dict(slim=True)),
                      ("depth", dict(depth_only=True))):
@@ -476,8 +477,8 @@ def _assert_bands_exact(setup, width, height, bands):
         for row0, n_rows in bands:
             y0 = row0 * R.BIN_H
             h = min(n_rows * R.BIN_H, height - y0)
-            local = RS.bin_triangles(setup, **grid, band_row0=row0,
-                                     band_tile_rows=n_rows)
+            local = _bins_of(setup, width, height, band_row0=row0,
+                             band_tile_rows=n_rows)
             for bins in (whole, local):
                 tri, z, _, _ = R.rasterize(bins, width=width, height=h,
                                            tile_row_offset=row0, **kw)
@@ -1276,8 +1277,8 @@ def _setup_binning(case):
                                   "band@1080p", "capped@1080p"])
 def test_setup_binning_kernels_match_plain(cuda, case):
     """tri_setup_kernel and the binning kernels against the torch ops on
-    the card, bit for bit (rows, boxes, runs, dropped counts, static and
-    exact), on scenes.grid_world(10): the 1080p frame from the packed
+    the card, bit for bit (rows, boxes, runs, dropped counts), on
+    scenes.grid_world(10): the 1080p frame from the packed
     corners, the 2048^2 light view (shadow bias, no cull), the reference
     path's clip through the indices, the 4K frame, a band, and a
     capacity below the pair count."""
@@ -1287,10 +1288,10 @@ def test_setup_binning_kernels_match_plain(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case,static", [
-    (case, static) for case in ("below_cap", "past_cap", "band")
-    for static in (False, True)])
-def test_binning_contract_on_the_card(cuda, case, static):
+@pytest.mark.parametrize("case,seed", [
+    (case, seed) for case in ("below_cap", "past_cap", "band")
+    for seed in (5, 6)])
+def test_binning_contract_on_the_card(cuda, case, seed):
     """tests/test_torch_binning_contract.py's checks on the kernels."""
     import importlib.util
 
@@ -1299,7 +1300,7 @@ def test_binning_contract_on_the_card(cuda, case, static):
     spec = importlib.util.spec_from_file_location("binning_contract", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    mod.check_contract(case, static, cuda)
+    mod.check_contract(case, seed, cuda)
 
 
 @pytest.mark.cuda

@@ -172,10 +172,10 @@ def test_frame_from_reference_state_matches_own_state():
     params, has_light = r.frame_params(world)
     rgba, ovf = FG.frame_program(
         r.scene, maps, params, cfg=cfg, pad_w=r.pad_w, pad_h=r.pad_h,
-        binned_cap=None, has_shadow_light=has_light, slot_map=r._slot_map,
-        n_lights=r._n_lights,
+        binned_cap=r._binned_cap, has_shadow_light=has_light,
+        slot_map=r._slot_map, n_lights=r._n_lights,
     )
-    assert ovf == (0, 0)
+    assert ovf.dtype == torch.int64 and ovf.tolist() == [0, 0]
     carried = FG.unpack_rgba8(rgba)
     diff = np.abs(carried.astype(int) - own.astype(int))
     print(f"carried state vs own state: max |diff| {diff.max()} LSB")

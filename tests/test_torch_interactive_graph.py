@@ -15,12 +15,13 @@ eagerly.  The replay itself is checked on the card (``chip_smoke.py``
   static arguments;
 - the staged fields are exactly the fields those updates replace, by
   tensor identity, and staging follows a field that is written in place;
-- band binning with no host read (``bin_triangles(band_row0=...,
-  static=True)``) lists the exact band binning's runs under the capacity
-  and drops as many pairs past it;
-- the row-sharded frame binned that way equals the exactly binned one bit
-  for bit on a gloo world of one, counts its dropped pairs alike, and
-  needs no ``all_reduce``;
+- band binning with no host read (``bin_triangles(band_row0=...)``)
+  lists the whole frame's runs in its rows under the capacity, and past
+  it the head of each of those runs, dropping its own pairs past the
+  capacity;
+- the row-sharded frame equals the single-device frame bit for bit on a
+  gloo world of one, counts its dropped pairs alike (summed over the
+  bands on the device), and needs no ``all_reduce``;
 - ``chip_smoke.py``'s check of a replayed call's profiles accepts an
   earlier profile only where it lacks exactly one replay's hand kernels.
 
@@ -255,32 +256,45 @@ def _band_setups():
     ]
 
 
+def _runs(binned):
+    """Each tile's run of triangle ids, as a list a tile."""
+    start, count = binned.tile_start.tolist(), binned.tile_count.tolist()
+    ids = binned.pair_tri.tolist()
+    return [ids[s:s + c] for s, c in zip(start, count)]
+
+
 @pytest.mark.parametrize("capacity", ["below", "past"])
 def test_band_static_binning_equals_exact_band_binning(capacity):
+    """A band's runs against the whole frame's runs in its rows (the
+    whole frame binned under the capacity, every pair kept): equal while
+    the band's pairs fit, and past the capacity the head of each, as many
+    pairs as the capacity, the rest counted as dropped."""
     r, setups = _band_setups()
     for setup, w, h in setups:
-        n_y = h // BIN_H
+        n_x, n_y = -(-w // BIN_W), h // BIN_H
+        grid = dict(tile_h=BIN_H, tile_w=BIN_W, n_tiles_x=n_x,
+                    n_tiles_y=n_y)
+        whole = RS.bin_triangles(setup, binned_cap=r._binned_cap, **grid)
+        assert int(whole.overflow) == 0
+        whole_runs = _runs(whole)
         for row0, rows in ((0, n_y // 2), (n_y // 2, n_y - n_y // 2)):
-            def bins(cap, static):
-                return RS.bin_triangles(
-                    setup, tile_h=BIN_H, tile_w=BIN_W,
-                    n_tiles_x=-(-w // BIN_W), n_tiles_y=n_y, binned_cap=cap,
-                    band_row0=row0, band_tile_rows=rows, static=static)
-
-            total = int(bins(None, False).tile_count.sum())
+            tiles = range(row0 * n_x, (row0 + rows) * n_x)
+            total = sum(len(whole_runs[k]) for k in tiles)
             assert total > 0
             cap = r._binned_cap if capacity == "below" else total - 3
-            exact, static = bins(cap, False), bins(cap, True)
-            assert torch.is_tensor(static.overflow)
-            assert int(static.overflow) == exact.overflow == max(
-                total - cap, 0)
-            assert static.pair_tri.shape == (cap,)
-            assert int(static.tile_count.sum()) == min(total, cap)
-            if capacity == "below":
-                assert torch.equal(static.tile_start, exact.tile_start)
-                assert torch.equal(static.tile_count, exact.tile_count)
-                assert torch.equal(static.pair_tri[:total], exact.pair_tri)
-                assert torch.equal(static.bbox, exact.bbox)
+            band = RS.bin_triangles(setup, binned_cap=cap, band_row0=row0,
+                                    band_tile_rows=rows, **grid)
+            assert torch.is_tensor(band.overflow)
+            assert int(band.overflow) == max(total - cap, 0)
+            assert band.pair_tri.shape == (cap,)
+            assert int(band.tile_count.sum()) == min(total, cap)
+            assert torch.equal(band.bbox, whole.bbox)
+            band_runs = _runs(band)
+            for k, run in enumerate(band_runs):
+                want = whole_runs[k] if k in tiles else []
+                assert run == want[:len(run)]
+                if capacity == "below":
+                    assert run == want
 
 
 def _free_port():
@@ -306,10 +320,11 @@ def world_of_one():
 @pytest.mark.parametrize("binned_cap", [None, 64], ids=["fits", "past_cap"])
 def test_rows_frame_static_equals_exact(world_of_one, monkeypatch,
                                         binned_cap):
-    """The row-sharded frame binned with no host read equals the exactly
-    binned frame bit for bit while the pairs fit, and past the capacity
-    counts the same dropped pairs (summed over the bands on the device);
-    ``render_device`` makes no ``all_reduce``."""
+    """The row-sharded frame on a world of one equals the single-device
+    frame (its shadow rastered in the frame) bit for bit, while the pairs
+    fit and past the capacity alike (both keep the first triangles'
+    pairs), and counts the same dropped pairs (summed over the bands on
+    the device); ``render_device`` makes no ``all_reduce``."""
     import torch.distributed as dist
 
     from mo_renderer_tpu_torch.parallel import TileShardedRenderer
@@ -321,11 +336,13 @@ def test_rows_frame_static_equals_exact(world_of_one, monkeypatch,
     ts.prepare(world)
     params, has_light = ts._inner.frame_params(world)
     static, s_counts = ts._frame(params, has_light)
-    exact, e_counts = ts._frame(params, has_light, static_bins=False)
+    single = Renderer(cfg, "cpu")
+    single.prepare(world)
+    want, w_counts = single._frame(params, None, has_light)
     assert s_counts.dtype == torch.int64 and s_counts.shape == (2,)
-    assert torch.equal(s_counts, e_counts)
+    assert torch.equal(s_counts, w_counts) and torch.equal(static, want)
     if binned_cap is None:
-        assert torch.equal(static, exact) and not s_counts.any()
+        assert not s_counts.any()
     else:
         assert s_counts[0] > 0 and s_counts[1] > 0
 

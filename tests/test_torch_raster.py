@@ -39,14 +39,23 @@ from mo_renderer_tpu_torch.passes import vertex_stage as V  # noqa: E402
 W, H = 256, 64
 
 
+def _port_bins(setup, width, height, tile_h=R.BIN_H, tile_w=R.BIN_W,
+               binned_cap=None):
+    """The port's bins of ``setup`` over a ``width`` x ``height`` target,
+    under ``binned_cap`` (default: the reference's pair capacity)."""
+    nx, ny = -(-width // tile_w), -(-height // tile_h)
+    if binned_cap is None:
+        binned_cap = RS.pair_capacity(setup.bbox.shape[0], nx * ny)
+    return RS.bin_triangles(setup, tile_h=tile_h, tile_w=tile_w,
+                            n_tiles_x=nx, n_tiles_y=ny,
+                            binned_cap=binned_cap)
+
+
 def _port_raster(tri_data, bbox, width, height, depth_only=False):
     setup = RS.TriangleSetup(
         torch.tensor(np.asarray(tri_data)), torch.tensor(np.asarray(bbox))
     )
-    binned = RS.bin_triangles(
-        setup, tile_h=R.BIN_H, tile_w=R.BIN_W,
-        n_tiles_x=-(-width // R.BIN_W), n_tiles_y=-(-height // R.BIN_H),
-    )
+    binned = _port_bins(setup, width, height)
     assert binned.overflow == 0
     tri, z, _, _ = R.rasterize(binned, width=width, height=height,
                                depth_only=depth_only)
@@ -212,9 +221,9 @@ def test_setup_matches_reference(cull):
 
 
 def test_binning_lists_every_pair_in_draw_order():
-    """Exact binning: each tile's run is exactly the triangles whose bbox
-    touches it, ascending (draw order), and pairs past binned_cap count
-    as overflow."""
+    """Each tile's run is exactly the triangles whose bbox touches it,
+    ascending (draw order), and pairs past binned_cap count as
+    overflow."""
     clip, idx = _soup(5, 120, W, H)
     setup = JRS.triangle_setup(
         jnp.asarray(clip), jnp.asarray(idx), jnp.ones(120, bool), W, H,
@@ -222,8 +231,7 @@ def test_binning_lists_every_pair_in_draw_order():
     )
     tri_data = torch.tensor(np.asarray(setup.tri_data))
     bbox = torch.tensor(np.asarray(setup.bbox))
-    b = RS.bin_triangles(RS.TriangleSetup(tri_data, bbox), tile_h=16,
-                         tile_w=64, n_tiles_x=W // 64, n_tiles_y=H // 16)
+    b = _port_bins(RS.TriangleSetup(tri_data, bbox), W, H, 16, 64)
     bb = bbox.numpy()
     live = (tri_data[:, RS.COL_VALID].numpy() > 0) & (bb[:, 0] <= bb[:, 2])
     total = 0
@@ -238,10 +246,10 @@ def test_binning_lists_every_pair_in_draw_order():
             )[0]
             np.testing.assert_array_equal(run, want)
             total += c
-    assert total == b.pair_tri.shape[0] and b.overflow == 0
-    capped = RS.bin_triangles(RS.TriangleSetup(tri_data, bbox), tile_h=16,
-                              tile_w=64, n_tiles_x=W // 64,
-                              n_tiles_y=H // 16, binned_cap=total - 10)
+    assert b.overflow == 0 and b.pair_tri.shape[0] == RS.pair_capacity(
+        120, (W // 64) * (H // 16))
+    capped = _port_bins(RS.TriangleSetup(tri_data, bbox), W, H, 16, 64,
+                        binned_cap=total - 10)
     assert capped.overflow == 10
 
 
@@ -340,10 +348,7 @@ def test_near_plane_triangles_get_the_box_of_their_tiles(seed, n_near):
         torch.from_numpy(clip), torch.from_numpy(idx),
         torch.ones(n_tri, dtype=torch.bool), W, H, cull_backface=False,
     )
-    binned = RS.bin_triangles(
-        setup, tile_h=R.BIN_H, tile_w=R.BIN_W,
-        n_tiles_x=-(-W // R.BIN_W), n_tiles_y=-(-H // R.BIN_H),
-    )
+    binned = _port_bins(setup, W, H)
     live = (setup.tri_data[:, RS.COL_VALID] > 0) & (
         setup.bbox[:, 0] <= setup.bbox[:, 2])
     extent = setup.tri_data[:, :RS.COL_C0].abs().amax(1)
@@ -517,12 +522,9 @@ def test_grid_scene_rasterize_attrs_matches_reference(grid_scene):
     assert int(binned.overflow) == 0
     tri_w, z_w, planes_w, mat_w, ht_w = j_rasterize_attrs(
         binned, width=w, height=h, tile_h=jcfg.tile_h, tile_w=jcfg.tile_w)
-    port_binned, attr_rows = R.split_attr_rows(RS.bin_triangles(
+    port_binned, attr_rows = R.split_attr_rows(_port_bins(
         RS.TriangleSetup(torch.tensor(np.asarray(rows)),
-                         torch.tensor(np.asarray(setup.bbox))),
-        tile_h=R.BIN_H, tile_w=R.BIN_W, n_tiles_x=-(-w // R.BIN_W),
-        n_tiles_y=-(-h // R.BIN_H),
-    ))
+                         torch.tensor(np.asarray(setup.bbox))), w, h))
     tri_g, z_g, planes_g, mat_g, ht_g = R.rasterize_attrs(
         port_binned, width=w, height=h, attr_rows=attr_rows)
     assert (np.asarray(tri_w) >= 0).mean() > 0.05
@@ -572,11 +574,8 @@ def test_split_attr_rows_give_the_same_planes(grid_scene):
     cols = attr_rows[:, : R.ATTR_COLS]
 
     def bin_(tri_data):
-        return RS.bin_triangles(
-            RS.TriangleSetup(tri_data, setup.bbox), tile_h=R.BIN_H,
-            tile_w=R.BIN_W, n_tiles_x=-(-r.pad_w // R.BIN_W),
-            n_tiles_y=-(-r.pad_h // R.BIN_H),
-        )
+        return _port_bins(RS.TriangleSetup(tri_data, setup.bbox), r.pad_w,
+                          r.pad_h)
 
     binned, from_joined = R.split_attr_rows(
         bin_(torch.cat([setup.tri_data, cols], dim=1)))

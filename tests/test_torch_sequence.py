@@ -16,9 +16,10 @@ port's own per-frame dispatch and the JAX package.
   probed sequence holds the golden bar against the JAX frame at that
   pose.  On the CPU the sequence is a loop over the frame; the CUDA
   graph replay is checked on the card (``chip_smoke.py`` phase 3).
-- Static binning (``bin_triangles(static=True)``, what the graph
-  captures) lists the exact binning's runs pair for pair while the total
-  fits the capacity, and drops as many pairs past it.
+- Binning under the static capacity (what the graph captures and the
+  eager frame runs) lists the exact pairs, each (tile, triangle) pair of
+  the boxes listed one by one, pair for pair while the total fits the
+  capacity; past it, the first triangles' pairs, and the rest counted.
 - ``Renderer._binned_cap`` is the reference's formula
   (frame_graph.py:481-511) over the port's own 32x128 bins: equal to the
   JAX Renderer's at the default 1080p tiling, whose bins are 32x128 too,
@@ -52,6 +53,7 @@ from mo_renderer_tpu_torch.passes.frame_graph import (  # noqa: E402
 from mo_renderer_tpu_torch.scene.camera import Camera  # noqa: E402
 from mo_renderer_tpu_torch.scene.components import DirectionalLight  # noqa: E402
 from mo_renderer_tpu_torch.scene.scene_buffers import find_shadow_light  # noqa: E402
+from test_torch_binning_contract import listed_pairs, runs  # noqa: E402
 
 
 def _golden_bar(frame, ref, what):
@@ -208,30 +210,33 @@ def _setups(port):
     return out
 
 
+def _exact_pairs(setup, w):
+    """The setup's (tile, triangle) pairs in the frame's bins, listed one
+    by one in slot order (draw order)."""
+    return listed_pairs(setup, tile_h=BIN_H, tile_w=BIN_W,
+                        n_tiles_x=-(-w // BIN_W))
+
+
 def test_static_binning_equals_exact_binning(port):
     cap = port["plain"]._binned_cap
     for setup, w, h in _setups(port):
-        exact = _bin(setup, w, h, cap)
-        static = _bin(setup, w, h, cap, static=True)
-        n = int(exact.tile_count.sum())
-        assert exact.overflow == 0 and int(static.overflow) == 0
-        assert 0 < n <= cap and static.pair_tri.shape == (cap,)
-        assert torch.equal(static.tile_start, exact.tile_start)
-        assert torch.equal(static.tile_count, exact.tile_count)
-        assert torch.equal(static.pair_tri[:n], exact.pair_tri)
-        assert torch.equal(static.bbox, exact.bbox)
+        pairs = _exact_pairs(setup, w)
+        static = _bin(setup, w, h, cap)
+        assert 0 < len(pairs) <= cap and static.pair_tri.shape == (cap,)
+        assert torch.is_tensor(static.overflow) and static.overflow == 0
+        assert runs(static) == sorted(pairs)
+        assert torch.equal(static.bbox, setup.bbox)  # no huge triangle
 
 
 def test_static_binning_overflow_equals_exact_binning(port):
     for setup, w, h in _setups(port):
-        total = int(_bin(setup, w, h, None).tile_count.sum())
+        pairs = _exact_pairs(setup, w)
+        total = len(pairs)
         for cap in (8, total // 2, total - 1):
-            exact = _bin(setup, w, h, cap)
-            static = _bin(setup, w, h, cap, static=True)
-            assert exact.overflow == total - cap
+            static = _bin(setup, w, h, cap)
             assert torch.is_tensor(static.overflow)
-            assert int(static.overflow) == exact.overflow
-            assert int(static.tile_count.sum()) == cap
+            assert int(static.overflow) == total - cap
+            assert runs(static) == sorted(pairs[:cap])
 
 
 def test_binned_cap_is_the_reference_formula(port, jax_probed):

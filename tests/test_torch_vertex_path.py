@@ -117,11 +117,14 @@ def _j_full_raster(tiny_, clip=None):
 
 
 def _port_bin(tri_data, bbox, width, height):
-    return RS.bin_triangles(
+    nx, ny = -(-width // R.BIN_W), -(-height // R.BIN_H)
+    binned = RS.bin_triangles(
         RS.TriangleSetup(t(tri_data), t(bbox)), tile_h=R.BIN_H,
-        tile_w=R.BIN_W, n_tiles_x=-(-width // R.BIN_W),
-        n_tiles_y=-(-height // R.BIN_H),
+        tile_w=R.BIN_W, n_tiles_x=nx, n_tiles_y=ny,
+        binned_cap=RS.pair_capacity(bbox.shape[0], nx * ny),
     )
+    assert int(binned.overflow) == 0
+    return binned
 
 
 # --- vertex stage and setup -------------------------------------------------
@@ -363,7 +366,7 @@ def test_shadow_map_and_factor_match_reference(tiny):
         binned_cap=tiny.jr._binned_cap,
     )
     got_map, povf = shadow_map_from_clip(tiny.scene, cfg=cfg,
-                                         binned_cap=None,
+                                         binned_cap=tiny.jr._binned_cap,
                                          shadow_clip=tiny.pvs.shadow_clip)
     assert int(ovf) == 0 and povf == 0
     assert (n(want_map) < 1.0).mean() > 0.1
