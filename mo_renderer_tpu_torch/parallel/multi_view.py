@@ -31,7 +31,7 @@ import torch.distributed as dist
 from ..config import EngineConfig
 from ..passes.frame_graph import Renderer, build_camera_params, stack_params
 from ..passes.present import unpack_rgba8
-from ..scene.scene_buffers import find_shadow_light, refresh_transforms
+from ..scene.scene_buffers import find_shadow_light
 from ..utils import trace
 
 logger = logging.getLogger("mo_renderer_tpu_torch")
@@ -119,7 +119,7 @@ class MultiViewRenderer:
         if self._inner.scene is None:
             self.prepare(world)
         self._inner._sync_topology(world)
-        self._inner.scene = refresh_transforms(self._inner.scene)
+        self._inner._refresh_transforms()
 
     def _local(self, items):
         """This rank's block of ``items`` padded to a multiple of the

@@ -64,7 +64,6 @@ from ..passes.present import present_pass, unpack_rgba8
 from ..passes.shading import shading_pass_fast
 from ..passes.ssao import TILE_H as SSAO_TILE_H
 from ..passes.ssao import ssao_halo_rows, ssao_pass_tiles
-from ..scene.scene_buffers import refresh_transforms
 from .multi_view import RankGroup
 
 logger = logging.getLogger("mo_renderer_tpu_torch")
@@ -341,13 +340,13 @@ class TileShardedRenderer:
         inner._sync_topology(world)
         if inner._prepare_count != self._prepared_at:
             self._rebuild_frame_fn()
-        inner.scene = refresh_transforms(inner.scene)
+        inner._refresh_transforms()
         params, has_light = inner.frame_params(world)
         if inner.device.type != "cuda":
             full, overflow = self._frame(params, has_light)
         else:
-            graph = self._capture(params.vec, has_light)
-            graph.replay(params.vec)
+            graph = self._capture(params.src, has_light)
+            graph.replay(params.src)
             full, overflow = graph.out.clone(), graph.overflow.clone()
         inner._note_overflow(overflow)
         return full

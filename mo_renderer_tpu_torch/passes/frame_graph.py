@@ -34,10 +34,13 @@ reference's ``_shadow_fn``).  A graph is keyed on the layout, not on
 objects: the prepare, the pad size, the config, the light, the shadow
 mode, the IBL maps, the extra passes and the shape of every scene
 field.  Its inputs are buffers it owns, which each call fills
-by device copies (``_Staged``, ``_StagedScene``), so a camera, entity or
-light move, a spawn and a despawn replay the same graph.  On the CPU the
-frame runs eagerly, op by op, binned the same way.  Nothing falls back
-to another path: a capture that fails raises.
+by copies that do not block (``_Staged``, ``_StagedScene``; the camera
+block from page-locked host memory), so a camera, entity or light move,
+a spawn and a despawn replay the same graph.  The host side before a
+replay checks what each step saw last and rebuilds only what changed
+(the camera block, the transforms, the key).  On the CPU the frame runs
+eagerly, op by op, binned the same way.  Nothing falls back to another
+path: a capture that fails raises.
 
 Each pass of ``frame_program`` runs in ``kernels/mark.py``'s
 ``pass_span``, the tracer's span of the pass (``utils/trace.py``): with
@@ -134,7 +137,13 @@ def _pcf_build(cfg):
 class CameraParams:
     """Per-frame camera/light block as ONE (64,) f32 device vector plus
     its host copy (the reference's CameraParams layout); ``stack_params``
-    stacks several into (V, 64), whose fields keep the leading axis."""
+    stacks several into (V, 64), whose fields keep the leading axis.
+
+    ``src`` is the tensor a captured program's input is filled from:
+    ``vec`` itself, or, for ``Renderer.frame_params``'s block, the host
+    vector the block was written into (page-locked for a card), which
+    ``host`` views.  Such a block copies ``vec`` to ``device`` on its
+    first use only; a replayed frame reads ``src`` and never asks."""
 
     _LAYOUT = {
         "proj_view": (0, 16, (4, 4)),
@@ -149,18 +158,31 @@ class CameraParams:
     }
     SIZE = 64
 
-    def __init__(self, vec, host=None):
-        self.vec = vec
+    def __init__(self, vec, host=None, src=None, device=None):
+        self._vec = vec
         self.host = host
+        self.src = vec if src is None else src
+        self._device = device
+
+    @property
+    def vec(self):
+        if self._vec is None:
+            self._vec = self.src.to(self._device, non_blocking=True)
+        return self._vec
+
+    @classmethod
+    def _field(cls, t, key):
+        a, b, shape = cls._LAYOUT[key]
+        return t[..., a:b].reshape(t.shape[:-1] + shape)
 
     def __getitem__(self, key):
-        a, b, shape = self._LAYOUT[key]
-        return self.vec[..., a:b].reshape(self.vec.shape[:-1] + shape)
+        return self._field(self.vec, key)
 
     def host_field(self, key) -> np.ndarray:
-        a, b, shape = self._LAYOUT[key]
-        host = np.asarray(self.host)
-        return host[..., a:b].reshape(host.shape[:-1] + shape)
+        return self._field(np.asarray(self.host), key)
+
+    def src_field(self, key):
+        return self._field(self.src, key)
 
 
 def stack_params(param_list) -> CameraParams:
@@ -171,24 +193,55 @@ def stack_params(param_list) -> CameraParams:
                         host=np.stack([p.host for p in param_list]))
 
 
-def build_camera_params(camera: Camera, light_proj_view, device,
-                        prev: CameraParams | None = None) -> CameraParams:
-    """Pack one camera (and the shadow light) into CameraParams on
-    ``device``; reuses ``prev`` when the packed bytes are identical."""
+_ZERO, _ONE, _TWO = np.float32(0.0), np.float32(1.0), np.float32(2.0)
+
+
+def _rotate(ux, uy, uz, w, vx, vy, vz):
+    """``quat.rotate`` of (vx, vy, vz) by the unit quaternion (u, w) in
+    float32 scalars, operation for operation: ``np.cross`` takes each
+    component as a product minus a product, and the result is
+    ``v + 2 * (w * uv + uuv)``, so every rounding is the same."""
+    ax = uy * vz - uz * vy
+    ay = uz * vx - ux * vz
+    az = ux * vy - uy * vx
+    bx = uy * az - uz * ay
+    by = uz * ax - ux * az
+    bz = ux * ay - uy * ax
+    return (vx + _TWO * (w * ax + bx), vy + _TWO * (w * ay + by),
+            vz + _TWO * (w * az + bz))
+
+
+def _camera_basis(rotation):
+    """``Transform.direction()``, ``right()`` and ``up()`` (the rotation
+    applied to +Z, +X and +Y) as 9 float32 scalars, the bytes numpy
+    gives, without numpy's per-call cost."""
+    ux, uy, uz, w = np.asarray(rotation, np.float32)
+    return (_rotate(ux, uy, uz, w, _ZERO, _ZERO, _ONE)
+            + _rotate(ux, uy, uz, w, _ONE, _ZERO, _ZERO)
+            + _rotate(ux, uy, uz, w, _ZERO, _ONE, _ZERO))
+
+
+def _write_camera_block(out, camera: Camera, light_proj_view) -> None:
+    """The 64 floats of one camera (and the shadow light) into the
+    float32 array ``out``."""
     proj = camera.projection()
     near = camera.near_p()
     near_h = 2.0 * near * np.tan(camera.fov() / 2.0)
     near_w = camera.aspect() * near_h
-    buf = np.zeros(CameraParams.SIZE, np.float32)
-    buf[0:16] = np.asarray(proj @ camera.view(), np.float32).reshape(-1)
-    buf[16:32] = np.asarray(proj @ camera.prev_view(), np.float32).reshape(-1)
-    buf[32:48] = np.asarray(light_proj_view, np.float32).reshape(-1)
-    buf[48:51] = camera.position()
-    buf[51:54] = camera.direction()
-    buf[54:57] = camera.right()
-    buf[57:60] = camera.up()
-    buf[60] = near
-    buf[61:63] = (near_w, near_h)
+    out[0:16] = np.asarray(proj @ camera.view(), np.float32).reshape(-1)
+    out[16:32] = np.asarray(proj @ camera.prev_view(), np.float32).reshape(-1)
+    out[32:48] = np.asarray(light_proj_view, np.float32).reshape(-1)
+    out[48:51] = camera.position()
+    out[51:60] = _camera_basis(camera.transform.rotation)
+    out[60:64] = (near, near_w, near_h, 0.0)
+
+
+def build_camera_params(camera: Camera, light_proj_view, device,
+                        prev: CameraParams | None = None) -> CameraParams:
+    """Pack one camera (and the shadow light) into CameraParams on
+    ``device``; reuses ``prev`` when the packed bytes are identical."""
+    buf = np.empty(CameraParams.SIZE, np.float32)
+    _write_camera_block(buf, camera, light_proj_view)
     if prev is not None and prev.host is not None and np.array_equal(
         prev.host, buf
     ):
@@ -413,6 +466,13 @@ class Renderer(torch.nn.Module):
         self._staged = None
         self._captures = 0  # frame graphs captured so far
         self._shadow_captures = 0  # shadow graphs captured so far
+        # the frame graph's key (_graph_key), and the layout (_layout)
+        # with the scene it was taken on
+        self._key = None
+        self._layout_value = self._layout_scene = None
+        # the last camera block (_frame_params), its inputs' snapshot and
+        # its light's bytes
+        self._params_prev = self._params_fp = self._light_key = None
         # bumped by every full prepare: wrappers that bind what prepare
         # derives (TileShardedRenderer's band program) rebuild on a change
         self._prepare_count = 0
@@ -430,6 +490,7 @@ class Renderer(torch.nn.Module):
         self._prepare_count += 1
         # the old scene's graphs and staged buffers go before the new pack
         self._graph = self._shadow_graph = self._staged = None
+        self._layout_scene = None
         cfg = self.config
         with trace.span("pack_scene"):
             self.scene = pack_scene(world, cfg, self.device)
@@ -549,16 +610,23 @@ class Renderer(torch.nn.Module):
         so a recycled address can never match a stale table.  On a card
         a recompute replays the shadow graph (``_capture_shadow``) into
         the table the frame graph reads; elsewhere it runs
-        ``shadow_program``."""
+        ``shadow_program``.  ``key_pv`` is the light matrix on the host,
+        ``light_pv`` the one a recompute reads."""
+        return self._shadow_memo(np.asarray(key_pv, np.float32).tobytes(),
+                                 lambda: light_pv, has_light)
+
+    def _shadow_memo(self, key, light, has_light):
+        """``_cached_shadow_quads`` keyed on ``key``, the light matrix's
+        float32 bytes; ``light()`` gives the matrix a recompute reads,
+        asked for only then."""
         cfg = self.config
         if not (self._fast and has_light and cfg.shadow_enabled
                 and cfg.shadow_cache):
             return None
         with trace.span("shadow_memo"):
-            key = np.asarray(key_pv, np.float32).tobytes()
             if key != self._shadow_key or self._shadow_scene is not self.scene:
                 with trace.span("shadow_replay"):
-                    self._recompute_shadow(light_pv)
+                    self._recompute_shadow(light())
                 self._shadow_key = key
                 self._shadow_scene = self.scene
         return self._shadow_quads
@@ -600,30 +668,68 @@ class Renderer(torch.nn.Module):
             self.scene = new_scene
             self._world_generation = gen
 
+    def _refresh_transforms(self) -> None:
+        """Re-bake the entities' transforms if one moved
+        (``refresh_transforms``).  A bake replaces ``mesh_world``,
+        ``mesh_normal_mat`` and ``tri_attrs`` with tensors of the same
+        shapes, so the layout taken on the old scene holds for the new one
+        (``_layout``)."""
+        scene = refresh_transforms(self.scene)
+        if scene is not self.scene and self._layout_scene is self.scene:
+            self._layout_scene = scene
+        self.scene = scene
+
     def frame_params(self, world):
         with trace.span("frame_params"):
             return self._frame_params(world)
 
     def _frame_params(self, world):
+        """(the frame's CameraParams, whether a light casts the shadow).
+        The block is built again (``camera_block_builds``) only when one of
+        its inputs changed since the last build: the camera's translation,
+        rotation, view, previous view, projection, near plane, field of
+        view and aspect, and the light's matrix, each compared by its
+        bytes (the light's float32 bytes, ``_light_key``, key the shadow
+        memo too).  A build writes the block into a new host vector,
+        page-locked for a card (``CameraParams.src``), which the captured
+        frame's input copies without blocking; a block still being copied
+        is never written, since the caching host allocator hands its
+        memory out again only after the copies that read it."""
         camera: Camera = world.resource(Camera)
         light_pv, has_light = find_shadow_light(world)
+        light_key = np.asarray(light_pv, np.float32).tobytes()
         fp = (
             np.asarray(camera.transform.translation).tobytes(),
             np.asarray(camera.transform.rotation).tobytes(),
-            camera.projection().tobytes(),
-            np.asarray(light_pv).tobytes(),
+            camera.view().tobytes(), camera.prev_view().tobytes(),
+            camera.projection().tobytes(), light_key,
+            camera.near_p(), camera.fov(), camera.aspect(),
         )
-        prev = self._params_prev
-        if (
-            prev is not None
-            and self._params_fp == fp
-            and np.array_equal(prev.host[16:32], prev.host[0:16])
-        ):
-            return prev, has_light
-        params = build_camera_params(camera, light_pv, self.device, prev=prev)
-        self._params_prev = params
-        self._params_fp = fp
-        return params, has_light
+        if fp == self._params_fp:
+            return self._params_prev, has_light
+        src = torch.empty(CameraParams.SIZE, dtype=torch.float32,
+                          pin_memory=self.device.type == "cuda")
+        host = src.numpy()
+        _write_camera_block(host, camera, light_pv)
+        trace.count("camera_block_builds")
+        self._params_prev = CameraParams(None, host=host, src=src,
+                                         device=self.device)
+        self._params_fp, self._light_key = fp, light_key
+        return self._params_prev, has_light
+
+    def _frame_inputs(self, world):
+        """The host side of a frame before it runs: the topology, the
+        transforms, the camera block and the shadow memo, each a check that
+        rebuilds only what changed.  Returns (CameraParams, the memoized
+        shadow table or None, has_light)."""
+        self._sync_topology(world)
+        with trace.span("refresh_transforms"):
+            self._refresh_transforms()
+        params, has_light = self.frame_params(world)
+        quads = self._shadow_memo(
+            self._light_key, lambda: params.src_field("light_proj_view"),
+            has_light)
+        return params, quads, has_light
 
     def _frame(self, params, quads, has_light, scene=None):
         """``frame_program`` on the prepared scene (or ``scene``, the
@@ -642,32 +748,28 @@ class Renderer(torch.nn.Module):
         """One frame left on the device: (H, W) int32 packed rgba8 bits.
 
         The host side (topology, transforms, camera params, the shadow
-        memo) runs first.  On a card the frame is then staging copies and
-        one replay of the captured frame (``_capture``), and the result is
+        memo) runs first, each step a check of what it last saw that
+        rebuilds only what changed.  On a card the frame is then staging
+        copies (the camera block one non-blocking copy from page-locked
+        memory into the graph's input) and one replay of the captured
+        frame (``_capture``), and the result is
         a clone of the graph's output, so a frame the caller keeps is not
         overwritten by the next; its dropped-pair counts stay on the
         device until the lag window reads them.  Elsewhere
         ``frame_program`` runs eagerly."""
         with trace.span("render_device"):
-            self._sync_topology(world)
-            with trace.span("refresh_transforms"):
-                self.scene = refresh_transforms(self.scene)
-            params, has_light = self.frame_params(world)
+            params, quads, has_light = self._frame_inputs(world)
             if not self._fast:
                 trace.count("reference_frames")
-            quads = self._cached_shadow_quads(
-                params.host_field("light_proj_view"),
-                params["light_proj_view"], has_light,
-            )
             if self.device.type != "cuda":
                 with trace.span("eager_frame"):
                     rgba, overflow = self._frame(params, quads, has_light)
                 with trace.span("note_overflow"):
                     self._note_overflow(overflow)
                 return rgba
-            graph = self._capture(params.vec, quads, has_light)
+            graph = self._capture(params.src, quads, has_light)
             with trace.span("replay"):
-                graph.replay(params.vec)
+                graph.replay(params.src)
             with trace.span("note_overflow"):
                 self._note_overflow(graph.overflow.clone())
             return graph.out.clone()
@@ -701,7 +803,7 @@ class Renderer(torch.nn.Module):
         graph) is replayed per step (see ``_render_params``); frames equal
         ``render_device``'s bit for bit."""
         self._sync_topology(world)
-        self.scene = refresh_transforms(self.scene)
+        self._refresh_transforms()
         quads, has_light = self._sequence_shadow(world, params_list)
         frames, overflow = self._render_params(stack_params(params_list),
                                                quads, has_light)
@@ -741,10 +843,19 @@ class Renderer(torch.nn.Module):
     def _layout(self):
         """What a captured program's shapes hang on: the prepare that
         packed the scene, and the shape and dtype of every scene field.
-        No object's identity: a move, a spawn or a despawn keeps it."""
-        return (self._prepare_count, tuple(
-            (name, tuple(t.shape), t.dtype)
-            for name, t in _scene_fields(self.scene)))
+        No object's identity: a move, a spawn or a despawn keeps its value.
+        Taken again only on a scene it was not taken on (a prepare, a
+        repack; a bake carries it over, ``_refresh_transforms``), and the
+        tuple taken before is kept while the value is the same, so a
+        caller may check it by identity."""
+        if self._layout_scene is not self.scene:
+            layout = (self._prepare_count, tuple(
+                (name, tuple(t.shape), t.dtype)
+                for name, t in _scene_fields(self.scene)))
+            if layout != self._layout_value:
+                self._layout_value = layout
+            self._layout_scene = self.scene
+        return self._layout_value
 
     def _graph_key(self, has_light, quads):
         """The captured frame's key: the layout, the pad size, the config
@@ -752,18 +863,27 @@ class Renderer(torch.nn.Module):
         given) or rastered in the frame, the IBL maps and the extra
         passes, and whether the tracer is on (its graph holds the pass
         markers).  A new camera, entity transform, light matrix, spawn or
-        despawn keeps it; a resize, a full prepare, a light that appears
-        or goes, an extra pass, another shadow mode or the tracer switched
-        changes it."""
+        despawn keeps its value; a resize, a full prepare, a light that
+        appears or goes, an extra pass, another shadow mode or the tracer
+        switched changes it.  The key is one tuple, built again
+        (``graph_key_builds``) only when the layout is another object or
+        another part differs, so a frame that changes none of them checks
+        it by identity and a few scalar comparisons."""
         ibl_maps = self.ibl.maps() if self.ibl is not None else None
-        return (self._layout(), self.pad_w, self.pad_h,
-                dataclasses.astuple(self.config), has_light,
-                quads is not None, id(ibl_maps),
-                tuple(id(p) for p in self.extra_passes), trace.enabled())
+        layout = self._layout()
+        parts = (self.pad_w, self.pad_h, tuple(vars(self.config).values()),
+                 has_light, quads is not None, id(ibl_maps),
+                 tuple(map(id, self.extra_passes)), trace.enabled())
+        if (self._key is None or self._key[0] is not layout
+                or self._key[1:] != parts):
+            self._key = (layout,) + parts
+            trace.count("graph_key_builds")
+        return self._key
 
     def _staged_scene(self):
         """The scene as the captured programs read it, staged from
-        ``self.scene`` (``_StagedScene``; a new layout stages anew)."""
+        ``self.scene`` (``_StagedScene``; a layout of another value stages
+        anew)."""
         key = self._layout()
         if self._staged is None or self._staged.key != key:
             self._staged = _StagedScene(key, self.scene)
@@ -773,8 +893,9 @@ class Renderer(torch.nn.Module):
     def _capture(self, params, quads, has_light):
         """The captured frame for the current key (``_graph_key``), with
         the scene staged: the first call with a key captures (after
-        freeing the old graph), later calls reuse it.  ``params`` is a
-        (64,) device vector of the first frame, ``quads`` the memoized
+        freeing the old graph), later calls reuse it.  ``params`` is the
+        first frame's (64,) vector (``CameraParams.src``: on the device,
+        or page-locked on the host), ``quads`` the memoized
         table or None.  The table is the shadow graph's output, which the
         frame reads in place: a new shadow graph drops the frame graph
         (``_capture_shadow``)."""
@@ -860,19 +981,22 @@ def _scene_fields(scene):
 
 
 class _Staged:
-    """An input buffer a captured program reads (``buf``), filled by a
-    device copy from the tensor a call hands it when that is not the
-    tensor copied last, or is but was written in place since (its
-    version counter moved)."""
+    """An input buffer a captured program reads (``buf``, on ``device``,
+    by default the source's), filled by a copy from the tensor a call
+    hands it when that is not the tensor copied last, or is but was
+    written in place since (its version counter moved).  The copy does
+    not block: from another device tensor or from page-locked host memory
+    it runs in stream order, before the replay that reads it."""
 
-    def __init__(self, src):
-        self.buf = src.clone()
+    def __init__(self, src, device=None):
+        self.buf = torch.empty_like(src, device=device)
+        self.buf.copy_(src, non_blocking=True)
         self.src, self.version = src, src._version
 
     def stage(self, src) -> None:
         if src is self.src and src._version == self.version:
             return
-        self.buf.copy_(src)
+        self.buf.copy_(src, non_blocking=True)
         self.src, self.version = src, src._version
 
 
@@ -887,16 +1011,23 @@ class _StagedScene:
                        for name in STAGED_FIELDS}
         self.scene = dataclasses.replace(
             scene, **{name: st.buf for name, st in self.staged.items()})
+        self._last = scene  # the scene staged last
 
     def stage(self, scene) -> None:
+        """Stage ``STAGED_FIELDS`` (each by its tensor and version); on a
+        scene other than the one staged last, also check that every other
+        field is still the tensor the programs read."""
+        for name, st in self.staged.items():
+            st.stage(getattr(scene, name))
+        if scene is self._last:
+            return
         for name, t in _scene_fields(scene):
-            if name in self.staged:
-                self.staged[name].stage(t)
-            elif t is not getattr(self.scene, name):
+            if name not in self.staged and t is not getattr(self.scene, name):
                 raise RuntimeError(
                     f"scene field {name} was replaced without a prepare; "
                     f"a captured frame reads it in place (only "
                     f"{', '.join(STAGED_FIELDS)} are staged)")
+        self._last = scene
 
 
 class _FrameGraph:
@@ -905,10 +1036,11 @@ class _FrameGraph:
     ``key``.
 
     ``fn(buf)`` returns (output, (2,) dropped-pair counts); ``buf`` is the
-    program's own input (the camera params or the light matrix,
-    ``_Staged``), filled at each ``replay``.  ``out`` is the output and
-    ``overflow`` this replay's counts, both overwritten by the next
-    replay.  The program runs once eagerly on a side stream first, as
+    program's own input on ``device`` (the camera params or the light
+    matrix, ``_Staged``), filled at each ``replay`` from the tensor it is
+    handed, on the device or in page-locked host memory.  ``out`` is the
+    output and ``overflow`` this replay's counts, both overwritten by the
+    next replay.  The program runs once eagerly on a side stream first, as
     capture requires (it builds the kernel library, fills the per-device
     table caches and meets any collective once).  The kernel wrappers
     count their launches while the graph is captured, which launches
@@ -920,7 +1052,7 @@ class _FrameGraph:
     def __init__(self, key, device, fn, first, refs=(), name="frame"):
         self.key = key
         self.refs = refs
-        self.input = _Staged(first)
+        self.input = _Staged(first, device)
         self.overflow = torch.zeros(2, dtype=torch.int64, device=device)
 
         def run():

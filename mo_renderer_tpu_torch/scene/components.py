@@ -43,13 +43,14 @@ class DirectionalLight:
         position along it; orthographic_rh with **bottom/top swapped**
         (+h, -h) for the Vulkan Y flip; near 0.1, far 100.
 
-        Memoized on the raw TRS + extents: the per-frame host loop calls
-        this every frame (find_shadow_light) and the matrix math is
-        ~0.1ms of numpy for a light that almost never moves.
+        Memoized on the raw bytes of the translation and rotation and on
+        the extents: the per-frame host loop calls this every frame
+        (find_shadow_light) and the matrix math is ~0.1ms of numpy for a
+        light that almost never moves.
         """
         key = (
-            tuple(np.asarray(self.transform.translation).tolist()),
-            tuple(np.asarray(self.transform.rotation).tolist()),
+            np.asarray(self.transform.translation).tobytes(),
+            np.asarray(self.transform.rotation).tobytes(),
             self.shadow_width, self.shadow_height,
         )
         cached = getattr(self, "_pv_cache", None)

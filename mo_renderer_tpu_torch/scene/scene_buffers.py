@@ -36,6 +36,7 @@ from ..config import EngineConfig
 from ..math.projections import normal_matrix
 from ..math.transform import Transform
 from ..passes.vertex_stage import pack_triangle_attributes, world_vertex_stage
+from ..utils import trace
 from .components import DirectionalLight, PointLight, SpotLight
 
 GPU_LIGHT_STRIDE = 20
@@ -461,7 +462,6 @@ def pack_scene(world, config: EngineConfig, device) -> SceneBuffers:
     scene = refresh_tri_attrs(SceneBuffers(**fields))
     # host-side handles for dynamic transforms (refresh_transforms)
     scene._host_mesh_sources = mesh_sources
-    scene._host_worlds_cache = np.stack(mesh_worlds)
     scene._host_trs_cache = _trs_fingerprint(mesh_sources)
     scene._host_pack = _PackState(
         entities=entity_records, v_count=v_count, t_count=t_count,
@@ -683,11 +683,10 @@ def incremental_repack(
         # leaves it as it is)
         new_scene = refresh_tri_attrs(new_scene)
     new_scene._host_mesh_sources = sources
-    new_scene._host_worlds_cache = None  # invalidated by the append
     # carry the OLD TRS cache forward, not a fresh fingerprint: the mesh
     # rows were written from the last-baked worlds, so a transform that
     # moved since then must still look "changed" to the next
-    # refresh_transforms (appends also change the fingerprint's shape,
+    # refresh_transforms (appends also change the fingerprint's length,
     # which forces a re-bake)
     new_scene._host_trs_cache = getattr(scene, "_host_trs_cache", None)
     new_scene._host_pack = st
@@ -708,35 +707,36 @@ def refresh_tri_attrs(scene: SceneBuffers) -> SceneBuffers:
 
 
 def _trs_fingerprint(sources):
-    """(M, 10) raw translation/rotation/scale snapshot of the Transforms."""
-    fp = np.empty((len(sources), 10), np.float32)
-    for i, (t, _node_world) in enumerate(sources):
-        fp[i, 0:3] = t.translation
-        fp[i, 3:7] = t.rotation
-        fp[i, 7:10] = t.scale
-    return fp
+    """The raw bytes of every source Transform's translation, rotation and
+    scale, read in one join of their buffers as they are now, so an
+    element written in place shows as well as an array replaced (a
+    sequence or a strided view is read through a contiguous copy)."""
+    arrays = [a for t, _node_world in sources
+              for a in (t.translation, t.rotation, t.scale)]
+    try:
+        return b"".join(arrays)
+    except (TypeError, BufferError):
+        return b"".join([np.ascontiguousarray(a) for a in arrays])
 
 
 def refresh_transforms(scene: SceneBuffers) -> SceneBuffers:
-    """Re-bake entity transforms if any Transform changed; returns
-    ``scene`` itself (same object) when nothing moved."""
+    """Re-bake entity transforms if any Transform changed since the last
+    bake (one comparison of ``_trs_fingerprint`` snapshots; a bake counts
+    ``transform_bakes``); returns ``scene`` itself (same object) when
+    nothing moved."""
     sources = getattr(scene, "_host_mesh_sources", None)
     if not sources:
         return scene
     fp = _trs_fingerprint(sources)
-    fp_cache = getattr(scene, "_host_trs_cache", None)
-    if fp_cache is not None and np.array_equal(fp, fp_cache):
+    if fp == getattr(scene, "_host_trs_cache", None):
         return scene
+    trace.count("transform_bakes")
     worlds = np.stack(
         [
             (t.model_matrix() @ node_world).astype(np.float32)
             for t, node_world in sources
         ]
     )
-    cache = getattr(scene, "_host_worlds_cache", None)
-    if cache is not None and np.array_equal(worlds, cache):
-        scene._host_trs_cache = fp
-        return scene
     m_pad = scene.mesh_world.shape[0]
     dev = scene.mesh_world.device
     normals = np.stack([normal_matrix(w) for w in worlds])
@@ -751,7 +751,6 @@ def refresh_transforms(scene: SceneBuffers) -> SceneBuffers:
     )
     new_scene = refresh_tri_attrs(new_scene)
     new_scene._host_mesh_sources = sources
-    new_scene._host_worlds_cache = worlds
     new_scene._host_trs_cache = fp
     # keep the pack state and its mirrors in sync: a later spawn writes
     # mesh rows from the mirror, which would silently revert this move if
@@ -765,8 +764,11 @@ def refresh_transforms(scene: SceneBuffers) -> SceneBuffers:
 
 
 def find_shadow_light(world):
-    """First shadow-casting DirectionalLight; returns (proj_view, found)."""
-    for light in world.query(DirectionalLight):
-        if light.is_shadow_caster:
+    """First shadow-casting DirectionalLight; returns (proj_view, found).
+    One pass over the entities' component dicts in spawn order, what
+    ``world.query(DirectionalLight)`` visits, at a dict lookup an entity."""
+    for comps in world.component_dicts():
+        light = comps.get(DirectionalLight)
+        if light is not None and light.is_shadow_caster:
             return light.proj_view(), True
     return np.eye(4, dtype=np.float32), False

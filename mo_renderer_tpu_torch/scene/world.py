@@ -61,6 +61,11 @@ class World:
     def entity_components(self, eid: int) -> dict[type, Any]:
         return self._entities[eid]
 
+    def component_dicts(self):
+        """Every entity's {type: component} dict, in spawn order: a live
+        view for reading, the order ``query`` visits them in."""
+        return self._entities.values()
+
     def iter_entities(self) -> Iterator[Entity]:
         for eid in list(self._entities):
             yield Entity(eid, self)

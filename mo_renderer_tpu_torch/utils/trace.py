@@ -22,7 +22,12 @@ Counters are always on.
   that came from a card through page-locked memory; ``reference_frames``,
   the frames rendered on the reference sampling path (``fast_sampling``
   off, or a material that samples UV set 1), each frame of a sequence or
-  a views call one.
+  a views call one; ``camera_block_builds``, the camera blocks
+  ``Renderer.frame_params`` built (its inputs changed);
+  ``transform_bakes``, the re-bakes of moved transforms
+  (``refresh_transforms``); ``graph_key_builds``, the times
+  ``Renderer._graph_key`` built the captured frame's key again (one of its
+  parts changed).
 - ``snapshot()`` returns the counters, the kernels' launch counts
   (``kernels/_build.py`` ``LAUNCHES``, as ``launches.<kernel>``) and a
   copy of the span log.  The log grows while the spans are on;

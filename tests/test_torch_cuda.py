@@ -1230,6 +1230,71 @@ def test_render_fetches_through_pinned_memory(cuda, path, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("path", ["default", "reference"])
+def test_replayed_walk_copies_its_block_from_pinned_memory(cuda, path):
+    """20 frames of a walk over ``grid_world(10)`` replayed on the card:
+    each frame's camera block is the numpy construction's bytes
+    (``_plain_block`` of ``tests/test_torch_host_checks.py``), written into
+    page-locked memory and copied from there into the graph's input, with
+    no device vector made (one upload a frame); the frame equals the same
+    graph replayed from that construction uploaded as before (a pageable
+    upload, then a device copy) bit for bit; a frame held across the next
+    ``render_device`` is not overwritten; and the walk builds one block a
+    frame, no bake and no key."""
+    import numpy as np
+
+    import chip_smoke
+    from mo_renderer_tpu_torch import Renderer, scenes
+    from mo_renderer_tpu_torch.math import quat
+    from mo_renderer_tpu_torch.scene.camera import Camera
+    from mo_renderer_tpu_torch.scene.scene_buffers import find_shadow_light
+    from mo_renderer_tpu_torch.utils import trace
+    from test_torch_host_checks import _plain_block
+
+    cfg = scenes.tiny_config(width=256, height=128,
+                             **chip_smoke.PATHS[path][0])
+    world = scenes.grid_world(10)
+    world.insert_resource(scenes.grid_camera(cfg))
+    cam = world.resource(Camera)
+    base_pos = cam.transform.translation.copy()
+    base_rot = cam.transform.rotation.copy()
+    r = Renderer(cfg, cuda)
+    r.prepare(world)
+    r.render_device(world)  # the captures
+    r.check_overflow()
+
+    def counts():
+        got = trace.snapshot()["counters"]
+        return [got.get(k, 0) for k in ("camera_block_builds",
+                                        "transform_bakes",
+                                        "graph_key_builds")]
+
+    start, captures = counts(), r._captures
+    held = None
+    for k in range(1, 21):
+        cam.transform.translation = (base_pos + np.float32(
+            [0.05 * k, 0.0, -0.03 * k])).astype(np.float32)
+        cam.transform.rotation = quat.mul(
+            quat.from_rotation_y(0.02 * k), base_rot)
+        cam.refresh_view()
+        frame = r.render_device(world)
+        params, graph = r._params_prev, r._graph
+        plain = _plain_block(cam, find_shadow_light(world)[0])
+        assert params.host.tobytes() == plain.tobytes()
+        assert params.src.is_pinned() and params._vec is None
+        assert graph.input.src is params.src
+        assert graph.input.buf.cpu().numpy().tobytes() == plain.tobytes()
+        if held is not None:
+            assert torch.equal(held[0], held[1])
+        graph.replay(torch.from_numpy(plain).to(cuda))
+        assert torch.equal(frame, graph.out)
+        held = (frame, frame.clone())
+    r.check_overflow()
+    assert r._captures == captures
+    assert [b - a for a, b in zip(start, counts())] == [20, 0, 0]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("path", ["default", "reference", "megakernel"])
 def test_overflow_raises_on_its_frame_on_the_card(cuda, path):
     """Under a pair capacity of 720 the tiny scene's 515 pairs fit; a
