@@ -93,7 +93,12 @@ Phases (each raises on failure; the script then exits non-zero):
    K9, K11, and the band forms K1b and K4b) on the calls of the default,
    reference, megakernel and stack frames of grid_world(10) from
    ``scenes.lit_camera``, each entry reporting its ``sky_pixels`` (every
-   entry does) and asserting 0.  ``check_shading_options`` holds K9 at
+   entry does) and asserting 0; and ``shading@lit/1025`` and
+   ``shading_ref@lit/1025``, K9 and K11 on those calls with 1024 point
+   lights of the benchmark's many-light layout
+   (``benchmark/scenes/sponza_many_lights.py``) after the scene's sun:
+   1025 light rows, two chunks of their shared memory.
+   ``check_shading_options`` holds K9 at
    the same bar with 0 choices apart, at 1920x1080, on every knob set of
    the reference's budget matrix (``scenes.BUDGET_BOUNDS`` on
    ``scenes.budget_world``: the checkerboard on and off, PCF divisors
@@ -326,6 +331,8 @@ LIT_KERNELS = ("raster_slim", "raster_full", "raster_attrs", "attr_planes",
                "stack_planes", "gbuffer", "gbuffer_ref", "ssao",
                "interleave_present", "shading", "shading_ref",
                "raster_slim_band", "ssao_halo")
+# the shading kernels on the @lit calls with 1025 light rows (many_lights)
+MANY_LIGHT_KERNELS = ("shading", "shading_ref")
 # the row-sharded frame (TileShardedRenderer on a world of one): the
 # kernels it runs, and the scene of each of its phase-4 paths
 ROWS_OVERRIDES = {"ssao_res_divisor": 1}
@@ -729,6 +736,27 @@ def shading_work(args):
     n_bytes += sum(row_bytes[k] * n for k, n in unique.items())
     return n_bytes, flops, {"lights": n_l, "sky_pixels": n_sky,
                             "unique_rows": unique}
+
+
+def many_light_rows(lights, n_rows):
+    """``lights``' first row (the scene's sun) and the first ``n_rows -
+    1`` point lights of the benchmark's many-light layout over the
+    40-unit plane (``benchmark/scenes/sponza_many_lights.py``), as
+    GpuLight rows on ``lights``' device."""
+    import numpy as np
+    import torch
+
+    from benchmark.scenes import sponza_many_lights
+    from mo_renderer_tpu_torch.math.transform import Transform
+    from mo_renderer_tpu_torch.scene.components import PointLight
+
+    points = sponza_many_lights.points(1024, 20.0)[:n_rows - 1]
+    rows = np.stack([PointLight(Transform.from_xyz(*p["position"]),
+                                color=p["color"],
+                                intensity=p["intensity"]).gpu_light()
+                     for p in points])
+    return torch.cat([lights[:1], torch.from_numpy(rows).to(
+        lights.device)[:, :lights.shape[1]]])
 
 
 def shading_ref_args(args, kwargs):
@@ -1907,6 +1935,27 @@ def check_kernels(cfg, device):
             sky=lambda p: int((args[0] < 0).sum()),
         )
 
+    def many_lights(name, seen):
+        """K9 or K11 on its ``@lit`` call with 1025 light rows
+        (``many_light_rows``): the light loop at two chunks."""
+        ref = name == "shading_ref"
+        args = list(shading_ref_args(*seen["shading_ref"]) if ref
+                    else shading_args(*seen["shading"]))
+        at = 3 if ref else 4
+        args[at], args[at + 1] = many_light_rows(args[at], 1025), 1025
+        args = tuple(args)
+        n_bytes, n_flops, extra = (shading_ref_work if ref
+                                   else shading_work)(args)
+        kernel, plain = ((Sh._shading_ref_cuda, Sh._shading_ref_plain)
+                         if ref else
+                         (Sh._shading_fast_cuda, Sh._shading_fast_plain))
+        return dict(
+            kernel=lambda: kernel(*args), plain=lambda: plain(*args),
+            cmp=shading_compare,
+            shape=f"{tuple(args[0].depth.shape)}, {extra['lights']} "
+            "light rows", bytes=n_bytes, flops=n_flops, extra=extra,
+            plain_runs=1)
+
     case_of = {
         "raster_slim": functools.partial(raster, mode="slim"),
         "raster_depth": functools.partial(raster, mode="depth"),
@@ -1956,6 +2005,8 @@ def check_kernels(cfg, device):
     )
     for name in LIT_KERNELS:
         cases[f"{name}@lit"] = {**case_of[name](seen), "plain_runs": 3}
+    for name in MANY_LIGHT_KERNELS:
+        cases[f"{name}@lit/1025"] = many_lights(name, seen)
 
     # what the events read for a kernel that does next to nothing
     one = torch.zeros(1, device=device)

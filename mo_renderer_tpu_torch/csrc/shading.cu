@@ -23,7 +23,11 @@
 // SM: __launch_bounds__).
 // 1. The block loads the per-frame constants into shared memory once: the
 //    light rows, light_pv, SH9, the eye and the camera basis, the specular
-//    chain's level tables.
+//    chain's level tables.  A light table of more than kLightChunkRows
+//    rows (the kStreamed instance) is not loaded here: after step 2 the
+//    block streams it through the same shared memory a chunk at a time,
+//    every thread summing its pixel's lights in light order
+//    (shade_lights), and step 3 takes that sum.
 // 2. It evaluates the even-grid samples (2i, sx*j) of its tile plus the
 //    one row and column past it that the upsamples and the mask-aware taps
 //    read (sx = 1 on the checkerboard domain, 2 on a full frame), into
@@ -704,9 +708,29 @@ __device__ V3 sky_tap(const ShadeArgs& a, const FrameConsts& k,
   return quad_lerp_rgbe(a.spec_rows + (size_t)e.idx * 4, e.fx, e.fy);
 }
 
+// The G-buffer of pixel (y, x) that the lights read, V and F0, as
+// shade_pixel computes them (a streamed table's lights sum before it).
+__device__ __forceinline__ Surface surface_at(const ShadeArgs& a,
+                                              const FrameConsts& k, int y,
+                                              int x) {
+  Surface s;
+  s.pos = plane3(a, 0, y, x);
+  s.n = plane3(a, 1, y, x);
+  s.base = plane3(a, 2, y, x);
+  const V3 orm = plane3(a, 4, y, x);
+  s.rough = orm.y;
+  s.metallic = orm.z;
+  s.v = normalize_eps(sub(load3(k.eye), s.pos));
+  s.f0 = fresnel_f0(s.base, s.metallic);
+  return s;
+}
+
+// Pixel (y, x) of the tile.  kStreamed: its lights' sum is ``streamed``
+// (shade_lights); otherwise the whole light table is in ``lights``.
+template <bool kStreamed>
 __device__ void shade_pixel(const ShadeArgs& a, const FrameConsts& k,
                             const float* lights, const Tile& t,
-                            const TileGrid& g, int y, int x) {
+                            const TileGrid& g, int y, int x, V3 streamed) {
 #pragma unroll
   for (int c = 0; c < kDbgChannels; ++c) debug_choice(a, y, x, c, -1);
   const float depth = depth_at(a, y, x);
@@ -731,9 +755,13 @@ __device__ void shade_pixel(const ShadeArgs& a, const FrameConsts& k,
 
   // shade_lights: summed in light order from zero
   V3 lo = v3(0.0f, 0.0f, 0.0f);
-  for (int l = 0; l < a.n_lights; ++l) {
-    lo = add(lo, surface_shading(pos, base, nrm, metallic, rough, v, f0,
-                                 lights + l * kLightCols));
+  if constexpr (kStreamed) {
+    lo = streamed;
+  } else {
+    for (int l = 0; l < a.n_lights; ++l) {
+      lo = add(lo, surface_shading(pos, base, nrm, metallic, rough, v, f0,
+                                   lights + l * kLightCols));
+    }
   }
 
   float shadow = 1.0f;
@@ -796,15 +824,21 @@ __device__ void shade_pixel(const ShadeArgs& a, const FrameConsts& k,
 
 // ---- the kernel --------------------------------------------------------------
 
+// kStreamed: a light table of more than kLightChunkRows rows, which
+// streams through the shared memory a chunk at a time after step 2;
+// otherwise the table is loaded whole in step 1.
+template <bool kStreamed>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     shade_kernel(const ShadeArgs a) {
   __shared__ FrameConsts k;
   __shared__ Tile t;
-  extern __shared__ float lights[];  // n_lights rows of kLightCols
+  extern __shared__ float lights[];  // the light rows, or a chunk of them
   const int tid = threadIdx.x;
 
   // 1. the per-frame constants
-  load_lights(lights, a.lights, a.n_lights, a.light_stride, tid, kThreads);
+  if (!kStreamed) {
+    load_lights(lights, a.lights, a.n_lights, a.light_stride, tid, kThreads);
+  }
   if (tid < 3) {
     k.eye[tid] = a.eye[tid];
     k.right[tid] = a.right[tid];
@@ -858,10 +892,38 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
   __syncthreads();
 
-  // 3. the tile's pixels
+  // 3. the tile's pixels; a streamed table's lights first, with every
+  // thread of the block (shade_lights)
   const int y = y0 + tid / kTileW;
   const int x = x0 + tid % kTileW;
-  if (y < a.h && x < a.w) shade_pixel(a, k, lights, t, g, y, x);
+  V3 lo = v3(0.0f, 0.0f, 0.0f);
+  if constexpr (kStreamed) {
+    const bool lit = y < a.h && x < a.w &&
+                     !(a.has_ibl && depth_at(a, y, x) >= 1.0f);
+    Surface s = {};
+    if (lit) s = surface_at(a, k, y, x);
+    lo = shade_lights<kThreads>(lights, a.lights, a.n_lights, a.light_stride,
+                                tid, lit, s);
+  }
+  if (y < a.h && x < a.w) {
+    shade_pixel<kStreamed>(a, k, lights, t, g, y, x, lo);
+  }
+}
+
+// The instance for ``n_lights`` rows, with its opt-in to the shared memory
+// past 48 KB a block where the rows need it (the static tile and constants
+// with a whole chunk of rows).
+template <bool kStreamed>
+cudaError_t launch(const ShadeArgs& a, size_t light_bytes, cudaStream_t s) {
+  if (light_bytes + sizeof(FrameConsts) + sizeof(Tile) > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        shade_kernel<kStreamed>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)light_bytes);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((a.w + kTileW - 1) / kTileW, (a.h + kTileH - 1) / kTileH);
+  shade_kernel<kStreamed><<<grid, kThreads, light_bytes, s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -870,19 +932,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // cudaGetLastError() after it, or cudaErrorInvalidValue for arguments the
 // kernel does not take.
 extern "C" int mo_shading(const ShadeArgs* args, void* stream) {
-  const size_t light_bytes =
-      (size_t)args->n_lights * kLightCols * sizeof(float);
-  if (light_bytes > (size_t)kMaxLightBytes ||
-      (args->has_ibl && args->num_levels > kMaxLevels)) {
+  if (args->has_ibl && args->num_levels > kMaxLevels) {
     return (int)cudaErrorInvalidValue;
   }
-  if (args->h > 0 && args->w > 0) {
-    const dim3 grid((args->w + kTileW - 1) / kTileW,
-                    (args->h + kTileH - 1) / kTileH);
-    shade_kernel<<<grid, kThreads, light_bytes, (cudaStream_t)stream>>>(
-        *args);
-  }
-  return (int)cudaGetLastError();
+  if (args->h <= 0 || args->w <= 0) return (int)cudaGetLastError();
+  const bool streamed = args->n_lights > kLightChunkRows;
+  const size_t light_bytes =
+      (size_t)(streamed ? kLightChunkRows : args->n_lights) * kLightCols *
+      sizeof(float);
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(streamed ? launch<true>(*args, light_bytes, s)
+                        : launch<false>(*args, light_bytes, s));
 }
 
 // sizeof(ShadeArgs), for the wrapper's check of its ctypes layout

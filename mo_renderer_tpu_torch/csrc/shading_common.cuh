@@ -23,8 +23,11 @@ constexpr int kLightColor = 8;
 constexpr int kLightDir = 12;
 constexpr int kLightAtt = 16;
 constexpr int kLightCols = kLightAtt + 3;  // the columns the kernels read
-// the light rows' shared memory (dynamic), at most
+// the light rows' shared memory (dynamic), at most: a table longer than
+// kLightChunkRows streams through it a chunk at a time (shade_lights, the
+// kernels' kStreamed instances)
 constexpr int kMaxLightBytes = 40 * 1024;
+constexpr int kLightChunkRows = kMaxLightBytes / (kLightCols * 4);
 constexpr int kMaxLevels = 16;  // specular mip levels
 
 constexpr float kPi = (float)3.14159265358979323846;
@@ -287,6 +290,40 @@ __device__ __forceinline__ void load_lights(float* dst, const float* src,
     const int l = i / kLightCols;
     dst[i] = src[(size_t)l * stride + (i - l * kLightCols)];
   }
+}
+
+// What surface_shading reads of a pixel besides the light row.
+struct Surface {
+  V3 pos, base, n, v, f0;
+  float metallic, rough;
+};
+
+// shade_lights: surface_shading summed over a light table of more rows
+// than one chunk (``n_lights`` rows of stride ``stride``), in light order
+// from zero, as the one-chunk kernels sum a table they hold whole.  The
+// rows stream through ``smem`` kLightChunkRows at a time, each chunk
+// loaded by the whole block between two barriers, so every thread of the
+// block calls this, as often as any other, and ``lit`` says whether its
+// pixel sums.
+template <int kBlockThreads>
+__device__ __forceinline__ V3 shade_lights(float* smem, const float* rows,
+                                           int n_lights, int stride, int tid,
+                                           bool lit, const Surface& s) {
+  V3 lo = v3(0.0f, 0.0f, 0.0f);
+  for (int c = 0; c < n_lights; c += kLightChunkRows) {
+    const int n = min(kLightChunkRows, n_lights - c);
+    __syncthreads();  // every thread is done with the rows before
+    load_lights(smem, rows + (size_t)c * stride, n, stride, tid,
+                kBlockThreads);
+    __syncthreads();
+    if (lit) {
+      for (int l = 0; l < n; ++l) {
+        lo = add(lo, surface_shading(s.pos, s.base, s.n, s.metallic, s.rough,
+                                     s.v, s.f0, smem + l * kLightCols));
+      }
+    }
+  }
+  return lo;
 }
 
 }  // namespace

@@ -22,7 +22,11 @@
 // Design: a block of kWarps warps; each warp owns a span of kSpan
 // consecutive pixels of the frame (row-major), with the frame's constants
 // (light rows, light_pv, eye, camera basis, the specular level tables) in
-// shared memory, loaded once a block.
+// shared memory, loaded once a block.  A light table of more than
+// kLightChunkRows rows (the kStreamed instance) streams through the same
+// shared memory a chunk at a time in each round of the lit pass, every
+// thread of the block taking part in each chunk's load (shade_lights),
+// and the lit pixel takes that sum.
 // 1. Each lane reads its span pixels' depths, all in flight at once.
 // 2. Classify and compact: with IBL a pixel at depth >= 1 is sky (the
 //    plain version computes its lights, shadow and ambient and then
@@ -333,11 +337,36 @@ __device__ __forceinline__ V3 clamp3(V3 c) {
             clampf(c.z, 0.0f, 1.0f));
 }
 
+// The G-buffer of lit pixel (y, x) that the lights read, V and F0, as
+// shade_lit computes them (a streamed table's lights sum before it).
+__device__ __forceinline__ Surface lit_surface(const ShadeRefArgs& a,
+                                               const FrameConsts& k, int y,
+                                               int x) {
+  Surface s;
+  s.pos = plane3(a, 0, y, x);
+  s.n = plane3(a, 1, y, x);
+  s.base = plane3(a, 2, y, x);
+  const V3 orm = plane3(a, 4, y, x);
+  s.rough = orm.y;
+  s.metallic = orm.z;
+  const V3 to_eye = psub3(load3(k.eye), s.pos);
+  if (a.has_ibl) {
+    s.v = pnormalize_eps(to_eye);
+  } else {
+    s.v = normalize_eps(to_eye);
+  }
+  s.f0 = fresnel_f0(s.base, s.metallic);
+  return s;
+}
+
 // A lit pixel (not sky): shadow, lights, ambient, combine, tonemap, clamp.
+// kStreamed: its lights' sum is ``streamed`` (shade_lights); otherwise the
+// whole light table is in ``lights``.
+template <bool kStreamed>
 __device__ __forceinline__ V3 shade_lit(const ShadeRefArgs& a,
                                         const FrameConsts& k,
                                         const float* lights, int y, int x,
-                                        int* dbg) {
+                                        int* dbg, V3 streamed) {
   const V3 pos = plane3(a, 0, y, x);
   const V3 nrm = plane3(a, 1, y, x);
   const V3 base = plane3(a, 2, y, x);
@@ -359,9 +388,13 @@ __device__ __forceinline__ V3 shade_lit(const ShadeRefArgs& a,
   const V3 f0 = fresnel_f0(base, metallic);
   // shade_lights: summed in light order from zero
   V3 lo = v3(0.0f, 0.0f, 0.0f);
-  for (int l = 0; l < a.n_lights; ++l) {
-    lo = add(lo, surface_shading(pos, base, nrm, metallic, rough, v, f0,
-                                 lights + l * kLightCols));
+  if constexpr (kStreamed) {
+    lo = streamed;
+  } else {
+    for (int l = 0; l < a.n_lights; ++l) {
+      lo = add(lo, surface_shading(pos, base, nrm, metallic, rough, v, f0,
+                                   lights + l * kLightCols));
+    }
   }
   const V3 ambient =
       a.has_ibl ? ibl_ref(a, k, nrm, v, base, f0, rough, metallic, occlusion,
@@ -438,14 +471,20 @@ __device__ __forceinline__ void store3(const ShadeRefArgs& a, int p, V3 c) {
   o[2] = c.z;
 }
 
+// kStreamed: a light table of more than kLightChunkRows rows, which
+// streams through the shared memory a chunk at a time in the lit pass;
+// otherwise the table is loaded whole with the frame's constants.
+template <bool kStreamed>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     shade_ref_kernel(const ShadeRefArgs a) {
   __shared__ FrameConsts k;
   __shared__ uint8_t sky_list[kWarps][kSpan], lit_list[kWarps][kSpan];
-  extern __shared__ float lights[];  // n_lights rows of kLightCols
+  extern __shared__ float lights[];  // the light rows, or a chunk of them
   const int t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
-  load_lights(lights, a.lights, a.n_lights, a.light_stride, t, kThreads);
+  if (!kStreamed) {
+    load_lights(lights, a.lights, a.n_lights, a.light_stride, t, kThreads);
+  }
   if (t < 3) {
     k.eye[t] = a.eye[t];
     k.right[t] = a.right[t];
@@ -508,11 +547,34 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       store3(a, p0 + q, shade_sky(a, k, c, y, x, dbg_of(a, p0 + q)));
     }
   }
-  for (int i = lane; i < n_lit; i += 32) {
-    const int q = lit_list[warp][i];
-    int y, x;
-    pixel_of(a, y0, x0, q, y, x);
-    store3(a, p0 + q, shade_lit(a, k, lights, y, x, dbg_of(a, p0 + q)));
+  if constexpr (kStreamed) {
+    // kSub rounds, lane i taking the list's pixels i, i + 32, ...: every
+    // thread runs every round, since the light table's chunks are the
+    // block's to load (shade_lights)
+    for (int r = 0; r < kSub; ++r) {
+      const int i = lane + 32 * r;
+      const bool lit = i < n_lit;
+      const int q = lit ? lit_list[warp][i] : 0;
+      int y, x;
+      pixel_of(a, y0, x0, q, y, x);
+      Surface s = {};
+      if (lit) s = lit_surface(a, k, y, x);
+      const V3 lo = shade_lights<kThreads>(lights, a.lights, a.n_lights,
+                                           a.light_stride, t, lit, s);
+      if (lit) {
+        store3(a, p0 + q,
+               shade_lit<true>(a, k, lights, y, x, dbg_of(a, p0 + q), lo));
+      }
+    }
+  } else {
+    for (int i = lane; i < n_lit; i += 32) {
+      const int q = lit_list[warp][i];
+      int y, x;
+      pixel_of(a, y0, x0, q, y, x);
+      store3(a, p0 + q, shade_lit<false>(a, k, lights, y, x,
+                                         dbg_of(a, p0 + q),
+                                         v3(0.0f, 0.0f, 0.0f)));
+    }
   }
 }
 
@@ -522,18 +584,23 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // cudaGetLastError() after it, or cudaErrorInvalidValue for arguments the
 // kernel does not take.
 extern "C" int mo_shading_ref(const ShadeRefArgs* args, void* stream) {
-  const size_t light_bytes =
-      (size_t)args->n_lights * kLightCols * sizeof(float);
-  if (light_bytes > (size_t)kMaxLightBytes ||
-      (args->has_ibl &&
-       (args->num_levels < 1 || args->num_levels > kMaxLevels))) {
+  if (args->has_ibl &&
+      (args->num_levels < 1 || args->num_levels > kMaxLevels)) {
     return (int)cudaErrorInvalidValue;
   }
+  const bool streamed = args->n_lights > kLightChunkRows;
+  const size_t light_bytes =
+      (size_t)(streamed ? kLightChunkRows : args->n_lights) * kLightCols *
+      sizeof(float);
   const int n = args->h * args->w;
   if (n > 0) {
-    const int per_block = kWarps * kSpan;
-    shade_ref_kernel<<<(n + per_block - 1) / per_block, kThreads, light_bytes,
-                       (cudaStream_t)stream>>>(*args);
+    const int blocks = (n + kWarps * kSpan - 1) / (kWarps * kSpan);
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (streamed) {
+      shade_ref_kernel<true><<<blocks, kThreads, light_bytes, s>>>(*args);
+    } else {
+      shade_ref_kernel<false><<<blocks, kThreads, light_bytes, s>>>(*args);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -51,6 +51,7 @@ boundary, and its key says so.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import logging
 
 import numpy as np
@@ -78,6 +79,7 @@ from ..scene.scene_buffers import (
     find_shadow_light,
     incremental_repack,
     pack_scene,
+    refresh_lights,
     refresh_transforms,
 )
 from ..utils import trace
@@ -670,10 +672,12 @@ class Renderer(torch.nn.Module):
 
     def _refresh_transforms(self) -> None:
         """Re-bake the entities' transforms if one moved
-        (``refresh_transforms``).  A bake replaces ``mesh_world``,
-        ``mesh_normal_mat`` and ``tri_attrs`` with tensors of the same
-        shapes, so the layout taken on the old scene holds for the new one
-        (``_layout``)."""
+        (``refresh_transforms``), and rewrite the light rows in place if a
+        light moved or changed (``refresh_lights``).  A bake replaces
+        ``mesh_world``, ``mesh_normal_mat`` and ``tri_attrs`` with tensors
+        of the same shapes, so the layout taken on the old scene holds for
+        the new one (``_layout``)."""
+        refresh_lights(self.scene)
         scene = refresh_transforms(self.scene)
         if scene is not self.scene and self._layout_scene is self.scene:
             self._layout_scene = scene
@@ -1069,8 +1073,17 @@ class _FrameGraph:
             torch.cuda.current_stream(device).wait_stream(side)
             before = dict(_build.LAUNCHES)
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                self.out = run()
+            # no automatic collection inside the capture (the graph's entry
+            # collects first): a cycle freed there may hold another
+            # renderer's graph, whose destruction invalidates the capture
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(self.graph):
+                    self.out = run()
+            finally:
+                if collecting:
+                    gc.enable()
         self.launches = {k: v - before[k] for k, v in _build.LAUNCHES.items()
                          if v != before[k]}
         _build.LAUNCHES.update(before)

@@ -686,10 +686,11 @@ def _shading_fast_plain(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
 # them (csrc/shading.cu kPcf*)
 PCF_NONE, PCF_U16_HALF, PCF_U16_FULL, PCF_F32_WIDE = 0, 1, 2, 3
 PCF_DIVISORS = (1, 2, 4)
-# what csrc/shading.cu keeps in shared memory: the light rows' columns it
-# reads (kLightCols), their bytes (kMaxLightBytes), the specular levels
+# what csrc/shading.cu and csrc/shading_ref.cu keep in shared memory: the
+# light rows' columns they read (kLightCols), the rows of the chunk a light
+# table of any length streams through (kLightChunkRows), the specular levels
 LIGHT_COLS = 19
-MAX_LIGHT_BYTES = 40 * 1024
+LIGHT_CHUNK_ROWS = 538
 MAX_LEVELS = 16
 # the debug output's int32 channels per pixel of the shading domain
 # (csrc/shading.cu kDbg*), each a discrete choice the kernel makes at full
@@ -852,9 +853,6 @@ def shade_args(gbuf, ssao, shadow_quad_rows, shadow_size, lights,
     if has_ibl and a.num_levels > MAX_LEVELS:
         raise ValueError(f"shading: {a.num_levels} specular levels, the "
                          f"kernel takes {MAX_LEVELS}")
-    if a.n_lights * LIGHT_COLS * 4 > MAX_LIGHT_BYTES:
-        raise ValueError(f"shading: {a.n_lights} lights, the kernel takes "
-                         f"{MAX_LIGHT_BYTES // (4 * LIGHT_COLS)}")
     return a, keep
 
 
@@ -955,9 +953,6 @@ def shade_ref_args(gbuf, ssao, shadow_map, lights, num_lights, params, ibl,
         raise ValueError(f"shading: light rows of {lights.shape[1]} "
                          f"columns, the kernel reads {LIGHT_COLS}")
     n_lights = min(lights.shape[0], num_lights)
-    if n_lights * LIGHT_COLS * 4 > MAX_LIGHT_BYTES:
-        raise ValueError(f"shading: {n_lights} lights, the kernel takes "
-                         f"{MAX_LIGHT_BYTES // (4 * LIGHT_COLS)}")
     for name, t in [*zip(GBUFFER_PLANES, planes), ("depth", gbuf.depth),
                     ("ssao", ssao)]:
         _int32_extent(name, t)

@@ -1,7 +1,8 @@
 """Scene packing: World -> padded tensors on a torch device (port of
 ``mo_renderer_tpu/scene/scene_buffers.py``: ``SceneBuffers``,
 ``pack_scene``, ``incremental_repack``, ``refresh_tri_attrs``,
-``refresh_transforms`` and ``find_shadow_light``).
+``refresh_transforms`` and ``find_shadow_light``; ``refresh_lights`` is
+the port's own).
 
 The packing itself is host-side numpy, identical to the reference.  The
 reference uploads with ``jnp.asarray``, which (64-bit types being off in
@@ -158,6 +159,10 @@ class _PackState:
     entry_sizes: list
     slot_map: np.ndarray
     host: dict  # padded numpy mirrors of the mutable fields, device dtypes
+    # the light components in row order, and what their rows read when the
+    # rows were last written (refresh_lights)
+    lights: list = dataclasses.field(default_factory=list)
+    light_fp: tuple | None = None
 
 
 def _image_key(img: np.ndarray) -> tuple:
@@ -413,16 +418,16 @@ def pack_scene(world, config: EngineConfig, device) -> SceneBuffers:
             axis=0,
         )
 
-    light_rows = []
-    for comp_type in (DirectionalLight, PointLight, SpotLight):
-        for light in world.query(comp_type):
-            light_rows.append(light.gpu_light())
-    if len(light_rows) > config.max_lights:
-        raise ValueError(f"too many lights ({len(light_rows)})")
-    l_pad = _round_up(max(len(light_rows), 1), 4)
-    lights = np.zeros((l_pad, GPU_LIGHT_STRIDE), np.float32)
-    for i, row in enumerate(light_rows):
-        lights[i] = row
+    with trace.span("pack_lights"):
+        light_list = _lights_of(world)
+        light_rows = [light.gpu_light() for light in light_list]
+        if len(light_rows) > config.max_lights:
+            raise ValueError(f"too many lights ({len(light_rows)})")
+        l_pad = _round_up(max(len(light_rows), 1), 4)
+        lights = np.zeros((l_pad, GPU_LIGHT_STRIDE), np.float32)
+        for i, row in enumerate(light_rows):
+            lights[i] = row
+    trace.count("light_rows", len(light_rows))
 
     # padded host mirrors of the mutable fields, in the device dtypes:
     # incremental_repack appends into their tails and uploads the rows
@@ -470,6 +475,7 @@ def pack_scene(world, config: EngineConfig, device) -> SceneBuffers:
         uniform_rgba=uniform_rgba, default_layer=default_layer,
         stack_ids=stack_ids, entry_bases=entry_bases,
         entry_sizes=entry_sizes, slot_map=slot_map, host=host,
+        lights=light_list, light_fp=_light_fingerprint(light_list),
     )
     return scene
 
@@ -527,12 +533,10 @@ def incremental_repack(
 
     # light set: content changes repack in place, count changes re-prepare
     # (the shading loop is specialised to the live count)
-    light_rows = []
-    for comp_type in (DirectionalLight, PointLight, SpotLight):
-        for light in world.query(comp_type):
-            light_rows.append(light.gpu_light())
-    if len(light_rows) != st.n_lights:
+    light_list = _lights_of(world)
+    if len(light_list) != st.n_lights:
         return None
+    light_rows = [light.gpu_light() for light in light_list]
 
     current = list(world.query(Transform, Model))
     if not current:
@@ -667,13 +671,8 @@ def incremental_repack(
             _write_rows(scene, h, name, base[cls], end[cls])
 
     # light content (same count): rewrite the rows in place
-    lights = np.zeros_like(h["lights"])
-    for i, row in enumerate(light_rows):
-        lights[i] = row
-    new_lights = not np.array_equal(lights, h["lights"])
-    if new_lights:
-        h["lights"] = lights
-        _write_rows(scene, h, "lights", 0, len(lights))
+    st.lights, st.light_fp = light_list, _light_fingerprint(light_list)
+    new_lights = _write_lights(scene, h, light_rows)
 
     if not (dead or plans or new_lights):
         return scene  # pure reorder / no-op topology bump
@@ -691,6 +690,64 @@ def incremental_repack(
     new_scene._host_trs_cache = getattr(scene, "_host_trs_cache", None)
     new_scene._host_pack = st
     return new_scene
+
+
+def _lights_of(world) -> list:
+    """The world's light components in the order of their rows: the
+    directional lights, then the point lights, then the spot lights."""
+    return [light for comp_type in (DirectionalLight, PointLight, SpotLight)
+            for light in world.query(comp_type)]
+
+
+def _write_lights(scene: SceneBuffers, host: dict, light_rows) -> bool:
+    """Write ``light_rows`` into the light table's mirror and the scene's
+    tensor in place, if they differ from what it holds; whether they
+    did."""
+    lights = np.zeros_like(host["lights"])
+    for i, row in enumerate(light_rows):
+        lights[i] = row
+    if np.array_equal(lights, host["lights"]):
+        return False
+    host["lights"] = lights
+    _write_rows(scene, host, "lights", 0, len(lights))
+    return True
+
+
+_NO_ARRAY = b""
+
+
+def _light_fingerprint(lights) -> tuple:
+    """What the lights' rows read, as they are now: the raw bytes of each
+    light's translation, rotation, colour and attenuation in one join (an
+    element written in place shows as well as an array or a transform
+    replaced), and its intensity and spot exponent."""
+    arrays = [a for light in lights
+              for a in (light.transform.translation, light.transform.rotation,
+                        light.color,
+                        light.__dict__.get("attenuation", _NO_ARRAY))]
+    try:
+        raw = b"".join(arrays)
+    except (TypeError, BufferError):
+        raw = b"".join([np.ascontiguousarray(a) for a in arrays])
+    return raw, [(light.intensity, light.__dict__.get("exponent"))
+                 for light in lights]
+
+
+def refresh_lights(scene: SceneBuffers) -> None:
+    """Rewrite the packed light rows in place if a light changed since
+    they were written (one comparison of ``_light_fingerprint``
+    snapshots; a rewrite counts ``light_rewrites``): a moved sun lights
+    the frame from where it is, as its shadow map does.  The rows keep
+    their tensor, so nothing that reads it is rebuilt."""
+    st = getattr(scene, "_host_pack", None)
+    if st is None:
+        return
+    fp = _light_fingerprint(st.lights)
+    if fp == st.light_fp:
+        return
+    trace.count("light_rewrites")
+    st.light_fp = fp
+    _write_lights(scene, st.host, [light.gpu_light() for light in st.lights])
 
 
 def refresh_tri_attrs(scene: SceneBuffers) -> SceneBuffers:

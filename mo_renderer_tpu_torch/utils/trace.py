@@ -27,7 +27,10 @@ Counters are always on.
   ``transform_bakes``, the re-bakes of moved transforms
   (``refresh_transforms``); ``graph_key_builds``, the times
   ``Renderer._graph_key`` built the captured frame's key again (one of its
-  parts changed).
+  parts changed); ``light_rows``, the light rows ``pack_scene`` packed
+  (each prepare adds its scene's); ``light_rewrites``, the times
+  ``refresh_lights`` wrote the light rows again (a light moved or
+  changed with no spawn or despawn).
 - ``snapshot()`` returns the counters, the kernels' launch counts
   (``kernels/_build.py`` ``LAUNCHES``, as ``launches.<kernel>``) and a
   copy of the span log.  The log grows while the spans are on;
@@ -42,9 +45,9 @@ on a card ``fetch`` > ``fetch_issue`` (the copy's issue), ``fetch_wait``
 ``shadow_replay``), ``graph_lookup`` (the key and the staging; > ``capture``
 on a miss), ``replay``, ``note_overflow``; on the CPU ``eager_frame`` (>
 the ``pass::`` spans) in place of the lookup and the replay.  ``prepare`` >
-``pack_scene``, ``ibl_precompute`` (which synchronises the device at its
-end while the spans are on, so its host time holds the device's work).  A
-views call: ``render_views`` > ``sync_topology``, ``params``,
+``pack_scene`` (> ``pack_lights``), ``ibl_precompute`` (which synchronises
+the device at its end while the spans are on, so its host time holds the
+device's work).  A views call: ``render_views`` > ``sync_topology``, ``params``,
 ``graph_lookup``, ``replay``.
 
 The tracer is one per process, for the thread that renders.

@@ -15,7 +15,9 @@ second with it on, read by ``benchmark/harness/program.py``:
 span, children counted in their parents too).  Prints one JSON line:
 {"root", "card", "power_limit", "workload", "seed", "off": {...},
 "on": {"frame_ms", "render_device_host_ms", "split", "counters"}}, where
-``counters`` are the tracer's counters' growth over the traced window.
+``counters`` are the tracer's counters' growth over the traced window,
+and "setup" the counters set-up left (the prepares, the light rows the
+prepares packed).
 """
 
 from __future__ import annotations
@@ -119,6 +121,8 @@ def main(argv=None) -> int:
     print(json.dumps({
         "root": root, "card": card, "power_limit": limit,
         "workload": args.workload, "seed": args.seed, "off": off,
+        "setup": {k: start[k] for k in ("prepares", "light_rows")
+                  if k in start},
         "on": {"frames": len(frame_s),
                "frame_ms": 1e3 * window_s / len(frame_s),
                "render_device_host_ms": program.render_device_host_ms(rec),

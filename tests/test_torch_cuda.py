@@ -31,7 +31,10 @@ one launch, no fallback); of the G-buffer tail's (K10: random inputs laid
 out as each of its five sources has them, through its debug rows, no
 fallback on any fast path's frame); and of the reference path's shading
 kernel's (K11: random G-buffers under every option set, 1 to 16 lights,
-its discrete choices through its debug output, no fallback); and of the
+its discrete choices through its debug output, no fallback); of K9 and
+K11 on light tables of 5, 538, 539 and 1025 rows (one chunk of their
+shared memory, one row past it, two chunks; each table also behind dark
+rows that move it against the chunk borders, bit for bit); and of the
 reference path's G-buffer kernel's (K12: random scenes aimed at its
 discontinuities, its texel anchors and UV sets through its debug output,
 the UV1, all-slots and no-tangent calls, no fallback).
@@ -56,7 +59,8 @@ def cuda():
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_the_card(cuda):
     """Every kernel against its plain version on the 256x128 frames' own
-    inputs (chip_smoke's phase 2 at the small size)."""
+    inputs (chip_smoke's phase 2 at the small size), the shading kernels
+    also with 1025 light rows."""
     import chip_smoke
     from mo_renderer_tpu_torch import scenes
 
@@ -64,7 +68,8 @@ def test_kernels_match_plain_versions_on_the_card(cuda):
     lit = {f"{name}@lit" for name in chip_smoke.LIT_KERNELS}
     assert set(results) == set(chip_smoke.KERNELS) | {
         f"{name}@grid" for name in chip_smoke.GRID_KERNELS
-        + chip_smoke.BAND_GRID_KERNELS} | lit
+        + chip_smoke.BAND_GRID_KERNELS} | lit | {
+        f"{name}@lit/1025" for name in chip_smoke.MANY_LIGHT_KERNELS}
     assert all(results[name]["sky_pixels"] == 0 for name in lit)
 
 
@@ -1018,6 +1023,76 @@ def test_shading_ref_kernel_on_random_gbuffers(cuda, n_lights, ibl, shadow,
     assert ok, (err, bar, apart)
 
 
+def _light_table(cuda, n_rows, seed=1):
+    """``n_rows`` random GpuLight rows of the three kinds, as the random
+    cases draw them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lights = torch.from_numpy(
+        rng.uniform(0.0, 1.0, (n_rows, 20)).astype(np.float32)).to(cuda)
+    lights[:, 0] = torch.arange(n_rows, device=cuda) % 3
+    lights[:, 2] *= 20.0
+    return lights
+
+
+def _behind_dark_rows(lights, n_dark):
+    """``lights`` behind ``n_dark`` point lights of no colour, which add
+    exactly +0 to the sum they start (a point light's radiance is its
+    colour times a finite attenuation)."""
+    dark = torch.zeros(n_dark, lights.shape[1], device=lights.device)
+    dark[:, 0] = 1.0
+    dark[:, 4:7] = torch.arange(n_dark, device=lights.device)[:, None] * 0.01
+    dark[:, 16:19] = torch.tensor([1.0, 0.09, 0.032], device=lights.device)
+    return torch.cat([dark, lights])
+
+
+# K9 (shading) and K11 (shading_ref): (kernel, plain version, the random
+# case of n light rows, where the case's light rows and count sit)
+def _shading_kernel_case(cuda, kernel, n_rows):
+    from mo_renderer_tpu_torch.passes import shading as Sh
+
+    if kernel == "shading":
+        args, at = list(_shading_case(cuda, 1, True)), 4
+        fns = Sh._shading_fast_cuda, Sh._shading_fast_plain
+    else:
+        args, at = list(_shading_ref_case(cuda, 1)), 3
+        fns = Sh._shading_ref_cuda, Sh._shading_ref_plain
+    args[at], args[at + 1] = _light_table(cuda, n_rows), n_rows
+    return fns, args, at
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [5, 538, 539, 1025])
+@pytest.mark.parametrize("kernel", ["shading", "shading_ref"])
+def test_shading_kernels_take_a_light_table_of_any_length(cuda, kernel,
+                                                          n_rows):
+    """K9 and K11 on a random G-buffer lit by ``n_rows`` light rows -- at
+    most one chunk of the shared memory (``shading.LIGHT_CHUNK_ROWS``,
+    the table loaded whole), one row past it, two chunks (the table
+    streamed) -- against the plain version at the bar.  Behind dark rows
+    that start it at two places against the chunk borders, a table
+    streams to the same bytes, and those of a table already streamed."""
+    import chip_smoke
+    from mo_renderer_tpu_torch.passes import shading as Sh
+
+    (kern, plain), args, at = _shading_kernel_case(cuda, kernel, n_rows)
+    got = kern(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    err, ok, bar = chip_smoke.shading_compare(got, want)
+    assert ok, (err, bar)
+    lights = args[at]
+    streamed = []
+    for n_dark in (Sh.LIGHT_CHUNK_ROWS + 1, Sh.LIGHT_CHUNK_ROWS * 3 // 2):
+        args[at] = _behind_dark_rows(lights, n_dark)
+        args[at + 1] = n_rows + n_dark
+        streamed.append(kern(*args))
+    assert torch.equal(streamed[0], streamed[1])
+    if n_rows > Sh.LIGHT_CHUNK_ROWS:
+        assert torch.equal(streamed[0], got)
+
+
 @pytest.mark.cuda
 def test_shading_ref_holds_its_option_sets(cuda):
     """K11 on the frames' own calls at 256x128: no IBL, no shadow, the
@@ -1150,6 +1225,39 @@ def _turn(world, cfg, angle):
     cam.transform.translation = pose.transform.translation
     cam.transform.rotation = pose.transform.rotation
     cam.refresh_view()
+
+
+@pytest.mark.cuda
+def test_a_capture_runs_with_the_collector_off(cuda, monkeypatch):
+    """Python's cyclic collector makes no automatic pass while a frame is
+    captured, and is on again after: a pass inside the capture may free
+    an older renderer's graph, and destroying a graph while a stream
+    captures invalidates the capture (which pass lands there depends on
+    every allocation before it, so this file's earlier tests decide)."""
+    import gc
+
+    from mo_renderer_tpu_torch import Renderer, scenes
+    from mo_renderer_tpu_torch.passes import frame_graph as FG
+
+    seen = []
+    program = FG.frame_program
+
+    def spy(*args, **kwargs):
+        seen.append((torch.cuda.is_current_stream_capturing(),
+                     gc.isenabled()))
+        return program(*args, **kwargs)
+
+    monkeypatch.setattr(FG, "frame_program", spy)
+    assert gc.isenabled()
+    cfg = scenes.tiny_config()
+    world = scenes.tiny_world()
+    world.insert_resource(scenes.camera(cfg))
+    r = Renderer(cfg, cuda)
+    r.prepare(world)
+    r.render(world)
+    assert (True, False) in seen and (True, True) not in seen
+    assert (False, True) in seen  # the eager run before the capture
+    assert gc.isenabled()
 
 
 @pytest.mark.cuda

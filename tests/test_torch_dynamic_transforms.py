@@ -1,7 +1,8 @@
 """Dynamic transforms on port frames (CPU): mutating an entity's Transform
 between frames moves the rendered geometry, and moving it back gives the
 frame back bit for bit; a light move invalidates the memoized shadow; a
-spawn and its despawn give the first frame back.  Mirrors
+light moved or changed with no spawn shades the next frame as a fresh
+prepare's; a spawn and its despawn give the first frame back.  Mirrors
 tests/test_dynamic_transforms.py:14, :43 and :78 (the table-level twin of
 ``refresh_transforms`` is tests/test_torch_scene_ibl.py:101).
 """
@@ -92,6 +93,54 @@ def test_shadow_cache_invalidates_on_light_move(ibl):
 
     light.transform = orig
     np.testing.assert_array_equal(r.render(world), f0)
+
+
+# a light's move or edit between frames, each: the sun turned to another
+# place, a point light's translation written in place, its colour and
+# intensity changed
+LIGHT_EDITS = {
+    "sun_moved": lambda sun, point: setattr(
+        sun, "transform", Transform.from_xyz(-6.0, 4.0, 2.0).looking_at(
+            (0.0, 0.0, 0.0))),
+    "point_written_in_place": lambda sun, point: point.transform.translation
+    .__setitem__(slice(None), np.float32([-1.0, 1.2, 0.5])),
+    "point_recoloured": lambda sun, point: (
+        point.color.__setitem__(slice(None), np.float32([0.2, 0.4, 1.0])),
+        setattr(point, "intensity", 9.0)),
+}
+
+
+@pytest.mark.parametrize("edit", sorted(LIGHT_EDITS))
+def test_a_light_edit_shades_the_next_frame(ibl, edit):
+    """A light moved or changed between frames, with no spawn or despawn,
+    shades the next frame from where it is and as it is now: the frame
+    equals a fresh prepare's of the edited world (``refresh_lights``
+    rewrites the rows in place, one ``light_rewrites``), and a frame
+    with nothing changed rewrites nothing."""
+    from mo_renderer_tpu_torch.scene.components import PointLight
+    from mo_renderer_tpu_torch.utils import trace
+
+    world = World()
+    world.spawn((Transform.from_xyz(0.0, 0.5, 0.0),
+                 procedural_model("cube", base_color=(1, 0, 0, 1))))
+    world.spawn((Transform.from_xyz(0.0, -0.5, 0.0),
+                 procedural_model("plane", size=8.0)))
+    sun, point = _sun(), PointLight(Transform.from_xyz(1.5, 1.0, -1.0),
+                                    color=(1.0, 0.6, 0.3), intensity=6.0)
+    world.spawn((sun,))
+    world.spawn((point,))
+    r = _renderer(world, ibl, SMALL)
+    f0 = r.render(world)
+    lights = r.scene.lights
+    before = trace.snapshot()["counters"].get("light_rewrites", 0)
+    LIGHT_EDITS[edit](sun, point)
+    f1 = r.render(world)
+    assert not np.array_equal(f0, f1)
+    assert r.scene.lights is lights and r._prepare_count == 1
+    np.testing.assert_array_equal(f1, _renderer(world, ibl, SMALL)
+                                  .render(world))
+    np.testing.assert_array_equal(r.render(world), f1)
+    assert trace.snapshot()["counters"]["light_rewrites"] == before + 1
 
 
 def test_topology_change_is_applied(ibl):

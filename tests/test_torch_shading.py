@@ -12,6 +12,7 @@ import ctypes
 import os
 import re
 import sys
+import types
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -285,17 +286,32 @@ def test_cpu_gbuffer_runs_the_plain_version(ibl, monkeypatch):
     assert torch.equal(got, Sh._shading_fast_plain(*args))
 
 
-def test_shared_memory_limits_follow_the_c_constants():
-    """The limits shade_args checks before a launch are the kernel's own:
-    the light columns it copies to shared memory, their bytes, the
-    specular levels; a light table past them raises on the host."""
+def test_shared_memory_limits_follow_the_c_constants(ibl):
+    """The constants shade_args packs for are the kernel's own: the light
+    columns it copies to shared memory, the rows of the chunk a longer
+    table streams through, the specular levels; a light table past one
+    chunk (539 rows) or two (1025, 1024 point lights and a sun) builds
+    its arguments with every row, and too many levels still raise."""
     consts = {}
     for name, v in re.findall(r"constexpr int (k\w+) = ([^;]+);", _source()):
-        consts[name] = eval(v, {}, dict(consts))
-    assert (consts["kLightCols"], consts["kMaxLightBytes"],
-            consts["kMaxLevels"]) == (Sh.LIGHT_COLS, Sh.MAX_LIGHT_BYTES,
+        consts[name] = eval(v.replace("/", "//"), {}, dict(consts))
+    assert (consts["kLightCols"], consts["kLightChunkRows"],
+            consts["kMaxLevels"]) == (Sh.LIGHT_COLS, Sh.LIGHT_CHUNK_ROWS,
                                       Sh.MAX_LEVELS)
-    n = Sh.MAX_LIGHT_BYTES // (4 * Sh.LIGHT_COLS) + 1
-    with pytest.raises(ValueError, match="lights"):
+    assert Sh.LIGHT_CHUNK_ROWS * Sh.LIGHT_COLS * 4 <= 40 * 1024
+    for n in (Sh.LIGHT_CHUNK_ROWS + 1, 1025):
+        lights = torch.zeros(n + 3, 20)
+        a, keep = Sh.shade_args(*_args(_gbuf(8, 16), torch.rand(8, 16), None,
+                                       64, lights, n, None))
+        assert (a.n_lights, a.light_stride) == (n, 20)
+        assert a.lights == lights.data_ptr() == keep["lights"].data_ptr()
+    mq = ibl.specular_quad
+    extra = Sh.MAX_LEVELS + 1 - mq.num_levels
+    deep = types.SimpleNamespace(**vars(ibl))
+    deep.specular_quad = types.SimpleNamespace(
+        rows=mq.rows, num_levels=Sh.MAX_LEVELS + 1,
+        sizes=list(mq.sizes) + [1] * extra,
+        offsets=list(mq.offsets) + [int(mq.offsets[-1])] * extra)
+    with pytest.raises(ValueError, match="specular levels"):
         Sh.shade_args(*_args(_gbuf(8, 16), torch.rand(8, 16), None, 64,
-                             torch.zeros(n, 20), n, None))
+                             torch.zeros(5, 20), 5, deep))

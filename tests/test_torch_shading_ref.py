@@ -250,9 +250,11 @@ def test_args_read_planes_where_they_are(maps):
 
 
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(maps):
-    """A float64 plane, an SSAO plane on another device, a non-square
-    shadow map and a light table past the shared memory raise before any
-    launch."""
+    """A float64 plane, an SSAO plane on another device and a non-square
+    shadow map raise before any launch; a light table past one chunk of
+    the shared memory (539 rows) or two (1025) builds its arguments, with
+    the chunk's rows, the light columns and the levels the kernel's
+    own."""
     case = _case()
     args = list(_args(maps, case))
     bad = list(args)
@@ -268,9 +270,20 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(maps):
     bad[2] = torch.zeros(SHADOW, SHADOW + 1)
     with pytest.raises(ValueError, match="shadow map"):
         Sh.shade_ref_args(*bad)
-    n = Sh.MAX_LIGHT_BYTES // (4 * Sh.LIGHT_COLS) + 1
-    with pytest.raises(ValueError, match="lights"):
-        Sh.shade_ref_args(*args[:3], torch.zeros(n, 20), n, *args[5:])
+    consts = {}
+    for path in (COMMON, SOURCE):
+        with open(path) as f:
+            for name, v in re.findall(r"constexpr int (k\w+) = ([^;]+);",
+                                      f.read()):
+                consts[name] = eval(v.replace("/", "//"), {}, dict(consts))
+    assert (consts["kLightCols"], consts["kLightChunkRows"],
+            consts["kMaxLevels"]) == (Sh.LIGHT_COLS, Sh.LIGHT_CHUNK_ROWS,
+                                      Sh.MAX_LEVELS)
+    for n in (Sh.LIGHT_CHUNK_ROWS + 1, 1025):
+        lights = torch.zeros(n, 20)
+        a, keep = Sh.shade_ref_args(*args[:3], lights, n, *args[5:])
+        assert (a.n_lights, a.light_stride) == (n, 20)
+        assert a.lights == lights.data_ptr() == keep["lights"].data_ptr()
 
 
 def test_args_refuse_offsets_past_32_bits(maps):

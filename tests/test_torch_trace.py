@@ -1,6 +1,7 @@
 """The port's tracer (``mo_renderer_tpu_torch/utils/trace.py``): spans off
 by default and recorded with their parents and frame ids when on, the
-topology layer's repack spans and full-prepare counter, the count of
+topology layer's repack spans and full-prepare counter, the light rows
+a prepare packs (``light_rows``, the ``pack_lights`` span), the count of
 frames on the reference sampling path, the marker kernel's count against
 the pass list, ``profile_trace`` switching the tracer, and on a card the
 pass markers in the captured frame.
@@ -174,6 +175,33 @@ def test_spawn_despawn_count_repacks_and_a_fallback_counts_a_prepare(
     chain = [spans[prep[1]][0], spans[spans[prep[1]][1]][0]]
     assert chain == ["sync_topology", "render_device"]
     assert _children(spans, spans.index(prep)) == ["pack_scene"]
+
+
+def test_pack_scene_counts_its_light_rows_in_a_pack_lights_span(tracer,
+                                                                 ibl):
+    """``light_rows`` adds each prepare's packed light rows, as many as the
+    world's lights (not the padded table's); with the tracer on the
+    packing lies in a ``pack_lights`` span inside ``pack_scene``."""
+    from mo_renderer_tpu_torch.scene.components import PointLight
+
+    world = _world(ibl)
+    for k in range(6):
+        world.spawn((PointLight(Transform.from_xyz(k - 2.5, 1.5, 0.0),
+                                color=(1.0, 0.5, 0.25), intensity=0.5),))
+    n = sum(1 for t in (DirectionalLight, PointLight)
+            for _ in world.query(t))
+    cfg = scenes.tiny_config(width=128, height=32, max_lights=n)
+    r = Renderer(cfg, "cpu")
+    r.prepare(world)
+    assert trace.snapshot()["counters"]["light_rows"] == n
+    assert trace.snapshot()["spans"] == []
+    trace.enable()
+    r.prepare(world)
+    assert trace.snapshot()["counters"]["light_rows"] == 2 * n
+    assert tuple(r.scene.lights.shape) == (8, 20)  # padded to 4 rows
+    spans = trace.snapshot()["spans"]
+    (pack,) = [s for s in spans if s[0] == "pack_scene"]
+    assert _children(spans, spans.index(pack)) == ["pack_lights"]
 
 
 # (config overrides, a UV-set-1 material, frames counted per frame)
